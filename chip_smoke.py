@@ -7,7 +7,8 @@ sources in the checkout, and fails (non-zero exit, no result line) if
 anything does not build, launch, agree or converge. Phases:
 
 0. the card: torch/CUDA versions and ``nvidia-smi`` name and power limit;
-1. build K1 (``csrc/stencil.cu``) and print the build time and ptxas usage;
+1. build K1 (``csrc/stencil.cu``) and K3 (``csrc/qgrid.cu``), one ``nvcc``
+   each, started together; print the build times and ptxas usage;
 2. K1 against its plain torch twin on the card, at small shapes (p = 2, 3,
    5, 8) and at the main path's shape, in f64, f32 and bf16 storage;
 3. the main path: ``drivers/bp5.run_cycle`` at cycle 33 (12,468,001 DoFs,
@@ -18,7 +19,23 @@ anything does not build, launch, agree or converge. Phases:
    driver's tolerance solve (iterations +-1) and a solve converged to
    1e-12 (L2 norm to 1e-10);
 5. cycle-33 vmult and pcg-merged throughput, K1 against the plain torch
-   separable backend, in turns (plain, kernel, kernel, plain).
+   separable backend, in turns (plain, kernel, kernel, plain);
+6. K3 against its plain torch version on the card, f64 and f32, raw and
+   constrained: the shapes of ``tests/test_pallas_qgrid.py`` (random diag3,
+   full6 and value tables where the JAX test has graded or mapped
+   geometry), BP3's p = 5, q = 7 on 32^3 elements, and the step-64 main
+   shape (refine 6: Q3, Gauss q = 4, const grad + a(x) det table), where
+   K3 and the plain version are timed;
+7. step-64 goldens on K3 in f64: ``drivers/step64.run`` at refine 2 (plain
+   and merged CG: 60 iterations) and refine 4 (227 +- 1);
+8. the main path: step-64 at refine 6 (7,189,057 DoFs) on K3, plain and
+   merged CG in f64 against the refine-6 golden, and plain CG in f32 to
+   1e-6; K3 must have launched; time to solution of each;
+9. the comparator: the plain torch ``structured`` backend and K3 at
+   refine 5 against the refine-5 golden, time to solution of both;
+10. refine-6 vmult throughput, K3 against ``structured``, in turns;
+11. a ``torch.profiler`` trace of 20 plain-CG iterations of the refine-6
+    f64 solve on K3: device time by kernel and the device's busy share.
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -30,6 +47,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # Golden values of the JAX reference, computed on the CPU under x64 with
 #   deal_and_ceed_on_gpu_tpu.drivers.bp5.run_cycle(10, BP5Config(
@@ -65,6 +83,42 @@ SMALL_SHAPES = ((2, 2, 2), (4, 3, 6), (8, 4, 10))
 SMALL_DEGREES = (2, 3, 5, 8)
 DEVICE = "cuda"
 
+# step-64 goldens of the JAX reference (f64, CPU, default structured
+# backend), computed with
+#   deal_and_ceed_on_gpu_tpu.drivers.step64.run(n_refine=n, degree=3,
+#       dtype="float64", use_merged=m)   for m in (False, True)
+# -> refine: (DoFs, iterations, solution L2 norm); plain and merged agree.
+STEP64_GOLDEN = {
+    2: (2_197, 60, 0.020526851356887806),
+    3: (15_625, 114, 0.020526101012361093),
+    4: (117_649, 227, 0.020526081148429312),
+    5: (912_673, 457, 0.02052608071686494),
+    6: (7_189_057, 919, 0.020526080708306978),
+}
+STEP64_MAIN = 6  # 64^3 Q3 elements, the full width of the reference's step-64
+STEP64_COMPARATOR = 5  # the structured torch cell loop's refine
+# K3 against its plain version: tests/test_pallas_qgrid.py's CASES (elements
+# (mx, my, mz), p, q, grad, val; random diag3/full6/table coefficients where
+# the JAX test has graded or mapped geometry), then BP3 (scripts/bench_qgrid.py
+# "bp3": p = 5, q = 7, 32^3 elements, Poisson const)
+K3_CASES = (
+    ((3, 9, 5), 3, 5, "const", None),
+    ((2, 10, 7), 2, 5, "const", None),
+    ((3, 9, 5), 3, 5, "diag3", None),
+    ((3, 9, 5), 3, 5, None, "table"),
+    ((2, 9, 4), 3, 5, "const", "table"),
+    ((3, 9, 5), 3, 5, "full6", None),
+    ((2, 17, 4), 5, 8, "const", None),
+    ((2, 9, 4), 2, 4, "full6", "table"),
+    ((2, 9, 4), 2, 4, "const", "const"),
+    ((32, 32, 32), 5, 7, "const", None),
+)
+K3_TOL = {"f64": 1e-12, "f32": 1e-5}  # of max|want|
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; vector (non
+# tensor-core) f64 34 TFLOP/s, f32 67 TFLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f64": 34e12, "f32": 67e12, "bf16": 67e12}
+
 
 def phase0_device():
     import torch
@@ -82,17 +136,24 @@ def phase0_device():
 
 
 def phase1_build():
-    from deal_and_ceed_on_gpu_torch.ops import stencil
+    from deal_and_ceed_on_gpu_torch.ops import qgrid, stencil
     from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
 
-    t0 = time.perf_counter()
-    lib = build_library(stencil.SOURCE)
-    print(f"phase 1: K1 built in {time.perf_counter() - t0:.1f} s -> {lib.name}")
-    log = lib.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("   ptxas", line.strip())
+    def timed(source):
+        t0 = time.perf_counter()
+        return build_library(source), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(timed, (stencil.SOURCE, qgrid.SOURCE)))
+    for name, (lib, seconds) in zip(("K1", "K3"), builds):
+        print(f"phase 1: {name} built in {seconds:.1f} s -> {lib.name}")
+        lines = lib.with_suffix(".log").read_text().splitlines()
+        regs = [int(l.split("Used ")[1].split()[0]) for l in lines if "registers" in l]
+        spills = [l.strip() for l in lines if "spill" in l and not l.strip().startswith("0 bytes stack frame, 0 bytes spill stores")]
+        print(f"   ptxas: {len(regs)} kernels, registers {min(regs)}..{max(regs)}, "
+              f"{len(spills)} with a stack frame or spills")
+        for line in spills:
+            print("   ptxas", line)
 
 
 def _grid_tensor(shape, dtype, seed):
@@ -174,10 +235,12 @@ def phase2_kernel_vs_twin():
         ms = _time_ms(lambda: stencil_apply(u, tables))
         plain_ms = _time_ms(lambda: stencil_apply_reference(u, tables), n=5)
         bytes_moved = 2 * u.numel() * u.element_size()
+        bound_ms, bound_by = _k1_bound_ms(u.numel(), DEGREE, label)
         print(f"phase 2: cycle {MAIN_CYCLE} grid {tables.shape} p={DEGREE} {label}: "
               f"max abs err {err:.3e} (rel {rel:.3e}); K1 {ms:.4f} ms "
-              f"({bytes_moved / ms / 1e6:.1f} GB/s of ideal traffic), twin {plain_ms:.4f} ms")
-        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+              f"({bytes_moved / ms / 1e6:.1f} GB/s of ideal traffic), twin {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     return main
 
 
@@ -214,6 +277,16 @@ def phase3_main_path():
     if not rel <= 1e-12:
         raise AssertionError(f"f64 stencil apply disagrees with separable: {rel:.3e}")
     return launches
+
+
+def _k1_bound_ms(n, p, label):
+    """The least time of one K1 apply: read u and write out once each, or
+    its operations (2 scalings and 3(2p+1) multiply-adds a point) at the
+    compute type's peak; the larger of the two, and which."""
+    size = {"f64": 8, "f32": 4, "bf16": 2}[label]
+    t_bytes = 2 * n * size / HBM_BYTES_PER_S
+    t_ops = n * (4 + 6 * (2 * p + 1)) / PEAK_FLOPS[label]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase4_golden():
@@ -265,6 +338,225 @@ def phase5_timing():
         print(f"phase 5: cycle {MAIN_CYCLE} {label} {backend:9s} {mode:10s} {tp:.6g} DoF/s")
 
 
+def _k3_tables(elements, p, q, grad, val, dtype, seed):
+    """K3 tables on a uniform brick: const terms from the geometry, random
+    positive diag3/full6/value tables (full6 diagonally dominant)."""
+    import numpy as np
+
+    from deal_and_ceed_on_gpu_torch import Basis1D, BrickMesh, Geometry
+    from deal_and_ceed_on_gpu_torch.ops.qgrid import QGridTables
+
+    rng = np.random.default_rng(seed)
+    mesh = BrickMesh(elements, upper=(1.0, 0.9, 1.2))
+    basis = Basis1D.make(p, q, "gauss")
+    geo = Geometry.from_mesh(mesh, basis)
+    shape = (mesh.n_cells, q**3)
+    gspec = vspec = None
+    if grad == "const":
+        gspec = ("const", geo.const_merged_diag)
+    elif grad == "diag3":
+        gspec = ("diag3", 0.5 + rng.random(shape + (3,)))
+    elif grad == "full6":
+        c = 0.2 * rng.random(shape + (6,))
+        c[..., (0, 3, 5)] += 1.0
+        gspec = ("full6", c)
+    if val == "const":
+        vspec = ("const", 2.0 * geo.det_j)
+    elif val == "table":
+        vspec = ("table", (0.5 + rng.random(shape)) * geo.det_q_full())
+    return QGridTables.create(mesh, basis, dtype, grad=gspec, val=vspec, device=DEVICE)
+
+
+def _k3_compare(tables, label, constrained, seed):
+    """K3 against its plain version on one table set; returns (max abs err,
+    relative error, u) and asserts the bound and the identity faces."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.qgrid import qgrid_apply, qgrid_apply_reference
+
+    u = torch.as_tensor(np.random.default_rng(seed).standard_normal(tables.shape), dtype=tables.dtype, device=DEVICE)
+    got = qgrid_apply(u, tables, constrained)
+    torch.cuda.synchronize()
+    want = qgrid_apply_reference(u, tables, constrained)
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-300)
+    faces_ok = True
+    if constrained:
+        for sl in ((0,), (-1,), (slice(None), 0), (slice(None), -1), (slice(None), slice(None), 0),
+                   (slice(None), slice(None), -1)):
+            faces_ok = faces_ok and torch.equal(got[sl], u[sl])
+    if not (rel <= K3_TOL[label] and faces_ok):
+        raise AssertionError(f"K3 disagrees with its plain version: grid {tables.shape} p={tables.p} "
+                             f"q={tables.q} {label} constrained={constrained}: max abs {err:.3e}, "
+                             f"rel {rel:.3e}, faces equal {faces_ok}")
+    return err, rel, u
+
+
+def _k3_bound_ms(tables, label):
+    """The least time of one K3 apply with const grad and a value table:
+    read u, the table and write out once each, or the operations of the
+    sum factorization (2(2 q P^3 + 3 q^2 P^2 + 4 q^3 P) multiply-adds an
+    element, P = p + 1, and 4 products a q point) at the type's peak."""
+    import math as m
+
+    size = 8 if label == "f64" else 4
+    n, nq = m.prod(tables.shape), m.prod(tables.q_shape)
+    p1, q = tables.p + 1, tables.q
+    n_el = m.prod(tables.n_elements)
+    flops = n_el * (4 * (2 * q * p1**3 + 3 * q**2 * p1**2 + 4 * q**3 * p1) + 4 * q**3)
+    t_bytes = (2 * n + nq) * size / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[label]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", (2 * n + nq) * size
+
+
+def phase6_k3_vs_plain():
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, HelmholtzOperator
+    from deal_and_ceed_on_gpu_torch.ops.qgrid import qgrid_apply, qgrid_apply_reference
+
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    for i, (elements, p, q, grad, val) in enumerate(K3_CASES):
+        for label, dtype in dtypes.items():
+            tables = _k3_tables(elements, p, q, grad, val, dtype, seed=i)
+            for constrained in (False, True):
+                err, rel, _ = _k3_compare(tables, label, constrained, seed=i)
+                print(f"phase 6: elements {elements} p={p} q={q} grad={grad} val={val} {label} "
+                      f"constrained={constrained}: max abs err {err:.3e} (rel {rel:.3e})")
+    main = {}
+    mesh = BrickMesh.hyper_cube().refine_global(STEP64_MAIN)
+    for label, dtype in dtypes.items():
+        space = FESpace.create(mesh, 3, rule="gauss", dtype=dtype, device=DEVICE)
+        tables = HelmholtzOperator(space, backend="qgrid")._qgrid
+        for constrained in (False, True):
+            err, rel, u = _k3_compare(tables, label, constrained, seed=7)
+        ms = _time_ms(lambda: qgrid_apply(u, tables, True))
+        plain_ms = _time_ms(lambda: qgrid_apply_reference(u, tables, True), n=5)
+        bound_ms, bound_by, ideal = _k3_bound_ms(tables, label)
+        print(f"phase 6: step-64 refine {STEP64_MAIN} grid {tables.shape} q grid {tables.q_shape} {label}: "
+              f"max abs err {err:.3e} (rel {rel:.3e}); K3 {ms:.4f} ms ({ideal / ms / 1e6:.1f} GB/s of ideal "
+              f"traffic), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return main
+
+
+def _step64(n_refine, **kw):
+    """One step-64 solve; returns the driver's result and K3's launches."""
+    from deal_and_ceed_on_gpu_torch.drivers import step64
+    from deal_and_ceed_on_gpu_torch.ops import qgrid
+
+    qgrid.LAUNCHES = 0
+    r = step64.run(n_refine, device=DEVICE, **kw)
+    return r, qgrid.LAUNCHES
+
+
+def _check_golden(tag, r, n_refine, it_slack):
+    dofs, it_g, l2_g = STEP64_GOLDEN[n_refine]
+    rel = abs(r["l2_norm"] - l2_g) / l2_g
+    print(f"{tag}: refine {n_refine} ({r['space'].n_dofs} DoFs): {r['n_iterations']} iterations (golden {it_g}), "
+          f"L2 norm {r['l2_norm']:.17g} (golden {l2_g:.17g}, rel {rel:.2e}), solve {r['seconds']:.4f} s")
+    if r["space"].n_dofs != dofs or abs(r["n_iterations"] - it_g) > it_slack or not rel <= 1e-10:
+        raise AssertionError(f"{tag}: step-64 golden at refine {n_refine} failed")
+
+
+def phase7_step64_golden():
+    for n_refine, slack in ((2, 0), (4, 1)):
+        for merged in (False, True):
+            r, launches = _step64(n_refine, use_merged=merged)
+            _check_golden(f"phase 7: K3 f64 {'merged' if merged else 'plain'} CG", r, n_refine, slack)
+            if launches == 0:
+                raise AssertionError("phase 7: step-64 never launched K3")
+
+
+def phase8_main_path():
+    """step-64 at full width on K3; returns K3's launches per precision."""
+    launches = {"f64": 0}
+    for merged in (False, True):
+        r, n = _step64(STEP64_MAIN, use_merged=merged)
+        launches["f64"] += n
+        _check_golden(f"phase 8: K3 f64 {'merged' if merged else 'plain'} CG", r, STEP64_MAIN, 2)
+        print(f"phase 8: K3 launches {n}, time to solution {r['seconds']:.4f} s")
+    # f32 to the reduction f32 can reach
+    r, launches["f32"] = _step64(STEP64_MAIN, dtype="float32", rtol=1e-6)
+    l2_g = STEP64_GOLDEN[STEP64_MAIN][2]
+    rel = abs(r["l2_norm"] - l2_g) / l2_g
+    print(f"phase 8: K3 f32 plain CG to 1e-6: {r['n_iterations']} iterations, L2 norm {r['l2_norm']:.9g} "
+          f"(rel {rel:.2e} to the f64 golden), {launches['f32']} launches, solve {r['seconds']:.4f} s")
+    if not (math.isfinite(r["l2_norm"]) and rel <= 1e-4):
+        raise AssertionError("phase 8: the f32 step-64 solve is off")
+    for label, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"phase 8: the {label} main path never launched K3")
+    return launches
+
+
+def phase9_comparator():
+    n_refine = STEP64_COMPARATOR
+    for backend in ("structured", "qgrid"):
+        r, _ = _step64(n_refine, backend=backend)
+        _check_golden(f"phase 9: {backend} f64 plain CG", r, n_refine, 1)
+
+
+def phase10_throughput():
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, HelmholtzOperator
+    from deal_and_ceed_on_gpu_torch.utils.timer import Timer
+
+    space = FESpace.create(BrickMesh.hyper_cube().refine_global(STEP64_MAIN), 3, rule="gauss",
+                           dtype=torch.float64, device=DEVICE)
+    ops = {b: HelmholtzOperator(space, backend=b) for b in ("structured", "qgrid")}
+    u0 = torch.as_tensor(np.random.default_rng(3).standard_normal(space.n_dofs), device=DEVICE)
+    n_apply = 20
+    best = {}
+    for backend in ("structured", "qgrid", "qgrid", "structured"):
+        op = ops[backend]
+        op.vmult(u0)
+        torch.cuda.synchronize()
+        t = Timer().start()
+        for _ in range(n_apply):
+            v = op.vmult(u0)
+        t.stop(fence=v)
+        best[backend] = max(best.get(backend, 0.0), space.n_dofs * n_apply / t.elapsed)
+    for backend, tp in best.items():
+        print(f"phase 10: refine {STEP64_MAIN} f64 vmult {backend:10s} {tp:.6g} DoF/s")
+
+
+def phase11_profile():
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, HelmholtzOperator, IterationNumberControl, solve_cg
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+
+    space = FESpace.create(BrickMesh.hyper_cube().refine_global(STEP64_MAIN), 3, rule="gauss",
+                           dtype=torch.float64, device=DEVICE)
+    op = HelmholtzOperator(space, backend="qgrid")
+    b = assemble_rhs(space, 1.0)
+    n_it = 20
+    control = IterationNumberControl(n_it, 0.0)
+    solve_cg(op.vmult, b, control)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        x, _ = solve_cg(op.vmult, b, control)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only (the CPU ops that launched them carry the
+    # same device time again)
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in rows) / 1e6
+    print(f"phase 11: {n_it} plain-CG iterations, refine {STEP64_MAIN} f64 on K3 under the profiler: wall "
+          f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (busy share {busy / wall:.3f}; the profiler's "
+          f"own host cost makes the idle share an upper bound)")
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"phase 11:   {t / 1e3 / n_it:8.4f} ms/iteration  {n:5d} calls  {key[:90]}")
+
+
 def main():
     smi = phase0_device()
     phase1_build()
@@ -272,22 +564,39 @@ def main():
     launches = phase3_main_path()
     phase4_golden()
     phase5_timing()
+    k3 = phase6_k3_vs_plain()
+    phase7_step64_golden()
+    k3_launches = phase8_main_path()
+    phase9_comparator()
+    phase10_throughput()
+    phase11_profile()
     import torch
 
-    print(f"card: {smi}")
-    print(json.dumps({"kernels": [
+    records = [
         {
             "name": f"stencil_k1_{label}",
             "route": "cuda",
             "source": "deal_and_ceed_on_gpu_torch/csrc/stencil.cu",
             "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py:443",
             "launches": launches[label],
-            "max_abs_err": kernel[label]["max_abs_err"],
-            "ms": kernel[label]["ms"],
-            "plain_ms": kernel[label]["plain_ms"],
+            **kernel[label],
+            "library_ms": None,
         }
         for label, _, _ in PRECISIONS
-    ]}))
+    ] + [
+        {
+            "name": f"qgrid_k3_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/qgrid.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_qgrid.py:347",
+            "launches": k3_launches[label],
+            **k3[label],
+            "library_ms": None,
+        }
+        for label in ("f64", "f32")
+    ]
+    print(f"card: {smi}")
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -1,7 +1,7 @@
 """deal_and_ceed_on_gpu_torch — the PyTorch + CUDA port of deal_and_ceed_on_gpu_tpu.
 
-A matrix-free high-order FEM framework (CEED bake-off problem BP5 so far)
-for NVIDIA Hopper: plain PyTorch for the tensor code, hand-written CUDA
+A matrix-free high-order FEM framework (CEED bake-off problem BP5 and the
+step-64 Helmholtz problem so far) for NVIDIA Hopper: plain PyTorch for the tensor code, hand-written CUDA
 kernels for the hot operator apply (``csrc/``, built with ``nvcc`` at first
 use). Module names mirror the JAX package, which stays the reference. The
 port never imports jax; the host-side numpy modules are its own copies.
@@ -9,15 +9,19 @@ port never imports jax; the host-side numpy modules are its own copies.
 Layer map:
   L0  mesh/dof/geometry     -> mesh.py, basis.py, geometry.py, fe_space.py
   L2  matrix-free kernels   -> ops/ (sum_factorization, local_global,
-                               separable, stencil + csrc/stencil.cu)
-  L3  operators + solvers   -> models/, solvers/
-  L4  drivers               -> drivers/bp5.py
+                               separable, stencil + csrc/stencil.cu (K1),
+                               qgrid + csrc/qgrid.cu (K3))
+  L3  operators + solvers   -> models/ (poisson, helmholtz), solvers/
+  L4  drivers               -> drivers/bp5.py, drivers/step64.py
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from .basis import Basis1D, gauss_lobatto_points, gauss_points
 from .fe_space import FESpace
 from .geometry import Geometry
 from .mesh import BrickMesh
+from .models.helmholtz import HelmholtzOperator
 from .models.poisson import PoissonOperator
 from .solvers import (
     IterationNumberControl,
@@ -33,6 +37,7 @@ __all__ = [
     "BrickMesh",
     "Geometry",
     "FESpace",
+    "HelmholtzOperator",
     "PoissonOperator",
     "SolverControl",
     "IterationNumberControl",

@@ -29,7 +29,7 @@ class FESpace:
     mesh: BrickMesh
     basis: Basis1D
     dtype: torch.dtype = torch.float32
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
 
     @staticmethod
     def create(
@@ -38,7 +38,7 @@ class FESpace:
         n_q: int | None = None,
         rule: str = "gauss_lobatto",
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device="cuda",
     ) -> "FESpace":
         return FESpace(mesh, Basis1D.make(degree, n_q, rule), dtype, torch.device(device))
 

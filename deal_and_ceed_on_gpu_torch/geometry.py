@@ -5,7 +5,8 @@ Host copy of the brick path of ``deal_and_ceed_on_gpu_tpu/geometry.py``
 ``bp5/step-64.cu:60-114``): on an axis-aligned brick the Jacobian is
 diagonal, so the merged coefficient ``C(q) = JxW(q) * J^{-1} J^{-T}`` is
 ``det(J) * w3d(q) * diag(1/h^2)`` — on a uniform brick three scalars, on a
-graded one a per-element diagonal. Mapped meshes are not ported yet.
+graded one a per-element diagonal (``merged_diag_per_cell``). Mapped meshes
+and the six-plane ``merged_coef_full`` table are not ported yet.
 """
 
 from __future__ import annotations
@@ -74,10 +75,24 @@ class Geometry:
         hx, hy, hz = self.mesh.h_axes()
         return (hz[:, None, None] * hy[None, :, None] * hx[None, None, :]).reshape(-1)
 
+    def merged_diag_per_cell(self) -> np.ndarray:
+        """[n_cells, 3] diag of det(J_e) J_e^{-1} J_e^{-T}: per-axis
+        (hy hz / hx, hx hz / hy, hx hy / hz)."""
+        hx, hy, hz = self.mesh.h_axes()
+        HX, HY, HZ = hx[None, None, :], hy[None, :, None], hz[:, None, None]
+        return np.stack(
+            [(HY * HZ / HX).reshape(-1), (HX * HZ / HY).reshape(-1), (HX * HY / HZ).reshape(-1)],
+            axis=-1,
+        )
+
+    def det_q_full(self) -> np.ndarray:
+        """``[n_cells, n_q]`` det(J) per qpoint (constant per brick cell)."""
+        return np.broadcast_to(self.det_per_cell()[:, None], (self.mesh.n_cells, self.n_q))
+
     def jxw_full(self, dtype=np.float64) -> np.ndarray:
         """``[n_cells, n_q]`` JxW table."""
         w = self.w3d.reshape(-1)
-        return (self.det_per_cell()[:, None] * w[None, :]).astype(dtype)
+        return (self.det_q_full() * w[None, :]).astype(dtype)
 
     def q_points_phys(self) -> np.ndarray:
         """``[n_cells, n_q, 3]`` physical quadrature points, cell order

@@ -1,0 +1,115 @@
+"""step-64 Helmholtz operator: dst = (-laplace + a(x)) src.
+
+Counterpart of ``deal_and_ceed_on_gpu_tpu/models/helmholtz.py`` and of the
+reference's ``HelmholtzOperator`` + ``LocalHelmholtzOperator``
+(``step-64/step-64.cu:131-311``): evaluate values and gradients, submit
+``a(x) u JxW`` and ``JxW J^{-1} J^{-T} grad u``, integrate both. The
+coefficient ``a(x) = 10 / (0.05 + 2|x|^2)`` (``step-64/step-64.cu:96-118``)
+is evaluated once at set-up over the physical quadrature points. Backends:
+
+- ``structured``: the torch cell loop with values and gradients, uniform
+  bricks (the plain comparator on the card);
+- ``separable``: GLL collocation only: the Poisson Kronecker terms plus the
+  assembled ``a JxW`` diagonal;
+- ``qgrid``: K3 (``ops/qgrid.py``) with grad ``const`` and the ``a(x_q) det``
+  value table, uniform bricks, any Gauss-type rule: the reference's native
+  step-64 configuration (Q3, Gauss q = 4).
+
+The JAX backends ``pallas`` (K1's value term) and ``pallas_general`` (K4)
+are not ported yet (ROADMAP §2).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+
+from ..fe_space import FESpace
+from .operator_base import MatrixFreeOperator, tensor_product_diagonal
+
+__all__ = ["HelmholtzOperator", "default_coefficient"]
+
+_NOT_PORTED = {
+    "pallas": "the collocated Helmholtz kernel (K1's value term)",
+    "stencil": "the collocated Helmholtz kernel (K1's value term)",
+    "pallas_general": "the element-major kernel K4",
+}
+
+
+def default_coefficient(x: np.ndarray) -> np.ndarray:
+    """a(x) = 10 / (0.05 + 2 |x|^2)  (step-64/step-64.cu:96-118)."""
+    return 10.0 / (0.05 + 2.0 * np.sum(x * x, axis=-1))
+
+
+class HelmholtzOperator(MatrixFreeOperator):
+    needs_values = True
+    needs_gradients = True
+
+    def __init__(
+        self,
+        space: FESpace,
+        backend: str = "structured",
+        coefficient_fn: Callable[[np.ndarray], np.ndarray] = default_coefficient,
+    ):
+        if backend in _NOT_PORTED:
+            raise ValueError(
+                f"Helmholtz backend {backend!r} needs {_NOT_PORTED[backend]}, not ported yet "
+                "(ROADMAP §2); use structured, separable or qgrid"
+            )
+        super().__init__(space, backend)
+        geo = space.geometry
+        a_q = np.asarray(coefficient_fn(geo.q_points_phys()), dtype=np.float64)
+        self._a_q_raw = a_q  # [n_cells, n_q], kept for compute_diagonal
+        if backend == "separable":
+            # the varying-coefficient mass term is a global diagonal when the
+            # quadrature points are the nodes
+            if not space.basis.collocation:
+                raise ValueError(
+                    "separable Helmholtz requires GLL collocation (the Gauss-rule "
+                    "mass term with varying a(x) is not separable)"
+                )
+            from ..ops.separable import poisson_terms
+
+            dvec = np.zeros(space.n_dofs)
+            np.add.at(dvec, space.mesh.element_dof_map(space.degree).reshape(-1), (a_q * geo.jxw_full()).reshape(-1))
+            self._sep_terms = poisson_terms(space.mesh, space.basis, space.dtype, space.device) + [
+                {"coef": 1.0, "band": [], "diag": space.tensor(dvec.reshape(space.grid_shape))}
+            ]
+            return
+        if not geo.uniform:
+            raise ValueError(f"{backend} Helmholtz: uniform bricks only (graded and mapped bricks wait for slice D)")
+        if backend == "qgrid":
+            from ..ops.qgrid import QGridTables
+
+            self._qgrid = QGridTables.create(
+                space.mesh, space.basis, space.dtype,
+                grad=("const", geo.const_merged_diag), val=("table", a_q * geo.det_q_full()),
+                device=space.device,
+            )
+            return
+        # structured: fold JxW into the value coefficient, a(x_q) * JxW(e, q)
+        self._coef_val = space.tensor(self.to_layout(a_q * geo.jxw_full()))
+        self._cdiag = geo.const_merged_diag
+        self._w3d = space.tensor(self.w3d_layout())
+
+    def _apply_fold_scale(self, s: float) -> None:
+        if self.backend == "structured":
+            self._coef_val = self._coef_val * s
+            self._cdiag = tuple(c * s for c in self._cdiag)
+            return
+        super()._apply_fold_scale(s)
+
+    def _compute_diagonal(self):
+        return tensor_product_diagonal(self.space, gradient=True, value_q=self._a_q_raw)
+
+    def weak_form(self):
+        """``(gradient, value_q, value_const)``, as
+        :func:`tensor_product_diagonal` takes them."""
+        return True, self._a_q_raw, None
+
+    def quad_point_op(self, vals, grads):
+        gx, gy, gz = grads
+        cx, cy, cz = self._cdiag
+        w = self._w3d
+        return vals * self._coef_val, (gx * (cx * w), gy * (cy * w), gz * (cz * w))

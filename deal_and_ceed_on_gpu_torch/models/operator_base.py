@@ -16,6 +16,8 @@ Backends:
 - ``separable``: the Kronecker form of ``ops/separable.py`` (subclasses fill
   ``_sep_terms``).
 - ``stencil``: K1 (``ops/stencil.py``), set up by ``PoissonOperator``.
+- ``qgrid``: K3 (``ops/qgrid.py``), set up by ``PoissonOperator`` and
+  ``HelmholtzOperator``; one ``vmult`` is one constrained K3 apply.
 
 ``stream_dtype``: the dtype of the vectors ``vmult`` takes and returns
 (bfloat16 halves their bytes); the apply computes at the space's dtype.
@@ -33,9 +35,9 @@ from ..fe_space import FESpace
 from ..ops import local_global as lg
 from ..ops import sum_factorization as sf
 
-__all__ = ["MatrixFreeOperator", "assemble_rhs", "l2_norm_function"]
+__all__ = ["MatrixFreeOperator", "assemble_rhs", "l2_norm_function", "tensor_product_diagonal"]
 
-_LAYOUT_AXES = {"structured": (1, 3, 5), "separable": None, "stencil": None}
+_LAYOUT_AXES = {"structured": (1, 3, 5), "separable": None, "stencil": None, "qgrid": None}
 
 
 class MatrixFreeOperator:
@@ -57,6 +59,11 @@ class MatrixFreeOperator:
         # separable backend: subclasses that support it fill _sep_terms
         self._sep_terms = None
         self.sep_mode = "matmul"
+        # accumulated fold_scale factor; compute_diagonal applies it so a
+        # Jacobi preconditioner built after fold_scale matches the operator
+        self._fold_factor = 1.0
+        # qgrid backend: subclasses that support it fill _qgrid (K3 tables)
+        self._qgrid = None
 
     # -------------------------- subclass hook ------------------------- #
     def quad_point_op(self, vals, grads):
@@ -107,6 +114,10 @@ class MatrixFreeOperator:
     def apply_cell_loop(self, u_flat: torch.Tensor) -> torch.Tensor:
         """The raw cell loop (no constraint handling): reference L-2."""
         s = self.space
+        if self.backend == "qgrid":
+            from ..ops.qgrid import qgrid_apply
+
+            return qgrid_apply(u_flat.reshape(s.grid_shape), self._qgrid).reshape(-1)
         if self.backend == "separable":
             from ..ops.separable import apply_separable
 
@@ -128,6 +139,12 @@ class MatrixFreeOperator:
         (``bp5/step-64.cu:263-276``); returns a fresh ``stream_dtype`` dst."""
         s = self.space
         src = src.to(s.dtype)
+        if self.backend == "qgrid":
+            from ..ops.qgrid import qgrid_apply
+
+            # K3's constrained mode: M A M and the identity rows in one launch
+            out = qgrid_apply(src.reshape(s.grid_shape), self._qgrid, constrained=True)
+            return out.reshape(-1).to(self.stream_dtype)
         dst = self.apply_cell_loop(s.zero_constrained_values(src))
         return s.copy_constrained_values(src, dst).to(self.stream_dtype)
 
@@ -139,7 +156,15 @@ class MatrixFreeOperator:
         rows (identity rows unaffected). The chained-vmult benchmark folds
         its ``1/lambda_est`` normalization into the coefficient tables so
         each step is one pure apply (``bp5/step-64.cu:519-548`` pays no
-        rescaling pass either). Subclasses rescale their own tables."""
+        rescaling pass either)."""
+        self._apply_fold_scale(s)
+        self._fold_factor *= s
+
+    def _apply_fold_scale(self, s: float) -> None:
+        """Subclass hook: rescale the coefficient tables by ``s``."""
+        if self._qgrid is not None:
+            self._qgrid.fold_scale(s)
+            return
         if self._sep_terms is not None:
             for t in self._sep_terms:
                 t["coef"] = t["coef"] * s
@@ -152,16 +177,74 @@ class MatrixFreeOperator:
         s = self.space
         return torch.ones((s.n_dofs,), dtype=s.dtype, device=s.device)
 
+    def compute_diagonal(self) -> torch.Tensor:
+        """Exact diagonal of the constrained operator (1.0 on Dirichlet
+        rows), consistent with any accumulated :meth:`fold_scale` factor.
+        Subclasses implement :meth:`_compute_diagonal`."""
+        d = self._compute_diagonal()
+        if self._fold_factor != 1.0:
+            # fold_scale rescales unconstrained rows only
+            d = torch.where(self.space.dirichlet_mask, d, self._fold_factor * d)
+        return d
+
+    def _compute_diagonal(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def jacobi_preconditioner(self) -> torch.Tensor:
+        """1/diag(A) with identity on constrained rows, for the ``diag``
+        slot of the CG solvers."""
+        return 1.0 / self.compute_diagonal()
+
+
+def tensor_product_diagonal(
+    space: FESpace, gradient: bool = False, value_q: np.ndarray | None = None
+) -> torch.Tensor:
+    """diag(A) on a uniform or graded brick (copy of the JAX package's
+    brick path): the per-element local diagonal separates into 1D
+    quadrature sums ``m1_a = sum_q w_q S[q,a]^2``, ``k1_a = sum_q w_q
+    D[q,a]^2`` weighted by the per-element merged coefficient; a varying
+    value coefficient ``value_q [n_cells, n_q]`` is contracted axis by
+    axis. Host numpy, one scatter-add, Dirichlet rows pinned to 1."""
+    basis, geo = space.basis, space.geometry
+    S2, D2, w = basis.S**2, basis.D**2, basis.q_weights
+    m1 = np.einsum("q,qa->a", w, S2)
+    k1 = np.einsum("q,qa->a", w, D2)
+    p1 = basis.n_dofs
+    n_cells = space.mesh.n_cells
+    local_e = np.zeros((n_cells, p1, p1, p1))
+    if gradient:
+        md = geo.merged_diag_per_cell()  # [E, 3] in (x, y, z) order
+        local_e += md[:, 0, None, None, None] * np.einsum("k,j,i->kji", m1, m1, k1)
+        local_e += md[:, 1, None, None, None] * np.einsum("k,j,i->kji", m1, k1, m1)
+        local_e += md[:, 2, None, None, None] * np.einsum("k,j,i->kji", k1, m1, m1)
+    if value_q is not None:
+        det_e = geo.det_per_cell()[:, None, None, None]
+        q = basis.n_q
+        aq = value_q.reshape(n_cells, q, q, q)
+        t = np.einsum("ezyx,xi->ezyi", aq, w[:, None] * S2, optimize=True)
+        t = np.einsum("ezyi,yj->ezji", t, w[:, None] * S2, optimize=True)
+        local_e = local_e + det_e * np.einsum("ezji,zk->ekji", t, w[:, None] * S2, optimize=True)
+    diag = np.zeros(space.n_dofs)
+    np.add.at(diag, space.mesh.element_dof_map(space.degree).reshape(-1), local_e.reshape(-1))
+    diag[space.mesh.boundary_dof_mask(space.degree)] = 1.0
+    return space.tensor(diag)
+
 
 # --------------------------------------------------------------------- #
 # RHS assembly and validation norms (reference L-17 / L-18)
 # --------------------------------------------------------------------- #
 def assemble_rhs(
-    space: FESpace, f: float | Callable[[np.ndarray], np.ndarray] = 1.0
+    space: FESpace,
+    f: float | Callable[[np.ndarray], np.ndarray] = 1.0,
+    backend: str = "structured",
 ) -> torch.Tensor:
     """Assemble the load vector b_i = integral(f * phi_i), zeroing constrained
     rows, with the structured cell loop's integrate/scatter (the reference
-    runs a host FEValues loop, ``bp5/step-64.cu:372-418``)."""
+    runs a host FEValues loop, ``bp5/step-64.cu:372-418``). ``backend`` is
+    the operator's; the other backends are vmult-only, and assembly, a
+    one-time set-up cost, always runs through the structured loop."""
+    if backend not in _LAYOUT_AXES:
+        raise ValueError(f"unknown backend {backend!r}")
     op = MatrixFreeOperator(space, "structured")
     geo = space.geometry
     if callable(f):

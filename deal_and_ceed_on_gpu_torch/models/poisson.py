@@ -9,7 +9,9 @@ reference's ``LocalPoissonOperator`` + ``PoissonOperator``
 - ``separable``: the Kronecker form (uniform or graded bricks);
 - ``stencil``: K1, the hand-written CUDA kernel (``ops/stencil.py``) on a
   uniform brick with GLL collocation; the counterpart of the JAX
-  ``backend="pallas"`` on a collocated basis.
+  ``backend="pallas"`` on a collocated basis;
+- ``qgrid``: K3 (``ops/qgrid.py``), any Gauss-type rule (q = p+1, p+2) on
+  a uniform brick, grad ``const``; the JAX ``backend="pallas_qgrid"``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,16 @@ class PoissonOperator(MatrixFreeOperator):
         stream_dtype: torch.dtype | None = None,
     ):
         super().__init__(space, backend, stream_dtype)
+        if backend == "qgrid":
+            from ..ops.qgrid import QGridTables
+
+            geo = space.geometry
+            if not geo.uniform:
+                raise ValueError("qgrid Poisson: uniform bricks only (graded diag3 waits for mapped geometry)")
+            self._qgrid = QGridTables.create(
+                space.mesh, space.basis, space.dtype, grad=("const", geo.const_merged_diag), device=space.device
+            )
+            return
         if backend == "stencil":
             from ..ops.stencil import StencilTables
 
@@ -64,7 +76,7 @@ class PoissonOperator(MatrixFreeOperator):
             return stencil_apply(u, self._stencil).reshape(-1)
         return super().vmult(src)
 
-    def fold_scale(self, s: float) -> None:
+    def _apply_fold_scale(self, s: float) -> None:
         if self.backend == "stencil":
             # scales the device band tables the kernel reads
             self._stencil.scale_(s)
@@ -72,7 +84,12 @@ class PoissonOperator(MatrixFreeOperator):
         if self.backend == "structured":
             self._cdiag = tuple(c * s for c in self._cdiag)
             return
-        super().fold_scale(s)
+        super()._apply_fold_scale(s)
+
+    def _compute_diagonal(self) -> torch.Tensor:
+        from .operator_base import tensor_product_diagonal
+
+        return tensor_product_diagonal(self.space, gradient=True)
 
     def quad_point_op(self, vals, grads):
         gx, gy, gz = grads

@@ -1,0 +1,332 @@
+"""K3, the q-grid operator apply: host tables, CUDA wrapper, plain version.
+
+Counterpart of ``deal_and_ceed_on_gpu_tpu/ops/pallas_qgrid.py``: the cell
+loop of a Gauss-type rule (q >= p+1) on a brick, computed without an
+element-major layout. Per axis the node -> quadrature map is block-diagonal
+over elements (element ``e`` reads nodes ``e*p .. e*p+p`` and owns q points
+``e*q .. e*q+q-1``), so
+
+    nodal grid u --S/D per axis--> q grid --coefficients--> q grid
+                 <--weighted transposes, summed over shared nodes--
+
+with gradients ``gx = Sz Sy Dx u``, ``gy = Sz Dy Sx u``, ``gz = Dz Sy Sx u``
+and values ``v = Sz Sy Sx u``. The coefficients are weightless (the
+quadrature weights are folded into the backward tables):
+
+- grad ``const`` (three scalars ``det * diag(J^{-1} J^{-T})`` on a uniform
+  brick), ``diag3`` or ``full6`` (streamed tables, symmetric order xx xy xz
+  yy yz zz);
+- val ``const`` (``c * det``) or ``table`` (``a(x_q) * det`` per q point).
+
+Layout, chosen by the port: vectors are the unpadded nodal grid
+``[nz, ny, nx]`` (z slowest, the real-DoF order of both packages); q-grid
+tables are ``C [K, mz*q, my*q, mx*q]`` and ``a_q [mz*q, my*q, mx*q]`` with
+element ``(ez, ey, ex)``, q point ``(rz, ry, rx)`` at ``[ez*q+rz, ey*q+ry,
+ex*q+rx]``. That is the TPU's ``[K, ZQ, YQ, MXQ]`` without its block and
+128-lane padding (``utils/convert.qgrid_tables_from_jax`` slices it).
+
+``qgrid_apply`` launches the CUDA kernel (``csrc/qgrid.cu``) for a CUDA
+tensor and calls the plain version ``qgrid_apply_reference`` for a CPU
+tensor; ``LAUNCHES`` counts kernel launches. ``constrained=True`` is the
+operator's ``vmult``: ``M A M`` plus identity rows on the six boundary
+faces, in the one launch. f32 products in the plain version run in full
+f32 (``sum_factorization`` pins ``allow_tf32 = False``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .sum_factorization import sweep
+
+__all__ = [
+    "LAUNCHES",
+    "SOURCE",
+    "QGridTables",
+    "qgrid_apply",
+    "qgrid_apply_reference",
+    "qgrid_tables_np",
+]
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "qgrid.cu"
+MAX_DEGREE = 8
+Q_OFFSETS = (1, 2, 3)  # q - p of the rules the kernel is built for
+
+GRAD_KINDS = {None: 0, "const": 1, "diag3": 2, "full6": 3}
+VAL_KINDS = {None: 0, "const": 1, "table": 2}
+_GRAD_PLANES = {2: 3, 3: 6}
+
+# kernel launches made by qgrid_apply (a run resets it to 0 to count its own)
+LAUNCHES = 0
+
+_DTYPE_CODES = {torch.float64: 0, torch.float32: 1}
+
+
+def _to_qgrid(tab: np.ndarray, n_elements, q: int) -> np.ndarray:
+    """``[E, n_q, K]`` (cell order ez, ey, ex; q order qz, qy, qx) ->
+    ``[K, mz*q, my*q, mx*q]``."""
+    mx, my, mz = n_elements
+    K = tab.shape[-1]
+    t = tab.reshape(mz, my, mx, q, q, q, K)
+    return np.ascontiguousarray(t.transpose(6, 0, 3, 1, 4, 2, 5)).reshape(K, mz * q, my * q, mx * q)
+
+
+def qgrid_tables_np(mesh, basis, grad=None, val=None) -> dict:
+    """K3's host tables in float64, from the JAX-style term specs
+    ``grad = (mode, data)`` with mode ``const`` (three scalars in x, y, z
+    order), ``diag3`` (``[E, n_q, 3]``) or ``full6`` (``[E, n_q, 6]``), and
+    ``val = (mode, data)`` with mode ``const`` (a scalar) or ``table``
+    (``[E, n_q]``); the data are weightless, as ``QGridLayout`` takes them."""
+    p, q = basis.degree, basis.n_q
+    if not (1 <= p <= MAX_DEGREE and q - p in Q_OFFSETS):
+        raise ValueError(f"qgrid kernel: built for p = 1..{MAX_DEGREE}, q - p in {Q_OFFSETS}; got p={p}, q={q}")
+    out = {
+        "p": p, "q": q, "n_elements": tuple(mesh.n_elements),
+        "S": np.asarray(basis.S, dtype=np.float64), "D": np.asarray(basis.D, dtype=np.float64),
+        "w": np.asarray(basis.q_weights, dtype=np.float64),
+        "grad_kind": 0, "val_kind": 0, "c_grad": (0.0, 0.0, 0.0), "c_val": 0.0, "C": None, "a_q": None,
+    }
+    if grad is not None:
+        mode, data = grad
+        if mode not in ("const", "diag3", "full6"):
+            raise ValueError(f"unknown grad mode {mode!r}")
+        out["grad_kind"] = GRAD_KINDS[mode]
+        if mode == "const":
+            if not mesh.is_uniform:
+                raise ValueError("const grad coefficients require a uniform brick (use diag3)")
+            out["c_grad"] = tuple(float(c) for c in data)
+        else:
+            out["C"] = _to_qgrid(np.asarray(data, dtype=np.float64), mesh.n_elements, q)
+    if val is not None:
+        mode, data = val
+        if mode not in ("const", "table"):
+            raise ValueError(f"unknown val mode {mode!r}")
+        out["val_kind"] = VAL_KINDS[mode]
+        if mode == "const":
+            if not mesh.is_uniform:
+                raise ValueError("a const val coefficient (c*det) requires a uniform brick (use a table)")
+            out["c_val"] = float(data)
+        else:
+            out["a_q"] = _to_qgrid(np.asarray(data, dtype=np.float64)[:, :, None], mesh.n_elements, q)[0]
+    if not (out["grad_kind"] or out["val_kind"]):
+        raise ValueError("need at least one of grad/val")
+    return out
+
+
+def _block_matrix(m: int, p: int, M: np.ndarray) -> np.ndarray:
+    """The global node -> q map of one axis, ``[m*q, m*p+1]``: block-diagonal
+    over elements (``pallas_qgrid._x_chunk_tables``' ``dense`` form)."""
+    q = M.shape[0]
+    A = np.zeros((m * q, m * p + 1))
+    for e in range(m):
+        A[e * q : (e + 1) * q, e * p : e * p + p + 1] = M
+    return A
+
+
+@dataclasses.dataclass
+class QGridTables:
+    """K3's device tables. ``fold_scale`` rescales the coefficients the
+    kernel reads, in place."""
+
+    p: int
+    q: int
+    n_elements: tuple[int, int, int]  # (mx, my, mz)
+    S: torch.Tensor  # [q, p+1]
+    D: torch.Tensor  # [q, p+1]
+    w: torch.Tensor  # [q]
+    grad_kind: int
+    val_kind: int
+    c_grad: tuple[float, float, float]
+    c_val: float
+    C: torch.Tensor | None  # [K, mz*q, my*q, mx*q]
+    a_q: torch.Tensor | None  # [mz*q, my*q, mx*q]
+    _dense: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @staticmethod
+    def from_numpy(tabs: dict, dtype: torch.dtype, device="cuda") -> "QGridTables":
+        def dev(a):
+            return None if a is None else torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype, device=device)
+
+        return QGridTables(
+            tabs["p"], tabs["q"], tuple(tabs["n_elements"]), dev(tabs["S"]), dev(tabs["D"]), dev(tabs["w"]),
+            int(tabs["grad_kind"]), int(tabs["val_kind"]), tuple(float(c) for c in tabs["c_grad"]),
+            float(tabs["c_val"]), dev(tabs["C"]), dev(tabs["a_q"]),
+        )
+
+    @staticmethod
+    def create(mesh, basis, dtype: torch.dtype, grad=None, val=None, device="cuda") -> "QGridTables":
+        return QGridTables.from_numpy(qgrid_tables_np(mesh, basis, grad, val), dtype, device)
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        """(nz, ny, nx) nodal grid."""
+        mx, my, mz = self.n_elements
+        return (mz * self.p + 1, my * self.p + 1, mx * self.p + 1)
+
+    @property
+    def q_shape(self) -> tuple[int, int, int]:
+        mx, my, mz = self.n_elements
+        return (mz * self.q, my * self.q, mx * self.q)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.S.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.S.device
+
+    def fold_scale(self, s: float) -> None:
+        """``A <- s * A`` (identity rows of the constrained apply unaffected)."""
+        self.c_grad = tuple(c * s for c in self.c_grad)
+        self.c_val *= s
+        for t in (self.C, self.a_q):
+            if t is not None:
+                t.mul_(s)
+
+    def axis_matrix(self, axis: int, kind: str) -> torch.Tensor:
+        """The plain version's node -> q matrix of grid axis ``axis`` (0 = z),
+        ``kind`` "S"/"D", or "SW"/"DW" with the q weights folded into the rows."""
+        key = (axis, kind)
+        if key not in self._dense:
+            mx, my, mz = self.n_elements
+            m = (mz, my, mx)[axis]
+            M = (self.S if kind[0] == "S" else self.D).cpu().double().numpy()
+            if kind.endswith("W"):
+                M = M * self.w.cpu().double().numpy()[:, None]
+            self._dense[key] = torch.as_tensor(_block_matrix(m, self.p, M), dtype=self.dtype, device=self.device)
+        return self._dense[key]
+
+
+def _check(u: torch.Tensor, tables: QGridTables) -> int:
+    """Validate ``u`` against the tables; return the launcher's dtype code."""
+    code = _DTYPE_CODES.get(u.dtype)
+    if code is None or u.dtype != tables.dtype:
+        raise TypeError(f"qgrid: u is {u.dtype}, tables {tables.dtype}; float64 or float32, the same for both")
+    if tuple(u.shape) != tables.shape:
+        raise ValueError(f"qgrid: u has shape {tuple(u.shape)}, tables {tables.shape}")
+    if u.device != tables.device:
+        raise ValueError(f"qgrid: u on {u.device}, tables on {tables.device}")
+    p1 = tables.p + 1
+    if tuple(tables.S.shape) != (tables.q, p1) or tuple(tables.D.shape) != (tables.q, p1):
+        raise ValueError(f"qgrid: basis tables are not [{tables.q}, {p1}]")
+    if tables.grad_kind in _GRAD_PLANES:
+        want = (_GRAD_PLANES[tables.grad_kind],) + tables.q_shape
+        if tables.C is None or tuple(tables.C.shape) != want:
+            raise ValueError(f"qgrid: grad table is not {list(want)}")
+    if tables.val_kind == 2 and (tables.a_q is None or tuple(tables.a_q.shape) != tables.q_shape):
+        raise ValueError(f"qgrid: val table is not {list(tables.q_shape)}")
+    streams = [t for t in (tables.C, tables.a_q) if t is not None]
+    if not all(t.is_contiguous() and t.dtype == u.dtype for t in [u, tables.S, tables.D, tables.w, *streams]):
+        raise ValueError("qgrid: u and the tables must be contiguous and of u's dtype")
+    return code
+
+
+def _face_mask(shape, device) -> torch.Tensor:
+    face = torch.zeros(shape, dtype=torch.bool, device=device)
+    for axis, n in enumerate(shape):
+        face.narrow(axis, 0, 1).fill_(True)
+        face.narrow(axis, n - 1, 1).fill_(True)
+    return face
+
+
+def qgrid_apply_reference(u: torch.Tensor, tables: QGridTables, constrained: bool = False) -> torch.Tensor:
+    """The plain torch version of K3: the same function with dense per-axis
+    node -> q matrices (block-diagonal over elements) and one ``tensordot``
+    per axis and term, summed in the TPU kernel's order."""
+    _check(u, tables)
+    t = tables
+    gk, vk = t.grad_kind, t.val_kind
+    face = _face_mask(t.shape, u.device) if constrained else None
+    uin = u.masked_fill(face, 0) if constrained else u
+
+    def fwd(x, axis, kind):
+        return sweep(x, t.axis_matrix(axis, kind), axis)
+
+    def bwd(x, axis, kind):
+        return sweep(x, t.axis_matrix(axis, kind), axis, transpose=True)
+
+    az = fwd(uin, 0, "S")
+    ay = fwd(az, 1, "S")
+    if gk:
+        bz = fwd(uin, 0, "D")
+        gx = fwd(ay, 2, "D")
+        gy = fwd(fwd(az, 1, "D"), 2, "S")
+        gz = fwd(fwd(bz, 1, "S"), 2, "S")
+        if gk == 1:
+            cx, cy, cz = t.c_grad
+            fx, fy, fz = cx * gx, cy * gy, cz * gz
+        elif gk == 2:
+            fx, fy, fz = t.C[0] * gx, t.C[1] * gy, t.C[2] * gz
+        else:
+            C = t.C
+            fx = C[0] * gx + C[1] * gy + C[2] * gz
+            fy = C[1] * gx + C[3] * gy + C[4] * gz
+            fz = C[2] * gx + C[4] * gy + C[5] * gz
+    u14 = None
+    if gk:
+        u14 = bwd(fx, 2, "DW")
+    if vk:
+        v = fwd(ay, 2, "S")
+        fv = t.c_val * v if vk == 1 else t.a_q * v
+        uv = bwd(fv, 2, "SW")
+        u14 = uv if u14 is None else u14 + uv
+    sA = bwd(u14, 1, "SW")
+    if gk:
+        sA = sA + bwd(bwd(fy, 2, "SW"), 1, "DW")
+        sC = bwd(bwd(fz, 2, "SW"), 1, "SW")
+    out = bwd(sA, 0, "SW")
+    if gk:
+        out = out + bwd(sC, 0, "DW")
+    return torch.where(face, u, out) if constrained else out
+
+
+_ARGTYPES = (
+    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7 + [ctypes.c_double] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+)
+
+
+def _launcher():
+    from ..utils.cuda_build import load_library
+
+    fn = load_library(SOURCE).qgrid_apply_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def qgrid_apply(u: torch.Tensor, tables: QGridTables, constrained: bool = False) -> torch.Tensor:
+    """``out = K3(u)`` on a ``[nz, ny, nx]`` tensor (``constrained``: the
+    operator's ``M A M`` plus identity rows): the CUDA kernel for a CUDA
+    tensor (raises if it cannot launch), the plain version for a CPU tensor.
+    The output is a new tensor of ``u``'s dtype."""
+    global LAUNCHES
+    code = _check(u, tables)
+    if u.device.type == "cpu":
+        return qgrid_apply_reference(u, tables, constrained)
+    if u.device.type != "cuda":
+        raise ValueError(f"qgrid: unsupported device {u.device}")
+    launch = _launcher()
+    out = torch.empty_like(u)
+    mx, my, mz = tables.n_elements
+    cx, cy, cz = tables.c_grad
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(u.device):
+        rc = launch(
+            code, tables.p, tables.q, tables.grad_kind, tables.val_kind, int(constrained),
+            u.data_ptr(), out.data_ptr(), tables.S.data_ptr(), tables.D.data_ptr(), tables.w.data_ptr(),
+            ptr(tables.C), ptr(tables.a_q), cx, cy, cz, tables.c_val, mx, my, mz,
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"qgrid kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out

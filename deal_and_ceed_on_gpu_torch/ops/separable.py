@@ -160,7 +160,7 @@ def _bshape(vec: np.ndarray, axis: int) -> np.ndarray:
     return vec.reshape(shape)
 
 
-def poisson_terms(mesh, basis: Basis1D, dtype: torch.dtype, device="cpu") -> list[dict]:
+def poisson_terms(mesh, basis: Basis1D, dtype: torch.dtype, device="cuda") -> list[dict]:
     """BP5/BP3 stiffness on a (uniform or graded) tensor brick: 3
     Kronecker terms, geometry absorbed into the per-axis tables."""
     p = basis.degree

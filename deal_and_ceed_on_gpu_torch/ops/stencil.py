@@ -103,14 +103,14 @@ class StencilTables:
     sx: torch.Tensor
 
     @staticmethod
-    def from_numpy(tabs: dict, p: int, dtype: torch.dtype, device="cpu") -> "StencilTables":
+    def from_numpy(tabs: dict, p: int, dtype: torch.dtype, device="cuda") -> "StencilTables":
         def dev(a):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
         return StencilTables(p, *(dev(tabs[k]) for k in ("bz", "by", "bx", "sz", "sy", "sx")))
 
     @staticmethod
-    def create(mesh, basis, dtype: torch.dtype, device="cpu") -> "StencilTables":
+    def create(mesh, basis, dtype: torch.dtype, device="cuda") -> "StencilTables":
         return StencilTables.from_numpy(
             stencil_tables_np(mesh, basis), basis.degree, dtype, device
         )

@@ -5,14 +5,18 @@ over ``[nz, ny, nx]``. The stencil tables do: the JAX ``StencilLayout``
 keeps its host copies (``sz_np`` ... ``bx_np``) in its padded coordinates
 (z offset ``p``, y offset ``YOFF = 8``, x offset 0 and x padded to a
 multiple of 128, taps on the leading axis); the port's K1 takes unpadded
-``[n_d, 2p+1]`` band tables and ``[n_d]`` scaling vectors.
+``[n_d, 2p+1]`` band tables and ``[n_d]`` scaling vectors. The q-grid
+tables of a JAX ``QGridLayout`` (``C [K, ZQ, YQ, MXQ]``, ``a_q [ZQ, YQ,
+MXQ]``) put element ``e``'s q points at ``e*q`` on every axis and pad the
+tail (z and y to whole blocks, x to 128 lanes); the port's K3 takes the
+same tables without the padding.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["JAX_STENCIL_YOFF", "stencil_tables_from_jax"]
+__all__ = ["JAX_STENCIL_YOFF", "qgrid_tables_from_jax", "stencil_tables_from_jax"]
 
 JAX_STENCIL_YOFF = 8  # pallas_stencil.YOFF: the y front pad of the TPU layout
 
@@ -28,3 +32,25 @@ def stencil_tables_from_jax(sz_np, sy_np, sx_np, bz_np, by_np, bx_np, p, real_sh
         out["s" + name] = np.asarray(s, dtype=np.float64)[sl].copy()
         out["b" + name] = np.ascontiguousarray(np.asarray(b, dtype=np.float64)[:, sl].T)
     return out
+
+
+def qgrid_tables_from_jax(layout) -> dict:
+    """The port's K3 tables (``ops.qgrid.qgrid_tables_np`` keys, float64)
+    from a JAX ``QGridLayout``: its streamed tables, read as numpy arrays
+    and cut to the real q grid, its const scalars and its basis."""
+    mx, my, mz = layout.mesh.n_elements
+    q = layout.q
+    real = (slice(0, mz * q), slice(0, my * q), slice(0, mx * q))
+
+    def cut(a, lead=()):
+        return None if a is None else np.ascontiguousarray(np.asarray(a, dtype=np.float64)[lead + real])
+
+    return {
+        "p": layout.p, "q": q, "n_elements": (mx, my, mz),
+        "S": np.asarray(layout.S_np, dtype=np.float64), "D": np.asarray(layout.D_np, dtype=np.float64),
+        "w": np.asarray(layout.w_np, dtype=np.float64),
+        "grad_kind": int(layout.grad_kind), "val_kind": int(layout.val_kind),
+        "c_grad": tuple(layout.c_grad) if layout.c_grad is not None else (0.0, 0.0, 0.0),
+        "c_val": float(layout.c_val) if layout.c_val is not None else 0.0,
+        "C": cut(layout.C, (slice(None),)), "a_q": cut(layout.a_q),
+    }

@@ -79,7 +79,7 @@ def test_converged_l2_norm_matches_jax(cycle, backend):
     """The slice's pieces (mesh, RHS, operator, solvers, L2 norm) driven to
     a 1e-12 residual: the BP5 solution's L2 norm matches JAX's to 1e-10."""
     tol, it_j, l2_j_val = _jax_converged(cycle)
-    ts = pt.FESpace.create(pt.BrickMesh.bp5_cycle(cycle), 5, dtype=torch.float64)
+    ts = pt.FESpace.create(pt.BrickMesh.bp5_cycle(cycle), 5, dtype=torch.float64, device="cpu")
     op, b = pt.PoissonOperator(ts, backend=backend), rhs_t(ts, 1.0)
     for solver in (pt.solve_cg, pt.solve_cg_merged):
         x, info = solver(op.vmult, b, pt.SolverControl(1000, tol))
@@ -92,7 +92,7 @@ def test_rhs_and_l2_norm_match_jax(p, extra, rule):
     shape, upper = (3, 2, 2), (1.0, 0.8, 1.3)
     n_q = None if extra is None else p + extra
     js = jx.FESpace.create(jx.BrickMesh(shape, upper=upper), p, n_q=n_q, rule=rule, dtype=jnp.float64)
-    ts = pt.FESpace.create(pt.BrickMesh(shape, upper=upper), p, n_q=n_q, rule=rule, dtype=torch.float64)
+    ts = pt.FESpace.create(pt.BrickMesh(shape, upper=upper), p, n_q=n_q, rule=rule, dtype=torch.float64, device="cpu")
 
     def f(x):
         return 1.0 + x[..., 0] * x[..., 1] - np.sin(3.0 * x[..., 2])
@@ -114,7 +114,7 @@ def test_rhs_and_l2_norm_match_jax(p, extra, rule):
 def test_vmult_matches_jax_structured(backend, p):
     shape, upper = (3, 2, 4), (1.0, 0.8, 1.3)
     js = jx.FESpace.create(jx.BrickMesh(shape, upper=upper), p, dtype=jnp.float64)
-    ts = pt.FESpace.create(pt.BrickMesh(shape, upper=upper), p, dtype=torch.float64)
+    ts = pt.FESpace.create(pt.BrickMesh(shape, upper=upper), p, dtype=torch.float64, device="cpu")
     u = np.random.default_rng(p).standard_normal(ts.n_dofs)
     want = np.asarray(jx.PoissonOperator(js, backend="structured").vmult(jnp.asarray(u)))
     op = pt.PoissonOperator(ts, backend=backend)
@@ -130,7 +130,7 @@ def test_vmult_matches_jax_structured(backend, p):
 def test_graded_separable_matches_jax():
     breaks = ([0, 0.2, 0.7, 1.0], [0, 0.4, 1.0], [0, 0.3, 0.5, 1.2])
     js = jx.FESpace.create(jx.BrickMesh.graded(*breaks), 3, dtype=jnp.float64)
-    ts = pt.FESpace.create(pt.BrickMesh.graded(*breaks), 3, dtype=torch.float64)
+    ts = pt.FESpace.create(pt.BrickMesh.graded(*breaks), 3, dtype=torch.float64, device="cpu")
     u = np.random.default_rng(7).standard_normal(ts.n_dofs)
     want = np.asarray(jx.PoissonOperator(js, backend="separable").vmult(jnp.asarray(u)))
     got = pt.PoissonOperator(ts, backend="separable").vmult(torch.as_tensor(u)).numpy()
@@ -143,7 +143,7 @@ def test_graded_separable_matches_jax():
 
 def test_lambda_estimate_uses_the_jax_draws():
     js = jx.FESpace.create(jx.BrickMesh((2, 2, 3)), 3, dtype=jnp.float64)
-    ts = pt.FESpace.create(pt.BrickMesh((2, 2, 3)), 3, dtype=torch.float64)
+    ts = pt.FESpace.create(pt.BrickMesh((2, 2, 3)), 3, dtype=torch.float64, device="cpu")
     want = bp5_j.estimate_lambda_max(jx.PoissonOperator(js, backend="separable"), js.n_dofs)
     got = bp5_t.estimate_lambda_max(pt.PoissonOperator(ts, backend="stencil"), ts.n_dofs)
     assert abs(got - want) <= 1e-12 * want
@@ -152,6 +152,8 @@ def test_lambda_estimate_uses_the_jax_draws():
 def test_import_leaves_jax_and_triton_out():
     code = (
         "import sys, deal_and_ceed_on_gpu_torch, deal_and_ceed_on_gpu_torch.drivers.bp5, "
+        "deal_and_ceed_on_gpu_torch.drivers.step64, deal_and_ceed_on_gpu_torch.ops.qgrid, "
+        "deal_and_ceed_on_gpu_torch.models.helmholtz, "
         "deal_and_ceed_on_gpu_torch.ops.stencil, deal_and_ceed_on_gpu_torch.utils.convert, "
         "deal_and_ceed_on_gpu_torch.utils.cuda_build; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', "
@@ -186,7 +188,7 @@ def test_cli_on_cpu_prints_reference_lines_and_skips(capsys):
 
 def test_fe_space_matches_jax():
     js = jx.FESpace.create(jx.BrickMesh((3, 2, 2), upper=(1.0, 0.8, 1.3)), 3, dtype=jnp.float64)
-    ts = pt.FESpace.create(pt.BrickMesh((3, 2, 2), upper=(1.0, 0.8, 1.3)), 3, dtype=torch.float64)
+    ts = pt.FESpace.create(pt.BrickMesh((3, 2, 2), upper=(1.0, 0.8, 1.3)), 3, dtype=torch.float64, device="cpu")
     assert ts.grid_shape == js.grid_shape and ts.n_dofs == js.n_dofs
     np.testing.assert_array_equal(ts.node_coords(), js.node_coords())
     np.testing.assert_array_equal(ts.dirichlet_mask.numpy(), np.asarray(js.dirichlet_mask))
@@ -208,7 +210,7 @@ def test_separable_stencil_mode_matches_jax(p):
     package's, on a graded brick."""
     breaks = ([0, 0.2, 0.7, 1.0], [0, 0.4, 1.0], [0, 0.3, 0.5, 1.2])
     js = jx.FESpace.create(jx.BrickMesh.graded(*breaks), p, dtype=jnp.float64)
-    ts = pt.FESpace.create(pt.BrickMesh.graded(*breaks), p, dtype=torch.float64)
+    ts = pt.FESpace.create(pt.BrickMesh.graded(*breaks), p, dtype=torch.float64, device="cpu")
     u = np.random.default_rng(p).standard_normal(ts.n_dofs)
     jop = jx.PoissonOperator(js, backend="separable")
     jop.sep_mode = "stencil"

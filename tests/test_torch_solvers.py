@@ -17,7 +17,7 @@ from deal_and_ceed_on_gpu_tpu.models import assemble_rhs as rhs_j
 
 def _setup(p, shape, backend="separable"):
     js = jx.FESpace.create(jx.BrickMesh(shape), p, rule="gauss_lobatto", dtype=jnp.float64)
-    ts = pt.FESpace.create(pt.BrickMesh(shape), p, rule="gauss_lobatto", dtype=torch.float64)
+    ts = pt.FESpace.create(pt.BrickMesh(shape), p, rule="gauss_lobatto", dtype=torch.float64, device="cpu")
     jop = jx.PoissonOperator(js)
     top = pt.PoissonOperator(ts, backend=backend)
     return jop, rhs_j(js, 1.0), top, rhs_t(ts, 1.0)
@@ -129,7 +129,7 @@ def test_no_convergence_raises():
 def test_bf16_vectors_accumulate_in_f32():
     """bf16 solver vectors with f32 dots: the solve runs, stays finite and
     lands near the f32 solution (bf16 rounds the vectors to ~3 digits)."""
-    ts = pt.FESpace.create(pt.BrickMesh((2, 2, 2)), 3, dtype=torch.float32)
+    ts = pt.FESpace.create(pt.BrickMesh((2, 2, 2)), 3, dtype=torch.float32, device="cpu")
     b = rhs_t(ts, 1.0)
     ref_op = pt.PoissonOperator(ts, backend="stencil")
     op = pt.PoissonOperator(ts, backend="stencil", stream_dtype=torch.bfloat16)
