@@ -7,8 +7,9 @@ sources in the checkout, and fails (non-zero exit, no result line) if
 anything does not build, launch, agree or converge. Phases:
 
 0. the card: torch/CUDA versions and ``nvidia-smi`` name and power limit;
-1. build K1 (``csrc/stencil.cu``) and K3 (``csrc/qgrid.cu``), one ``nvcc``
-   each, started together; print the build times and ptxas usage;
+1. build K1 (``csrc/stencil.cu``), K3 (``csrc/qgrid.cu``), K5
+   (``csrc/cg.cu``) and K6 (``csrc/copy.cu``), one ``nvcc`` each, started
+   together; print the build times and ptxas usage;
 2. K1 against its plain torch twin on the card, at small shapes (p = 2, 3,
    5, 8) and at the main path's shape, in f64, f32 and bf16 storage;
 3. the main path: ``drivers/bp5.run_cycle`` at cycle 33 (12,468,001 DoFs,
@@ -35,7 +36,24 @@ anything does not build, launch, agree or converge. Phases:
    refine 5 against the refine-5 golden, time to solution of both;
 10. refine-6 vmult throughput, K3 against ``structured``, in turns;
 11. a ``torch.profiler`` trace of 20 plain-CG iterations of the refine-6
-    f64 solve on K3: device time by kernel and the device's busy share.
+    f64 solve on K3: device time by kernel and the device's busy share;
+12. K1 with its value term against its plain version, at the phase-2 shapes
+    (random value tables) and at the cycle-33 shape (the step-64
+    coefficient at the GLL nodes), in f64, f32 and bf16 storage;
+13. K5, the fused CG iteration, against ``cg_step_reference`` at the
+    phase-2 shapes and at cycle 33, for Poisson and with a value table, in
+    the three precisions, from a NaN-filled write buffer: the four vectors
+    and the four dots;
+14. the main paths: ``drivers/bp5.run_cycle`` pcg-fused at cycle 33 in the
+    three precisions (K5 must have launched, no NaN), and collocated
+    Helmholtz at the cycle-33 shape solved by pcg-merged on K1 with its
+    value term and by pcg-fused on K5 with it (both must have launched and
+    agree);
+15. f64 at cycle 10 with pcg-fused against the golden values (as phase 4);
+16. cycle-33 pcg-fused throughput beside pcg-merged on K1, in turns;
+17. K6, the copy probe, against ``2 * src`` and beside ``torch.mul`` at
+    the cycle-33 shape, then the port's ``scripts/exp_solver_budget.py``
+    lines (a)-(i) at cycle 33 with short chains (K6 must have launched).
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -136,16 +154,17 @@ def phase0_device():
 
 
 def phase1_build():
-    from deal_and_ceed_on_gpu_torch.ops import qgrid, stencil
+    from deal_and_ceed_on_gpu_torch.ops import cg, copy, qgrid, stencil
     from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
 
     def timed(source):
         t0 = time.perf_counter()
         return build_library(source), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(timed, (stencil.SOURCE, qgrid.SOURCE)))
-    for name, (lib, seconds) in zip(("K1", "K3"), builds):
+    sources = {"K1": stencil.SOURCE, "K3": qgrid.SOURCE, "K5": cg.SOURCE, "K6": copy.SOURCE}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = list(pool.map(timed, sources.values()))
+    for name, (lib, seconds) in zip(sources, builds):
         print(f"phase 1: {name} built in {seconds:.1f} s -> {lib.name}")
         lines = lib.with_suffix(".log").read_text().splitlines()
         regs = [int(l.split("Used ")[1].split()[0]) for l in lines if "registers" in l]
@@ -164,9 +183,10 @@ def _grid_tensor(shape, dtype, seed):
     return torch.as_tensor(a, dtype=dtype, device=DEVICE)
 
 
-def _compare(mesh, p, label, dtype, stream):
-    """K1 against its twin on one (mesh, degree, precision); returns
-    (max_abs_err, relative error) and asserts the bound and the faces."""
+def _compare(mesh, p, label, dtype, stream, value=None):
+    """K1 against its twin on one (mesh, degree, precision), with the value
+    table ``value`` if given; returns (max_abs_err, relative error, tables,
+    u) and asserts the bound and the faces."""
     import torch
 
     from deal_and_ceed_on_gpu_torch.basis import Basis1D
@@ -178,7 +198,7 @@ def _compare(mesh, p, label, dtype, stream):
 
     cd = getattr(torch, dtype)
     sd = getattr(torch, stream) if stream else cd
-    tables = StencilTables.create(mesh, Basis1D.make(p), cd, DEVICE)
+    tables = StencilTables.create(mesh, Basis1D.make(p), cd, DEVICE, value=value)
     u = _grid_tensor(tables.shape, cd, seed=p).to(sd)
     got = stencil_apply(u, tables)
     torch.cuda.synchronize()
@@ -556,6 +576,290 @@ def phase11_profile():
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"phase 11:   {t / 1e3 / n_it:8.4f} ms/iteration  {n:5d} calls  {key[:90]}")
 
+def _bound_ms(n_bytes, flops, label):
+    """The least time for ``n_bytes`` of traffic and ``flops`` operations
+    at the compute type's peak: the larger of the two, and which."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[label]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _helmholtz_nodal(mesh, p):
+    """The step-64 coefficient at the GLL nodes times the cell volume, as
+    ``HelmholtzOperator(backend="stencil")`` builds its value table."""
+    from deal_and_ceed_on_gpu_torch import Basis1D, FESpace
+    from deal_and_ceed_on_gpu_torch.models import default_coefficient
+
+    space = FESpace(mesh, Basis1D.make(p), device="cpu")
+    hx, hy, hz = mesh.h
+    return default_coefficient(space.node_coords().reshape(space.grid_shape + (3,))) * (hx * hy * hz)
+
+
+def phase12_k1_value():
+    import numpy as np
+
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.ops.stencil import stencil_apply, stencil_apply_reference
+
+    for shape in SMALL_SHAPES:
+        mesh = BrickMesh(shape, upper=(1.0, 0.8, 1.3))
+        for p in SMALL_DEGREES:
+            grid = tuple(m * p + 1 for m in reversed(shape))
+            value = 0.5 + np.random.default_rng(p).random(grid)
+            for label, dtype, stream in PRECISIONS:
+                err, rel, _, _ = _compare(mesh, p, label, dtype, stream, value=value)
+                print(f"phase 12: K1 + value, elements {shape} p={p} {label}: max abs err {err:.3e} (rel {rel:.3e})")
+    main = {}
+    mesh = BrickMesh.bp5_cycle(MAIN_CYCLE)
+    value = _helmholtz_nodal(mesh, DEGREE)
+    for label, dtype, stream in PRECISIONS:
+        err, rel, tables, u = _compare(mesh, DEGREE, label, dtype, stream, value=value)
+        ms = _time_ms(lambda: stencil_apply(u, tables))
+        plain_ms = _time_ms(lambda: stencil_apply_reference(u, tables), n=5)
+        n, sd, cd = u.numel(), u.element_size(), tables.a.element_size()
+        bound_ms, bound_by = _bound_ms(n * (2 * sd + cd), n * (6 + 6 * (2 * DEGREE + 1)), label)
+        print(f"phase 12: K1 + value, cycle {MAIN_CYCLE} grid {tables.shape} {label}: max abs err {err:.3e} "
+              f"(rel {rel:.3e}); kernel {ms:.4f} ms ({n * (2 * sd + cd) / ms / 1e6:.1f} GB/s of ideal traffic), "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return main
+
+
+K5_TOL = {"f64": 1e-13, "f32": 1e-5, "bf16": 3e-2}  # the vectors, of max|want| per vector
+# the dots, of |u| |v| (f32 dots for bf16); the next alpha, beta, xa and
+# residual, relative, at 1e3 times that (ratios of the dots)
+K5_DOT_TOL = {"f64": 1e-12, "f32": 1e-5, "bf16": 1e-5}
+
+
+def _k5_compare(tables, label, stream, seed):
+    """K5 against cg_step_reference on one table set, from a random state
+    and a NaN-filled write buffer; returns (max abs err, the state, the
+    scalars) and asserts the bounds."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.cg import CGFusedStep, cg_next_scalars, cg_step_reference
+
+    sd = getattr(torch, stream) if stream else tables.dtype
+    rng = np.random.default_rng(seed)
+    s = torch.as_tensor(rng.standard_normal((4, *tables.shape)), dtype=tables.dtype, device=DEVICE).to(sd)
+    scal = torch.as_tensor([0.7, 0.4, 0.7 / 0.4], dtype=tables.dtype, device=DEVICE)
+    got, summary = CGFusedStep(tables).iterate(s, torch.full_like(s, float("nan")), scal)
+    torch.cuda.synchronize()
+    want, wdots = cg_step_reference(s, scal, tables)
+    dots = summary[:4]
+    # the finishing pass: alpha, beta, xa, res of the next iteration
+    scal_rel = [abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(summary[4:], cg_next_scalars(wdots)[4:])]
+    err = float((got.double() - want.double()).abs().max())
+    rel = [float((got[k].double() - want[k].double()).abs().max() / want[k].double().abs().max()) for k in range(4)]
+    d_n, g_n, h_n = (float(torch.linalg.vector_norm(want[k].to(tables.dtype))) for k in (0, 1, 2))
+    scale = [d_n * h_n, h_n * h_n, g_n * h_n, g_n * g_n]
+    dot_rel = [abs(float(a) - float(b)) / max(sc, 1e-300) for a, b, sc in zip(dots, wdots, scale)]
+    bitwise = [bool(torch.equal(got[k], want[k])) for k in (0, 1, 3)]
+    ok = (bool(torch.isfinite(got).all()) and max(rel) <= K5_TOL[label] and max(dot_rel) <= K5_DOT_TOL[label]
+          and max(scal_rel) <= 1e3 * K5_DOT_TOL[label])
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain version: grid {tables.shape} p={tables.p} {label} "
+                             f"value={tables.a is not None}: rel err per vector {rel}, dots {dot_rel}, "
+                             f"scalars {scal_rel}, finite {bool(torch.isfinite(got).all())}")
+    return err, rel, dot_rel + scal_rel, bitwise, s, scal
+
+
+def phase13_k5_vs_plain():
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.ops.cg import CGFusedStep, cg_next_scalars, cg_step_reference
+    from deal_and_ceed_on_gpu_torch.ops.stencil import StencilTables
+
+    for shape in SMALL_SHAPES:
+        mesh = BrickMesh(shape, upper=(1.0, 0.8, 1.3))
+        for p in SMALL_DEGREES:
+            grid = tuple(m * p + 1 for m in reversed(shape))
+            for value in (None, 0.5 + np.random.default_rng(p).random(grid)):
+                for label, dtype, stream in PRECISIONS:
+                    tables = StencilTables.create(mesh, Basis1D.make(p), getattr(torch, dtype), DEVICE, value=value)
+                    err, rel, dot_rel, bitwise, _, _ = _k5_compare(tables, label, stream, seed=p)
+                    print(f"phase 13: K5, elements {shape} p={p} value={value is not None} {label}: max abs err "
+                          f"{err:.3e}, rel per vector {max(rel):.2e}, dots and scalars {max(dot_rel):.2e}, d/g/x bitwise {bitwise}")
+    main = {}
+    mesh = BrickMesh.bp5_cycle(MAIN_CYCLE)
+    helm = _helmholtz_nodal(mesh, DEGREE)
+    for value in (None, helm):
+        for label, dtype, stream in PRECISIONS:
+            tables = StencilTables.create(mesh, Basis1D.make(DEGREE), getattr(torch, dtype), DEVICE, value=value)
+            err, rel, dot_rel, bitwise, s, scal = _k5_compare(tables, label, stream, seed=5)
+            step = CGFusedStep(tables)
+            sw = torch.empty_like(s)
+            # K5 and its one-block finishing pass, as the solver calls them
+            ms = _time_ms(lambda: step.iterate(s, sw, scal))
+            plain_ms = _time_ms(lambda: cg_next_scalars(cg_step_reference(s, scal, tables)[1]), n=5)
+            n, sd, cd = s[0].numel(), s.element_size(), tables.dtype.itemsize
+            traffic = 8 * n * sd + (n * cd if value is not None else 0)
+            # K1's operations, the value term, 4 for the updates, 3 for x, 8 for the dots
+            flops = n * (4 + 6 * (2 * DEGREE + 1) + (2 if value is not None else 0) + 15)
+            bound_ms, bound_by = _bound_ms(traffic, flops, label)
+            print(f"phase 13: K5, cycle {MAIN_CYCLE} grid {tables.shape} value={value is not None} {label}: max abs "
+                  f"err {err:.3e}, rel per vector {max(rel):.2e}, dots and scalars {max(dot_rel):.2e}, d/g/x bitwise {bitwise}; "
+                  f"kernel {ms:.4f} ms ({traffic / ms / 1e6:.1f} GB/s of ideal traffic), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
+            if value is None:
+                main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            del s, sw, step, tables
+    return main
+
+
+def phase14_main_path():
+    """pcg-fused at cycle 33 (K5), then collocated Helmholtz on K1 with its
+    value term and on K5 with it; returns the launches per precision."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, HelmholtzOperator, IterationNumberControl
+    from deal_and_ceed_on_gpu_torch import solve_cg_fused, solve_cg_merged
+    from deal_and_ceed_on_gpu_torch.drivers.bp5 import run_cycle
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+    from deal_and_ceed_on_gpu_torch.ops import cg, stencil
+
+    k5, k1v = {}, {}
+    for label, dtype, stream in PRECISIONS:
+        print(f"phase 14: main path, cycle {MAIN_CYCLE}, pcg-fused, {label}")
+        cg.LAUNCHES = 0
+        r = run_cycle(
+            MAIN_CYCLE, backend="stencil", device=DEVICE, dtype=dtype, stream_dtype=stream,
+            modes=("pcg-fused",), n_iterations=MAIN_ITERATIONS, n_repetitions=2,
+        )
+        k5[label] = cg.LAUNCHES
+        if k5[label] == 0:
+            raise AssertionError(f"pcg-fused main path ({label}) never launched K5")
+        if not all(r["finite"].values()) or not math.isfinite(r["l2_norm"]):
+            raise AssertionError(f"pcg-fused main path ({label}) produced non-finite values: {r}")
+        print(f"phase 14: {label}: K5 launches {k5[label]}, iterations {r['n_iterations']}, "
+              f"L2 norm {r['l2_norm']:.12g}")
+
+    mesh = BrickMesh.bp5_cycle(MAIN_CYCLE)
+    agree = {"f64": 1e-10, "f32": 1e-3, "bf16": 5e-2}
+    for label, dtype, stream in PRECISIONS:
+        space = FESpace.create(mesh, DEGREE, dtype=getattr(torch, dtype), device=DEVICE)
+        sd = getattr(torch, stream) if stream else space.dtype
+        op = HelmholtzOperator(space, backend="stencil", stream_dtype=sd)
+        b = assemble_rhs(space, 1.0).to(sd)
+        control = IterationNumberControl(MAIN_ITERATIONS, 0.0)
+        stencil.VALUE_LAUNCHES, cg.LAUNCHES = 0, 0
+        t0 = time.perf_counter()
+        xm, im = solve_cg_merged(op.vmult, b, control, dot_dtype=space.dtype if sd != space.dtype else None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        xf, i_f = solve_cg_fused(op, b, control)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k1v[label], k5_h = stencil.VALUE_LAUNCHES, cg.LAUNCHES
+        xm64, xf64 = xm.double(), xf.double()
+        rel = float(torch.linalg.vector_norm(xf64 - xm64) / torch.linalg.vector_norm(xm64))
+        print(f"phase 14: Helmholtz (GLL, a(x) nodal) cycle-{MAIN_CYCLE} mesh {label}: {MAIN_ITERATIONS} iterations, "
+              f"pcg-merged on K1 + value ({k1v[label]} launches) {t1 - t0:.4f} s, pcg-fused on K5 + value "
+              f"({k5_h} launches) {t2 - t1:.4f} s, |x_fused - x_merged| / |x_merged| = {rel:.3e} (bound {agree[label]:g})")
+        if k1v[label] == 0 or k5_h == 0:
+            raise AssertionError(f"phase 14: the Helmholtz path ({label}) did not launch K1 + value and K5")
+        if not (bool(torch.isfinite(xm).all()) and bool(torch.isfinite(xf).all()) and rel <= agree[label]):
+            raise AssertionError(f"phase 14: Helmholtz pcg-fused and pcg-merged disagree ({label})")
+        del op, b, xm, xf, xm64, xf64
+    return k5, k1v
+
+
+def phase15_golden_fused():
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, PoissonOperator, SolverControl
+    from deal_and_ceed_on_gpu_torch import solve_cg_fused
+    from deal_and_ceed_on_gpu_torch.drivers.bp5 import run_cycle
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs, l2_norm_function
+
+    r = run_cycle(
+        GOLDEN_CYCLE, backend="stencil", device=DEVICE, dtype="float64",
+        modes=("pcg-fused",), n_repetitions=1,
+    )
+    it, l2 = r["n_iterations"]["pcg-fused"], r["l2_norm"]
+    rel = abs(l2 - GOLDEN_L2) / GOLDEN_L2
+    print(f"phase 15: cycle {GOLDEN_CYCLE} f64 pcg-fused driver: {it} iterations (golden {GOLDEN_ITERATIONS}), "
+          f"L2 norm {l2:.15g} (golden {GOLDEN_L2:.15g}, rel {rel:.2e}, bound {GOLDEN_L2_RTOL:g})")
+    if abs(it - GOLDEN_ITERATIONS) > 1 or not rel <= GOLDEN_L2_RTOL:
+        raise AssertionError("golden check (pcg-fused driver) failed")
+
+    space = FESpace.create(BrickMesh.bp5_cycle(GOLDEN_CYCLE), DEGREE, dtype=torch.float64, device=DEVICE)
+    b = assemble_rhs(space, 1.0)
+    control = SolverControl(1000, 1e-12 * float(torch.linalg.vector_norm(b)))
+    x, info = solve_cg_fused(PoissonOperator(space, backend="stencil"), b, control)
+    it, l2 = info["n_iterations"], float(l2_norm_function(space, x))
+    rel = abs(l2 - CONVERGED_L2) / CONVERGED_L2
+    print(f"phase 15: cycle {GOLDEN_CYCLE} f64 pcg-fused converged: {it} iterations (golden {CONVERGED_ITERATIONS}), "
+          f"L2 norm {l2:.15g} (golden {CONVERGED_L2:.15g}, rel {rel:.2e}, bound 1e-10)")
+    if abs(it - CONVERGED_ITERATIONS) > 1 or not rel <= 1e-10:
+        raise AssertionError("golden check (pcg-fused converged) failed")
+
+
+def phase16_fused_timing():
+    from deal_and_ceed_on_gpu_torch.drivers.bp5 import run_cycle
+
+    best = {}
+    for label, dtype, stream in PRECISIONS:
+        for _ in range(2):  # the driver runs pcg-merged, then pcg-fused: merged, fused, merged, fused
+            r = run_cycle(
+                MAIN_CYCLE, backend="stencil", device=DEVICE, dtype=dtype, stream_dtype=stream,
+                modes=("pcg-merged", "pcg-fused"), n_iterations=TIMING_ITERATIONS,
+                n_repetitions=3, validate=False,
+            )
+            for mode in ("pcg-merged", "pcg-fused"):
+                best[(label, mode)] = max(best.get((label, mode), 0.0), r[mode])
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+
+    n = BrickMesh.bp5_cycle(MAIN_CYCLE).n_dofs(DEGREE)
+    for (label, mode), tp in sorted(best.items()):
+        print(f"phase 16: cycle {MAIN_CYCLE} {label} stencil {mode:10s} {tp:.6g} DoF/s ({n * 1e3 / tp:.4f} ms per iteration)")
+
+
+def phase17_k6_and_budget():
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.ops import copy
+    from deal_and_ceed_on_gpu_torch.ops.copy import copy_probe, copy_reference
+    from deal_and_ceed_on_gpu_torch.scripts import exp_solver_budget
+
+    mx, my, mz = BrickMesh.bp5_cycle(MAIN_CYCLE).n_elements
+    grid = (mz * DEGREE + 1, my * DEGREE + 1, mx * DEGREE + 1)
+    main = {}
+    for label, dtype, stream in PRECISIONS:
+        src = _grid_tensor(grid, getattr(torch, dtype), seed=11).to(getattr(torch, stream or dtype))
+        dst = torch.full_like(src, float("nan"))
+        copy_probe(src, DEGREE, out=dst)
+        torch.cuda.synchronize()
+        want = copy_reference(src)
+        err = float((dst.double() - want.double()).abs().max())
+        if not torch.equal(dst, want):
+            raise AssertionError(f"K6 disagrees with 2 * src ({label}): max abs err {err:.3e}")
+        ms = _time_ms(lambda: copy_probe(src, DEGREE, out=dst))
+        plain_ms = _time_ms(lambda: copy_reference(src))
+        library_ms = _time_ms(lambda: torch.mul(src, 2, out=dst))
+        traffic = 2 * src.numel() * src.element_size()
+        bound_ms, bound_by = _bound_ms(traffic, src.numel(), label)
+        print(f"phase 17: K6, grid {grid} halo {DEGREE} {label}: equal to 2 src; kernel {ms:.4f} ms "
+              f"({traffic / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, torch.mul {library_ms:.4f} ms "
+              f"({traffic / library_ms / 1e6:.1f} GB/s), bound {bound_ms:.4f} ms ({bound_by})")
+        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms)
+        del src, dst, want
+    launches = {}
+    for label, _, _ in PRECISIONS:
+        copy.LAUNCHES = 0
+        print(f"phase 17: scripts/exp_solver_budget.py, {label}, cycle {MAIN_CYCLE}")
+        exp_solver_budget.run(label, MAIN_CYCLE, chain=20, iterations=30, device=DEVICE)
+        launches[label] = copy.LAUNCHES
+        if launches[label] == 0:
+            raise AssertionError(f"phase 17: the budget script ({label}) never launched K6")
+    return main, launches
+
 
 def main():
     smi = phase0_device()
@@ -570,6 +874,12 @@ def main():
     phase9_comparator()
     phase10_throughput()
     phase11_profile()
+    k1_value = phase12_k1_value()
+    k5 = phase13_k5_vs_plain()
+    k5_launches, k1_value_launches = phase14_main_path()
+    phase15_golden_fused()
+    phase16_fused_timing()
+    k6, k6_launches = phase17_k6_and_budget()
     import torch
 
     records = [
@@ -594,6 +904,38 @@ def main():
             "library_ms": None,
         }
         for label in ("f64", "f32")
+    ] + [
+        {
+            "name": f"stencil_k1_value_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/stencil.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py:443",
+            "launches": k1_value_launches[label],
+            **k1_value[label],
+            "library_ms": None,
+        }
+        for label, _, _ in PRECISIONS
+    ] + [
+        {
+            "name": f"cg_k5_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/cg.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_cg.py:79",
+            "launches": k5_launches[label],
+            **k5[label],
+            "library_ms": None,
+        }
+        for label, _, _ in PRECISIONS
+    ] + [
+        {
+            "name": f"copy_k6_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/copy.cu",
+            "replaces": "scripts/exp_solver_budget.py:147",
+            "launches": k6_launches[label],
+            **k6[label],
+        }
+        for label, _, _ in PRECISIONS
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

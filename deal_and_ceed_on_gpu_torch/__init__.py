@@ -10,9 +10,12 @@ Layer map:
   L0  mesh/dof/geometry     -> mesh.py, basis.py, geometry.py, fe_space.py
   L2  matrix-free kernels   -> ops/ (sum_factorization, local_global,
                                separable, stencil + csrc/stencil.cu (K1),
-                               qgrid + csrc/qgrid.cu (K3))
+                               qgrid + csrc/qgrid.cu (K3), cg + csrc/cg.cu
+                               (K5, the fused CG iteration), copy +
+                               csrc/copy.cu (K6, the bandwidth probe))
   L3  operators + solvers   -> models/ (poisson, helmholtz), solvers/
-  L4  drivers               -> drivers/bp5.py, drivers/step64.py
+  L4  drivers               -> drivers/bp5.py, drivers/step64.py,
+                               scripts/exp_solver_budget.py
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -29,6 +32,7 @@ from .solvers import (
     ReductionControl,
     SolverControl,
     solve_cg,
+    solve_cg_fused,
     solve_cg_merged,
 )
 
@@ -44,6 +48,7 @@ __all__ = [
     "ReductionControl",
     "NoConvergence",
     "solve_cg",
+    "solve_cg_fused",
     "solve_cg_merged",
     "gauss_lobatto_points",
     "gauss_points",

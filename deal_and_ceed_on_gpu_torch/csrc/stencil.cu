@@ -6,12 +6,16 @@
 //
 //   v[z,y,x]   = sz[z] sy[y] sx[x] u[z,y,x]         (sz/sy/sx zero on Dirichlet rows)
 //   acc        = sum_t bz[z,t] v[z-p+t,y,x] + by[y,t] v[z,y-p+t,x] + bx[x,t] v[z,y,x-p+t]
+//   acc       += a[z,y,x] v[z,y,x]                   (optional value term, a != nullptr)
 //   out[z,y,x] = u[z,y,x]                            on the six boundary faces (identity rows)
 //              = sz[z] sy[y] sx[x] acc               elsewhere
 //
 // with B_d = c_d d^{-1/2} A1_d d^{-1/2} the weight-normalised banded 1D
 // stiffness factors (2p+1 taps, tables [n_d, 2p+1]) and s_d = sqrt(d). The
-// identity faces are written here, so one vmult is one launch.
+// identity faces are written here, so one vmult is one launch. The value
+// term is the collocated Helmholtz mass term (pallas_stencil.py has_value:
+// diag(d3 a) u = S diag(a) S u): one more stream and one multiply-add a
+// point, in the same launch.
 //
 // What bounds it: memory traffic. Per point it does 3(2p+1) multiply-adds
 // (33 at p=5) against one read of u and one write of out in the ideal case
@@ -72,13 +76,15 @@ struct MinBlocks {
   static constexpr int value = sizeof(C) == 4 ? 2 : 1;
 };
 
-template <typename S, typename C, int P>
+// V: with the value term (a is read); the instantiation without it is the
+// plain Poisson stencil, unchanged by the extra operand.
+template <typename S, typename C, int P, bool V>
 __global__ void __launch_bounds__(BX * BY, MinBlocks<C>::value)
 stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
                const C* __restrict__ bz, const C* __restrict__ by,
                const C* __restrict__ bx, const C* __restrict__ sz,
                const C* __restrict__ sy, const C* __restrict__ sx,
-               int nz, int ny, int nx, int zchunk) {
+               const C* __restrict__ a, int nz, int ny, int nx, int zchunk) {
   constexpr int NT = 2 * P + 1;
   __shared__ C tile[BY + 2 * P][BX + 2 * P];
 
@@ -138,6 +144,9 @@ stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
   S pc = raw(inside, z0 + P, col);
   S pt = raw(ok_t, z0, off_t), pb = raw(ok_b, z0, off_b);
   S pl = raw(ok_l, z0, off_l), pr = raw(ok_r, z0, off_r);
+  // the value coefficient at the current plane, loaded one plane ahead too
+  auto aval = [&](int zz) -> C { return (V && inside && zz < nz) ? a[zz * plane + col] : C(0); };
+  C pa = aval(z0);
 
   for (int z = z0; z < z1; ++z) {
 #pragma unroll
@@ -145,6 +154,7 @@ stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
     q[NT - 1] = up(pc) * zscale(z + P) * sxy;
 
     const C szz = sz[z];
+    const C az = pa;
     tile[ty + P][tx + P] = q[P];
     if (hy) {
       tile[ty][tx + P] = up(pt) * szz * f_t;
@@ -163,6 +173,7 @@ stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
       pl = raw(ok_l, z + 1, off_l);
       pr = raw(ok_r, z + 1, off_r);
     }
+    pa = aval(z + 1);
     __syncthreads();
 
     if (inside) {
@@ -174,6 +185,7 @@ stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
       for (int t = 0; t < NT; ++t) acc += byr[t] * tile[ty + t][tx + P];
 #pragma unroll
       for (int t = 0; t < NT; ++t) acc += bxr[t] * tile[ty + P][tx + t];
+      if (V) acc += az * q[P];
       const long i = z * plane + col;
       const bool face = z == 0 || z == nz - 1 || y == 0 || y == ny - 1 || x == 0 || x == nx - 1;
       out[i] = face ? u[i] : Convert<S, C>::down(acc * szz * sxy);
@@ -184,8 +196,8 @@ stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
 
 template <typename S, typename C, int P>
 cudaError_t launch(const void* u, void* out, const void* bz, const void* by, const void* bx,
-                   const void* sz, const void* sy, const void* sx, int nz, int ny, int nx,
-                   cudaStream_t stream) {
+                   const void* sz, const void* sy, const void* sx, const void* a, int nz, int ny,
+                   int nx, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -198,26 +210,28 @@ cudaError_t launch(const void* u, void* out, const void* bz, const void* by, con
   const int min_chunk = nz < 4 * P ? nz : 4 * P;
   if (zchunk < min_chunk) zchunk = min_chunk;
   const int gz = (nz + zchunk - 1) / zchunk;
-  stencil_kernel<S, C, P><<<dim3(gx, gy, gz), dim3(BX, BY), 0, stream>>>(
+  auto kernel = a != nullptr ? stencil_kernel<S, C, P, true> : stencil_kernel<S, C, P, false>;
+  kernel<<<dim3(gx, gy, gz), dim3(BX, BY), 0, stream>>>(
       static_cast<const S*>(u), static_cast<S*>(out), static_cast<const C*>(bz),
       static_cast<const C*>(by), static_cast<const C*>(bx), static_cast<const C*>(sz),
-      static_cast<const C*>(sy), static_cast<const C*>(sx), nz, ny, nx, zchunk);
+      static_cast<const C*>(sy), static_cast<const C*>(sx), static_cast<const C*>(a), nz, ny, nx,
+      zchunk);
   return cudaGetLastError();
 }
 
 template <typename S, typename C>
 cudaError_t launch_degree(int p, const void* u, void* out, const void* bz, const void* by,
                           const void* bx, const void* sz, const void* sy, const void* sx,
-                          int nz, int ny, int nx, cudaStream_t s) {
+                          const void* a, int nz, int ny, int nx, cudaStream_t s) {
   switch (p) {
-    case 1: return launch<S, C, 1>(u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
-    case 2: return launch<S, C, 2>(u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
-    case 3: return launch<S, C, 3>(u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
-    case 4: return launch<S, C, 4>(u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
-    case 5: return launch<S, C, 5>(u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
-    case 6: return launch<S, C, 6>(u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
-    case 7: return launch<S, C, 7>(u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
-    case 8: return launch<S, C, 8>(u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
+    case 1: return launch<S, C, 1>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 2: return launch<S, C, 2>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 3: return launch<S, C, 3>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 4: return launch<S, C, 4>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 5: return launch<S, C, 5>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 6: return launch<S, C, 6>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 7: return launch<S, C, 7>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 8: return launch<S, C, 8>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -227,17 +241,18 @@ static_assert(BX >= MAX_DEGREE && BY >= MAX_DEGREE, "halo rows/cols are loaded b
 }  // namespace
 
 // dtype_code: 0 = (f64 storage, f64 compute), 1 = (f32, f32), 2 = (bf16, f32).
+// a: the value coefficient [nz, ny, nx] at the compute type, or null.
 // Returns the cudaError_t of the launch (0 on success); never synchronises.
 extern "C" int stencil_apply_launch(int dtype_code, int p, const void* u, void* out,
                                     const void* bz, const void* by, const void* bx,
                                     const void* sz, const void* sy, const void* sx,
-                                    int nz, int ny, int nx, void* stream) {
+                                    const void* a, int nz, int ny, int nx, void* stream) {
   if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
-    case 0: return (int)launch_degree<double, double>(p, u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
-    case 1: return (int)launch_degree<float, float>(p, u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
-    case 2: return (int)launch_degree<__nv_bfloat16, float>(p, u, out, bz, by, bx, sz, sy, sx, nz, ny, nx, s);
+    case 0: return (int)launch_degree<double, double>(p, u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 1: return (int)launch_degree<float, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 2: return (int)launch_degree<__nv_bfloat16, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

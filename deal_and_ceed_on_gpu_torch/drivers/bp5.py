@@ -1,4 +1,4 @@
-"""BP5 benchmark driver: mesh-size sweep, three benchmark modes, validation.
+"""BP5 benchmark driver: mesh-size sweep, four benchmark modes, validation.
 
 Counterpart of ``deal_and_ceed_on_gpu_tpu/drivers/bp5.py`` and of the
 reference's ``PoissonProblem`` driver (``bp5/step-64.cu:280-679``). Output
@@ -7,6 +7,7 @@ lines match the reference format so result tables are comparable:
     pcg-standard <dofs/rank> <max_throughput>
     pcg-merged   <dofs/rank> <max_throughput>
     vmult        <dofs/rank> <max_throughput>
+    pcg-fused    <dofs/rank> <max_throughput>   (K5, --backend stencil only)
 
 Throughput = DoFs * iterations / wall_time, max over repetitions
 (``bp5/step-64.cu:458-463``); timing fences with ``torch.cuda.synchronize``.
@@ -34,15 +35,17 @@ import torch
 from ..fe_space import FESpace
 from ..mesh import BrickMesh
 from ..models import PoissonOperator, assemble_rhs, l2_norm_function
-from ..solvers import IterationNumberControl, solve_cg, solve_cg_merged
+from ..solvers import IterationNumberControl, solve_cg, solve_cg_fused, solve_cg_merged
 from ..utils.logging import rank0_print as pcout
 from ..utils.timer import Timer
 
-__all__ = ["BP5Config", "run_cycle", "run", "main", "PORTED_MODES", "resolve_device"]
+__all__ = ["BP5Config", "run_cycle", "run", "main", "DEFAULT_MODES", "PORTED_MODES", "resolve_device"]
 
-PORTED_MODES = ("pcg-standard", "pcg-merged", "vmult")
+# the JAX driver's default modes (drivers/bp5.py BP5Config.modes)
+DEFAULT_MODES = ("pcg-standard", "pcg-merged", "vmult")
+PORTED_MODES = DEFAULT_MODES + ("pcg-fused",)
 # modes of the JAX driver whose solvers or kernels the port does not have yet
-NOT_PORTED_MODES = ("pcg-fused", "fdm-direct", "pcg-ir", "pcg-mg")
+NOT_PORTED_MODES = ("fdm-direct", "pcg-ir", "pcg-mg")
 DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
 
@@ -55,7 +58,7 @@ class BP5Config:
     backend: str = "stencil"  # stencil | separable | structured
     rule: str = "gauss_lobatto"  # BP5 collocation
     n_q: int | None = None
-    modes: tuple = PORTED_MODES
+    modes: tuple = DEFAULT_MODES
     validate: bool = True
     # stream the solver vectors at this dtype ("bfloat16" halves their
     # bytes) while the apply, the dots and the recurrences run at ``dtype``
@@ -172,6 +175,16 @@ def run_cycle(cycle: int, cfg: BP5Config | None = None, **overrides):
             cfg, space.n_dofs, results,
         )
 
+    if "pcg-fused" in cfg.modes:
+        # the whole iteration (update, apply, dots) in one K5 launch
+        # (ops/cg.py); K5 is built on K1's tables, so stencil only
+        if cfg.backend != "stencil":
+            pcout("pcg-fused requires --backend stencil — skipping")
+        else:
+            solution = _repeat(
+                "pcg-fused", lambda: solve_cg_fused(op, b_solve, control), cfg, space.n_dofs, results
+            )
+
     if "vmult" in cfg.modes:
         op.fold_scale(1.0 / estimate_lambda_max(op, space.n_dofs))
         b_c = b_solve.to(dtype)
@@ -225,7 +238,7 @@ def main(argv=None):
         "separable / structured: plain torch",
     )
     ap.add_argument(
-        "--modes", default=",".join(PORTED_MODES),
+        "--modes", default=",".join(DEFAULT_MODES),
         help=f"comma list of {', '.join(PORTED_MODES + NOT_PORTED_MODES)} "
         f"({', '.join(NOT_PORTED_MODES)} are not ported yet and print a skip line)",
     )

@@ -13,10 +13,14 @@ is evaluated once at set-up over the physical quadrature points. Backends:
   assembled ``a JxW`` diagonal;
 - ``qgrid``: K3 (``ops/qgrid.py``) with grad ``const`` and the ``a(x_q) det``
   value table, uniform bricks, any Gauss-type rule: the reference's native
-  step-64 configuration (Q3, Gauss q = 4).
+  step-64 configuration (Q3, Gauss q = 4);
+- ``stencil``: K1 with its value term (``ops/stencil.py``), GLL collocation
+  on a uniform brick: the JAX ``pallas`` backend. Quadrature points are the
+  nodes, so the assembled value diagonal is ``d3 a = S diag(a) S`` with the
+  nodal ``a(x) hx hy hz`` (K1's ``S`` holds the unit-cell weights); its
+  ``fused_cg_step`` is K5 with the value term.
 
-The JAX backends ``pallas`` (K1's value term) and ``pallas_general`` (K4)
-are not ported yet (ROADMAP §2).
+The JAX backend ``pallas_general`` (K4) is not ported yet (ROADMAP §2).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 from typing import Callable
 
 import numpy as np
+import torch
 
 from ..fe_space import FESpace
 from .operator_base import MatrixFreeOperator, tensor_product_diagonal
@@ -31,8 +36,6 @@ from .operator_base import MatrixFreeOperator, tensor_product_diagonal
 __all__ = ["HelmholtzOperator", "default_coefficient"]
 
 _NOT_PORTED = {
-    "pallas": "the collocated Helmholtz kernel (K1's value term)",
-    "stencil": "the collocated Helmholtz kernel (K1's value term)",
     "pallas_general": "the element-major kernel K4",
 }
 
@@ -51,16 +54,32 @@ class HelmholtzOperator(MatrixFreeOperator):
         space: FESpace,
         backend: str = "structured",
         coefficient_fn: Callable[[np.ndarray], np.ndarray] = default_coefficient,
+        stream_dtype: torch.dtype | None = None,
     ):
         if backend in _NOT_PORTED:
             raise ValueError(
                 f"Helmholtz backend {backend!r} needs {_NOT_PORTED[backend]}, not ported yet "
-                "(ROADMAP §2); use structured, separable or qgrid"
+                "(ROADMAP §2); use structured, separable, qgrid or stencil"
             )
-        super().__init__(space, backend)
+        super().__init__(space, backend, stream_dtype)
         geo = space.geometry
         a_q = np.asarray(coefficient_fn(geo.q_points_phys()), dtype=np.float64)
         self._a_q_raw = a_q  # [n_cells, n_q], kept for compute_diagonal
+        if backend == "stencil":
+            from ..ops.stencil import StencilTables
+
+            if not space.basis.collocation:
+                raise ValueError(
+                    "stencil Helmholtz requires GLL collocation (the value term is "
+                    "pointwise only when the nodes are the quadrature points)"
+                )
+            hx, hy, hz = space.mesh.h
+            x_nodes = space.node_coords().reshape(space.grid_shape + (3,))
+            a_nodes = np.asarray(coefficient_fn(x_nodes), dtype=np.float64) * (hx * hy * hz)
+            self._stencil = StencilTables.create(
+                space.mesh, space.basis, space.dtype, space.device, value=a_nodes
+            )
+            return
         if backend == "separable":
             # the varying-coefficient mass term is a global diagonal when the
             # quadrature points are the nodes

@@ -15,7 +15,9 @@ Backends:
   local layout ``[mz, p1, my, p1, mx, p1]``.
 - ``separable``: the Kronecker form of ``ops/separable.py`` (subclasses fill
   ``_sep_terms``).
-- ``stencil``: K1 (``ops/stencil.py``), set up by ``PoissonOperator``.
+- ``stencil``: K1 (``ops/stencil.py``), set up by ``PoissonOperator`` and
+  ``HelmholtzOperator`` (with K1's value term); one ``vmult`` is one K1
+  launch, and ``fused_cg_step`` gives K5 (``ops/cg.py``) on its tables.
 - ``qgrid``: K3 (``ops/qgrid.py``), set up by ``PoissonOperator`` and
   ``HelmholtzOperator``; one ``vmult`` is one constrained K3 apply.
 
@@ -64,6 +66,10 @@ class MatrixFreeOperator:
         self._fold_factor = 1.0
         # qgrid backend: subclasses that support it fill _qgrid (K3 tables)
         self._qgrid = None
+        # stencil backend: subclasses that support it fill _stencil (K1
+        # tables); the fused CG step built on them is cached
+        self._stencil = None
+        self._fused_cg_step = None
 
     # -------------------------- subclass hook ------------------------- #
     def quad_point_op(self, vals, grads):
@@ -138,6 +144,12 @@ class MatrixFreeOperator:
         """dst = A src with Dirichlet rows acting as identity
         (``bp5/step-64.cu:263-276``); returns a fresh ``stream_dtype`` dst."""
         s = self.space
+        if self.backend == "stencil":
+            from ..ops.stencil import stencil_apply
+
+            # K1 masks the constrained rows and writes the identity rows
+            u = src.to(self.stream_dtype).reshape(s.grid_shape)
+            return stencil_apply(u, self._stencil).reshape(-1)
         src = src.to(s.dtype)
         if self.backend == "qgrid":
             from ..ops.qgrid import qgrid_apply
@@ -162,6 +174,12 @@ class MatrixFreeOperator:
 
     def _apply_fold_scale(self, s: float) -> None:
         """Subclass hook: rescale the coefficient tables by ``s``."""
+        if self._stencil is not None:
+            # scales the device tables K1 and K5 read, in place; the fused
+            # step is rebuilt on next use, as the JAX operators do
+            self._stencil.scale_(s)
+            self._fused_cg_step = None
+            return
         if self._qgrid is not None:
             self._qgrid.fold_scale(s)
             return
@@ -170,6 +188,22 @@ class MatrixFreeOperator:
                 t["coef"] = t["coef"] * s
             return
         raise NotImplementedError(f"{type(self).__name__} ({self.backend}) has no fold_scale")
+
+    @property
+    def fused_cg_step(self):
+        """K5, the fused CG iteration (``ops/cg.py``) on this operator's K1
+        tables, value term included; cached until the next ``fold_scale``.
+        Stencil backend only."""
+        if self._stencil is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} ({self.backend}): the fused CG kernel "
+                "requires the stencil backend"
+            )
+        if self._fused_cg_step is None:
+            from ..ops.cg import CGFusedStep
+
+            self._fused_cg_step = CGFusedStep(self._stencil)
+        return self._fused_cg_step
 
     def diagonal(self) -> torch.Tensor:
         """Preconditioner diagonal slot (reference L-12 ``DiagonalMatrix``).

@@ -68,19 +68,7 @@ class PoissonOperator(MatrixFreeOperator):
         self._cdiag = geo.const_merged_diag
         self._w3d = space.tensor(self.w3d_layout())
 
-    def vmult(self, src: torch.Tensor) -> torch.Tensor:
-        if self.backend == "stencil":
-            from ..ops.stencil import stencil_apply
-
-            u = src.to(self.stream_dtype).reshape(self.space.grid_shape)
-            return stencil_apply(u, self._stencil).reshape(-1)
-        return super().vmult(src)
-
     def _apply_fold_scale(self, s: float) -> None:
-        if self.backend == "stencil":
-            # scales the device band tables the kernel reads
-            self._stencil.scale_(s)
-            return
         if self.backend == "structured":
             self._cdiag = tuple(c * s for c in self._cdiag)
             return

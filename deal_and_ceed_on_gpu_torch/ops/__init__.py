@@ -1,3 +1,3 @@
-from . import local_global, qgrid, separable, stencil, sum_factorization
+from . import cg, copy, local_global, qgrid, separable, stencil, sum_factorization
 
-__all__ = ["local_global", "qgrid", "separable", "stencil", "sum_factorization"]
+__all__ = ["cg", "copy", "local_global", "qgrid", "separable", "stencil", "sum_factorization"]

@@ -15,11 +15,15 @@ the constrained ``M A M``. The kernel also writes the identity rows
 Unlike the TPU kernel, the port works on the unpadded ``[nz, ny, nx]`` grid;
 the 128-lane x rounding, the y sublane pad and the VMEM windows were
 Mosaic's constraints. Tables: ``bz [nz, 2p+1]``, ``by [ny, 2p+1]``,
-``bx [nx, 2p+1]``, ``sz [nz]``, ``sy [ny]``, ``sx [nx]`` in the compute dtype.
+``bx [nx, 2p+1]``, ``sz [nz]``, ``sy [ny]``, ``sx [nx]`` in the compute dtype,
+and optionally the value coefficient ``a [nz, ny, nx]``: the collocated
+Helmholtz mass term ``diag(d3 a) u = S diag(a) S u`` (the JAX kernel's
+``has_value``), added to the taps as ``a * v`` before the final scaling.
 
 ``stencil_apply`` launches the CUDA kernel (``csrc/stencil.cu``) for a CUDA
 tensor and calls the plain twin ``stencil_apply_reference`` for a CPU
-tensor; ``LAUNCHES`` counts kernel launches.
+tensor; ``LAUNCHES`` counts kernel launches, ``VALUE_LAUNCHES`` those with
+the value term.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from .separable import _bands_from_dense, band_matrix_1d, diag_vector_1d
 __all__ = [
     "LAUNCHES",
     "MAX_DEGREE",
+    "VALUE_LAUNCHES",
     "SOURCE",
     "StencilTables",
     "stencil_apply",
@@ -48,6 +53,8 @@ MAX_DEGREE = 8
 
 # kernel launches made by stencil_apply (a run resets it to 0 to count its own)
 LAUNCHES = 0
+# of those, the launches with the value term
+VALUE_LAUNCHES = 0
 
 # (storage dtype, compute dtype) -> the launcher's dtype code
 _DTYPE_CODES = {
@@ -91,8 +98,8 @@ def stencil_tables_np(mesh, basis) -> dict[str, np.ndarray]:
 
 @dataclasses.dataclass
 class StencilTables:
-    """K1's device tables; ``scale_`` rescales the band tables the kernel
-    reads, in place."""
+    """K1's device tables; ``scale_`` rescales the tables the kernel reads,
+    in place. ``a``: the optional value coefficient ``[nz, ny, nx]``."""
 
     p: int
     bz: torch.Tensor
@@ -101,19 +108,28 @@ class StencilTables:
     sz: torch.Tensor
     sy: torch.Tensor
     sx: torch.Tensor
+    a: torch.Tensor | None = None
 
     @staticmethod
     def from_numpy(tabs: dict, p: int, dtype: torch.dtype, device="cuda") -> "StencilTables":
+        """Tables from ``stencil_tables_np`` keys, plus ``"a"`` if present."""
         def dev(a):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
-        return StencilTables(p, *(dev(tabs[k]) for k in ("bz", "by", "bx", "sz", "sy", "sx")))
+        a = tabs.get("a")
+        return StencilTables(
+            p, *(dev(tabs[k]) for k in ("bz", "by", "bx", "sz", "sy", "sx")),
+            a=None if a is None else dev(a),
+        )
 
     @staticmethod
-    def create(mesh, basis, dtype: torch.dtype, device="cuda") -> "StencilTables":
-        return StencilTables.from_numpy(
-            stencil_tables_np(mesh, basis), basis.degree, dtype, device
-        )
+    def create(mesh, basis, dtype: torch.dtype, device="cuda", value=None) -> "StencilTables":
+        """``value``: a nodal coefficient ``[nz, ny, nx]`` (host array) for
+        the value term, or None."""
+        tabs = stencil_tables_np(mesh, basis)
+        if value is not None:
+            tabs["a"] = value
+        return StencilTables.from_numpy(tabs, basis.degree, dtype, device)
 
     @property
     def shape(self) -> tuple[int, int, int]:
@@ -128,10 +144,12 @@ class StencilTables:
         return self.bz.device
 
     def scale_(self, s: float) -> None:
-        """``out = S (Bz + By + Bx) S u``: scaling every band table by s
-        scales the whole apply by s (identity faces unaffected)."""
-        for t in (self.bz, self.by, self.bx):
-            t.mul_(s)
+        """``out = S (Bz + By + Bx + a) S u``: scaling every band table and
+        the value table by s scales the whole apply by s (identity faces
+        unaffected)."""
+        for t in (self.bz, self.by, self.bx, self.a):
+            if t is not None:
+                t.mul_(s)
 
 
 def _check(u: torch.Tensor, tables: StencilTables) -> int:
@@ -150,24 +168,37 @@ def _check(u: torch.Tensor, tables: StencilTables) -> int:
     for name, n in zip(("bz", "by", "bx"), tables.shape):
         if tuple(getattr(tables, name).shape) != (n, nt):
             raise ValueError(f"stencil: table {name} is not [{n}, {nt}]")
+    if tables.a is not None and tuple(tables.a.shape) != tables.shape:
+        raise ValueError(f"stencil: value table is {tuple(tables.a.shape)}, not {tables.shape}")
     if not u.is_contiguous() or not all(
         t.is_contiguous()
-        for t in (tables.bz, tables.by, tables.bx, tables.sz, tables.sy, tables.sx)
+        for t in (tables.bz, tables.by, tables.bx, tables.sz, tables.sy, tables.sx, tables.a)
+        if t is not None
     ):
         raise ValueError("stencil: u and the tables must be contiguous")
     return code
 
 
-def stencil_apply_reference(u: torch.Tensor, tables: StencilTables) -> torch.Tensor:
-    """The plain torch twin of K1: the same formula in torch ops."""
-    _check(u, tables)
+def face_mask(shape, device) -> torch.Tensor:
+    """bool ``[nz, ny, nx]``, True on the six boundary faces."""
+    face = torch.zeros(shape, dtype=torch.bool, device=device)
+    for axis, n in enumerate(shape):
+        face.narrow(axis, 0, 1).fill_(True)
+        face.narrow(axis, n - 1, 1).fill_(True)
+    return face
+
+
+def apply_plain(uc: torch.Tensor, tables: StencilTables) -> torch.Tensor:
+    """K1's arithmetic in torch ops on a grid at the compute dtype:
+    ``S (Bz + By + Bx [+ a]) S uc`` inside, ``uc`` on the faces."""
     p = tables.p
     nz, ny, nx = tables.shape
     sz = tables.sz[:, None, None]
     syx = tables.sy[:, None] * tables.sx[None, :]
-    uc = u.to(tables.dtype)
-    vp = torch.nn.functional.pad(uc * sz * syx, (p, p, p, p, p, p))
-    # z taps, then y taps, then x taps, as the TPU kernel sums them
+    v = uc * sz * syx
+    vp = torch.nn.functional.pad(v, (p, p, p, p, p, p))
+    # z taps, then y taps, then x taps, then the value term, as the TPU
+    # kernel sums them
     acc = torch.zeros_like(uc)
     for t in range(2 * p + 1):
         acc += tables.bz[:, t, None, None] * vp[t : t + nz, p : p + ny, p : p + nx]
@@ -175,15 +206,18 @@ def stencil_apply_reference(u: torch.Tensor, tables: StencilTables) -> torch.Ten
         acc += tables.by[None, :, t, None] * vp[p : p + nz, t : t + ny, p : p + nx]
     for t in range(2 * p + 1):
         acc += tables.bx[None, None, :, t] * vp[p : p + nz, p : p + ny, t : t + nx]
-    out = acc * sz * syx
-    face = torch.zeros((nz, ny, nx), dtype=torch.bool, device=u.device)
-    for axis, n in enumerate((nz, ny, nx)):
-        face.narrow(axis, 0, 1).fill_(True)
-        face.narrow(axis, n - 1, 1).fill_(True)
-    return torch.where(face, uc, out).to(u.dtype)
+    if tables.a is not None:
+        acc += tables.a * v
+    return torch.where(face_mask((nz, ny, nx), uc.device), uc, acc * sz * syx)
 
 
-_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def stencil_apply_reference(u: torch.Tensor, tables: StencilTables) -> torch.Tensor:
+    """The plain torch twin of K1: the same formula in torch ops."""
+    _check(u, tables)
+    return apply_plain(u.to(tables.dtype), tables).to(u.dtype)
+
+
+_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _launcher():
@@ -199,7 +233,7 @@ def stencil_apply(u: torch.Tensor, tables: StencilTables) -> torch.Tensor:
     """``out = K1(u)`` on a ``[nz, ny, nx]`` tensor: the CUDA kernel for a
     CUDA tensor (raises if it cannot launch), the plain twin for a CPU
     tensor. The output is a new tensor of ``u``'s dtype."""
-    global LAUNCHES
+    global LAUNCHES, VALUE_LAUNCHES
     code = _check(u, tables)
     if u.device.type == "cpu":
         return stencil_apply_reference(u, tables)
@@ -213,9 +247,12 @@ def stencil_apply(u: torch.Tensor, tables: StencilTables) -> torch.Tensor:
             code, tables.p, u.data_ptr(), out.data_ptr(),
             tables.bz.data_ptr(), tables.by.data_ptr(), tables.bx.data_ptr(),
             tables.sz.data_ptr(), tables.sy.data_ptr(), tables.sx.data_ptr(),
+            None if tables.a is None else tables.a.data_ptr(),
             nz, ny, nx, torch.cuda.current_stream(u.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"stencil kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    if tables.a is not None:
+        VALUE_LAUNCHES += 1
     return out

@@ -1,4 +1,5 @@
 from .cg import solve_cg
+from .cg_fused import solve_cg_fused
 from .cg_merged import solve_cg_merged
 from .control import (
     IterationNumberControl,
@@ -13,5 +14,6 @@ __all__ = [
     "ReductionControl",
     "NoConvergence",
     "solve_cg",
+    "solve_cg_fused",
     "solve_cg_merged",
 ]

@@ -9,14 +9,24 @@ multiple of 128, taps on the leading axis); the port's K1 takes unpadded
 tables of a JAX ``QGridLayout`` (``C [K, ZQ, YQ, MXQ]``, ``a_q [ZQ, YQ,
 MXQ]``) put element ``e``'s q points at ``e*q`` on every axis and pad the
 tail (z and y to whole blocks, x to 128 lanes); the port's K3 takes the
-same tables without the padding.
+same tables without the padding. The Helmholtz value table of a JAX stencil
+operator (``_a``, from ``StencilLayout.pad_node_field``) starts at the
+origin of an output-tile-aligned box; the fused CG state of the JAX
+``CGFusedStep`` is ``[4, zt, yt, nxp]`` in the vector layout's padded
+coordinates. The port cuts both to the real grid.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["JAX_STENCIL_YOFF", "qgrid_tables_from_jax", "stencil_tables_from_jax"]
+__all__ = [
+    "JAX_STENCIL_YOFF",
+    "cg_state_from_jax",
+    "qgrid_tables_from_jax",
+    "stencil_tables_from_jax",
+    "stencil_value_from_jax",
+]
 
 JAX_STENCIL_YOFF = 8  # pallas_stencil.YOFF: the y front pad of the TPU layout
 
@@ -32,6 +42,22 @@ def stencil_tables_from_jax(sz_np, sy_np, sx_np, bz_np, by_np, bx_np, p, real_sh
         out["s" + name] = np.asarray(s, dtype=np.float64)[sl].copy()
         out["b" + name] = np.ascontiguousarray(np.asarray(b, dtype=np.float64)[:, sl].T)
     return out
+
+
+def stencil_value_from_jax(a_pad, real_shape) -> np.ndarray:
+    """The port's value table ``[nz, ny, nx]`` (float64) from a JAX
+    stencil operator's padded ``_a``."""
+    nz, ny, nx = real_shape
+    return np.ascontiguousarray(np.asarray(a_pad, dtype=np.float64)[:nz, :ny, :nx])
+
+
+def cg_state_from_jax(s, p, real_shape) -> np.ndarray:
+    """The port's stacked CG state ``[4, nz, ny, nx]`` (planes D, G, H, X)
+    from a JAX stacked state ``[4, zt, yt, nxp]`` of degree ``p``, at its
+    own dtype."""
+    nz, ny, nx = real_shape
+    y0 = JAX_STENCIL_YOFF
+    return np.ascontiguousarray(np.asarray(s)[:, p : p + nz, y0 : y0 + ny, :nx])
 
 
 def qgrid_tables_from_jax(layout) -> dict:

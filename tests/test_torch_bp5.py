@@ -155,12 +155,16 @@ def test_import_leaves_jax_and_triton_out():
         "deal_and_ceed_on_gpu_torch.drivers.step64, deal_and_ceed_on_gpu_torch.ops.qgrid, "
         "deal_and_ceed_on_gpu_torch.models.helmholtz, "
         "deal_and_ceed_on_gpu_torch.ops.stencil, deal_and_ceed_on_gpu_torch.utils.convert, "
-        "deal_and_ceed_on_gpu_torch.utils.cuda_build; "
+        "deal_and_ceed_on_gpu_torch.utils.cuda_build, deal_and_ceed_on_gpu_torch.ops.cg, "
+        "deal_and_ceed_on_gpu_torch.ops.copy, deal_and_ceed_on_gpu_torch.solvers.cg_fused, "
+        "deal_and_ceed_on_gpu_torch.scripts.exp_solver_budget; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', "
         "'deal_and_ceed_on_gpu_tpu')]; print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    # nor nvcc: importing builds nothing
+    assert "nvcc" not in proc.stdout + proc.stderr
 
 
 def test_device_cuda_raises_without_a_card(monkeypatch):
@@ -180,10 +184,28 @@ def test_cli_on_cpu_prints_reference_lines_and_skips(capsys):
     out = capsys.readouterr().out
     assert re.search(r"^pcg-merged \d+ \S+$", out, re.M)
     assert re.search(r"^vmult \d+ \S+$", out, re.M)
-    assert "pcg-fused: not ported yet" in out and "pcg-mg: not ported yet" in out
+    assert re.search(r"^pcg-fused \d+ \S+$", out, re.M)  # bf16 state, f32 dots, on K5's plain version
+    assert "pcg-mg: not ported yet" in out
     assert "solution L2 norm" in out
     with pytest.raises(ValueError):
         bp5_t.run_cycle(7, device="cpu", modes=("pcg-bogus",))
+
+
+def test_pcg_fused_matches_the_golden():
+    """pcg-fused (K5's plain version) at cycle 10 in f64: the JAX driver's
+    iterations (+-1) and L2 norm (5e-9, see DRIVER_L2_RTOL)."""
+    iters_j, l2_j_val = _jax_cycle(10)
+    r = bp5_t.run_cycle(10, modes=("pcg-fused",), backend="stencil", device="cpu", dtype="float64", n_repetitions=1)
+    assert abs(r["n_iterations"]["pcg-fused"] - iters_j["pcg-merged"]) <= 1
+    assert r["finite"]["pcg-fused"]
+    assert abs(r["l2_norm"] - l2_j_val) <= DRIVER_L2_RTOL * l2_j_val
+
+
+def test_pcg_fused_needs_the_stencil_backend(capsys):
+    r = bp5_t.run_cycle(7, modes=("pcg-fused",), backend="separable", device="cpu", n_iterations=3, n_repetitions=1)
+    assert "pcg-fused requires --backend stencil — skipping" in capsys.readouterr().out
+    assert "pcg-fused" not in r
+    assert bp5_t.BP5Config().modes == bp5_t.DEFAULT_MODES == ("pcg-standard", "pcg-merged", "vmult")
 
 
 def test_fe_space_matches_jax():

@@ -1,6 +1,7 @@
 """K1 (ops/stencil.py): host tables, the plain twin against the JAX Pallas
-stencil kernel in interpret mode, fold_scale, the wrapper's checks, and the
-CUDA kernel against its twin on a card (skipped without one)."""
+stencil kernel in interpret mode (with and without the Helmholtz value
+term), fold_scale, the wrapper's checks, and the CUDA kernel against its
+twin on a card (skipped without one)."""
 
 import numpy as np
 import pytest
@@ -8,13 +9,13 @@ import torch
 
 import deal_and_ceed_on_gpu_torch as pt
 from deal_and_ceed_on_gpu_torch.ops import stencil as st
-from deal_and_ceed_on_gpu_torch.utils.convert import stencil_tables_from_jax
+from deal_and_ceed_on_gpu_torch.utils.convert import stencil_tables_from_jax, stencil_value_from_jax
 
 try:
     import jax.numpy as jnp
 
     from deal_and_ceed_on_gpu_tpu import BrickMesh, FESpace
-    from deal_and_ceed_on_gpu_tpu.models import PoissonOperator
+    from deal_and_ceed_on_gpu_tpu.models import HelmholtzOperator, PoissonOperator
     from deal_and_ceed_on_gpu_tpu.ops.pallas_stencil import StencilLayout
 except ImportError:  # the card's machine has no jax: only the cuda-marked tests run there
     jnp = None
@@ -87,6 +88,25 @@ def test_twin_matches_jax_pallas_interpret(shape, p):
 
 
 @pytest.mark.parametrize("shape,p", CASES)
+def test_value_twin_matches_jax_pallas_interpret(shape, p):
+    """K1's value term: the twin on the JAX Helmholtz kernel's tables (value
+    table carried across) against the JAX pallas backend in interpret mode,
+    and the port's own value table equal to the converted one."""
+    js, ts = _spaces(shape, p)
+    jop = HelmholtzOperator(js, backend="pallas", pallas_opts=dict(interpret=True))
+    u = _random(js.n_dofs, seed=6)
+    want = np.asarray(jop.vmult(jnp.asarray(u)))
+    L = jop.layout
+    tabs = stencil_tables_from_jax(L.sz_np, L.sy_np, L.sx_np, L.bz_np, L.by_np, L.bx_np, p, L.real_shape)
+    tabs["a"] = stencil_value_from_jax(jop._stencil._a, L.real_shape)
+    tables = st.StencilTables.from_numpy(tabs, p, torch.float64, device="cpu")
+    got = st.stencil_apply_reference(torch.as_tensor(u).reshape(ts.grid_shape), tables)
+    np.testing.assert_allclose(got.reshape(-1).numpy(), want, rtol=1e-13, atol=1e-13)
+    own = pt.HelmholtzOperator(ts, backend="stencil")._stencil.a
+    np.testing.assert_array_equal(own.numpy(), tabs["a"])
+
+
+@pytest.mark.parametrize("shape,p", CASES)
 def test_stencil_backend_matches_separable(shape, p):
     _, ts = _spaces(shape, p)
     u = torch.as_tensor(_random(ts.n_dofs, seed=1))
@@ -121,6 +141,19 @@ def test_fold_scale_scales_the_kernel_tables():
     mask = ts.dirichlet_mask
     np.testing.assert_array_equal(after[mask].numpy(), u[mask].numpy())
     np.testing.assert_allclose(after[~mask].numpy(), 0.25 * before[~mask].numpy(), rtol=1e-14, atol=1e-14)
+
+
+def test_fold_scale_scales_the_value_table():
+    _, ts = _spaces((3, 2, 2), 3)
+    op = pt.HelmholtzOperator(ts, backend="stencil")
+    a = op._stencil.a.clone()
+    op.fold_scale(0.5)
+    np.testing.assert_array_equal(op._stencil.a.numpy(), 0.5 * a.numpy())
+    with pytest.raises(ValueError, match="value table"):
+        tabs = st.stencil_tables_np(ts.mesh, ts.basis)
+        tabs["a"] = np.ones((2, 2, 2))
+        st.stencil_apply(torch.zeros(ts.grid_shape, dtype=torch.float64),
+                         st.StencilTables.from_numpy(tabs, 3, torch.float64, device="cpu"))
 
 
 def test_cpu_apply_uses_the_twin_and_counts_no_launch():
@@ -187,3 +220,25 @@ def test_kernel_matches_twin_on_card(cuda_device, p, storage, compute, tol):
     nz, ny, nx = tables.shape
     for sl in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0], np.s_[:, :, -1]):
         assert torch.equal(got[sl], u[sl])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2, 5, 8])
+@pytest.mark.parametrize("storage,compute,tol", [
+    (torch.float64, torch.float64, 1e-13),
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.float32, 3e-2),
+])
+def test_kernel_with_value_matches_twin_on_card(cuda_device, p, storage, compute, tol):
+    mesh = pt.BrickMesh((4, 3, 6), upper=UPPER)
+    grid = tuple(m * p + 1 for m in reversed(mesh.n_elements))
+    value = 0.5 + np.random.default_rng(p).random(grid)
+    tables = st.StencilTables.create(mesh, pt.Basis1D.make(p), compute, cuda_device, value=value)
+    u = torch.as_tensor(_random(tables.shape, seed=p), device=cuda_device).to(storage)
+    before = st.VALUE_LAUNCHES
+    got = st.stencil_apply(u, tables)
+    torch.cuda.synchronize()
+    assert st.VALUE_LAUNCHES == before + 1
+    want = st.stencil_apply_reference(u, tables)
+    err = (got.double() - want.double()).abs().max() / want.double().abs().max()
+    assert float(err) <= tol

@@ -108,16 +108,44 @@ def test_helmholtz_custom_coefficient_matches_jax():
 
 def test_helmholtz_rejects_unported_backends():
     _, ts = _spaces((2, 2, 2), 3, 4, "gauss")
-    for backend in ("pallas", "pallas_general", "stencil"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            pt.HelmholtzOperator(ts, backend=backend)
-    with pytest.raises(ValueError):
-        pt.HelmholtzOperator(ts, backend="separable")  # Gauss rule: not separable
+    with pytest.raises(ValueError, match="ROADMAP"):
+        pt.HelmholtzOperator(ts, backend="pallas_general")
+    with pytest.raises(ValueError, match="unknown backend"):
+        pt.HelmholtzOperator(ts, backend="pallas")  # the port's name for it is "stencil"
+    for backend in ("separable", "stencil"):
+        with pytest.raises(ValueError, match="collocation"):
+            pt.HelmholtzOperator(ts, backend=backend)  # Gauss rule: not pointwise
     graded = pt.FESpace.create(pt.BrickMesh.graded([0, 0.3, 1], [0, 1], [0, 1]), 3, n_q=4, rule="gauss",
                                dtype=torch.float64, device="cpu")
     for backend in ("structured", "qgrid"):
         with pytest.raises(ValueError):
             pt.HelmholtzOperator(graded, backend=backend)
+
+
+@pytest.mark.parametrize("shape,p", [((3, 2, 4), 3), ((2, 2, 2), 5)])
+def test_helmholtz_stencil_matches_jax(shape, p):
+    """The stencil backend (K1's value term, plain version on the CPU):
+    f32 against the JAX pallas backend in interpret mode (1e-5), f64 against
+    the JAX separable backend (1e-12), with fold_scale and the diagonal."""
+    js32 = jx.FESpace.create(jx.BrickMesh(shape, upper=UPPER), p, dtype=jnp.float32)
+    ts32 = pt.FESpace.create(pt.BrickMesh(shape, upper=UPPER), p, dtype=torch.float32, device="cpu")
+    u = np.random.default_rng(p).standard_normal(ts32.n_dofs)
+    want = np.asarray(HelmholtzJ(js32, backend="pallas", pallas_opts=dict(interpret=True)).vmult(
+        jnp.asarray(u, jnp.float32)), dtype=np.float64)
+    got = pt.HelmholtzOperator(ts32, backend="stencil").vmult(torch.as_tensor(u, dtype=torch.float32))
+    _close(got.double(), want, 1e-5)
+
+    js, ts = _spaces(shape, p, None, "gauss_lobatto")
+    jop = HelmholtzJ(js, backend="separable")
+    want = np.asarray(jop.vmult(jnp.asarray(u)))
+    op = pt.HelmholtzOperator(ts, backend="stencil")
+    _close(op.vmult(torch.as_tensor(u)), want)
+    np.testing.assert_allclose(op.compute_diagonal().numpy(), np.asarray(jop.compute_diagonal()), rtol=1e-13)
+    op.fold_scale(0.5)
+    got = op.vmult(torch.as_tensor(u)).numpy()
+    mask = ts.mesh.boundary_dof_mask(p)
+    _close(got[~mask], 0.5 * want[~mask])
+    np.testing.assert_array_equal(got[mask], u[mask])
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 3), (3, 1, 2)])
