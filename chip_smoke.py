@@ -53,7 +53,24 @@ anything does not build, launch, agree or converge. Phases:
 16. cycle-33 pcg-fused throughput beside pcg-merged on K1, in turns;
 17. K6, the copy probe, against ``2 * src`` and beside ``torch.mul`` at
     the cycle-33 shape, then the port's ``scripts/exp_solver_budget.py``
-    lines (a)-(i) at cycle 33 with short chains (K6 must have launched).
+    lines (a)-(i) at cycle 33 with short chains (K6 must have launched);
+18. K2 (``csrc/banded.cu``) against ``banded_apply_reference``: the cases of
+    ``tests/test_pallas_banded.py`` (uniform and graded, stiffness and
+    mass, ``value_const``), then BP1 and BP3 at the main shape (32^3
+    elements, p = 5, q = 7), each with 1 and 3 components, in f64, f32 and
+    bf16 storage, from a NaN-filled output; at the main shape K2 and its
+    plain version are timed beside the bound;
+19. K1 with 3 components against three 1-component launches (bitwise) and
+    its plain twin, small shapes and the BP6 main shape, three precisions;
+20. the BP1-BP6 goldens of the JAX reference at 4^3 elements, p = 3, f64,
+    on the kernel backends, solved by pcg-merged to 1e-12 |b| (K2 must have
+    launched for BP1-BP4, K1 with 3 components for BP6);
+21. the main path: ``drivers/bp.run_sweep`` for bp1..bp6 at p = 5 and
+    ``target_dofs = 4_000_000`` (32^3 elements, 4,173,281 DoFs a
+    component) in f64 and f32, pcg-merged and vmult (K2 / K1 must have
+    launched, no NaN); BP3 and BP6 pcg-merged with bf16 vectors; BP3 beside
+    the plain ``separable`` comparator in turns; a ``torch.profiler`` trace
+    of 20 BP3 f64 pcg-merged iterations on K2 (as phase 11).
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -154,14 +171,14 @@ def phase0_device():
 
 
 def phase1_build():
-    from deal_and_ceed_on_gpu_torch.ops import cg, copy, qgrid, stencil
+    from deal_and_ceed_on_gpu_torch.ops import banded, cg, copy, qgrid, stencil
     from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
 
     def timed(source):
         t0 = time.perf_counter()
         return build_library(source), time.perf_counter() - t0
 
-    sources = {"K1": stencil.SOURCE, "K3": qgrid.SOURCE, "K5": cg.SOURCE, "K6": copy.SOURCE}
+    sources = {"K1": stencil.SOURCE, "K2": banded.SOURCE, "K3": qgrid.SOURCE, "K5": cg.SOURCE, "K6": copy.SOURCE}
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(timed, sources.values()))
     for name, (lib, seconds) in zip(sources, builds):
@@ -546,8 +563,6 @@ def phase10_throughput():
 
 def phase11_profile():
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, HelmholtzOperator, IterationNumberControl, solve_cg
     from deal_and_ceed_on_gpu_torch.models import assemble_rhs
@@ -558,11 +573,23 @@ def phase11_profile():
     b = assemble_rhs(space, 1.0)
     n_it = 20
     control = IterationNumberControl(n_it, 0.0)
-    solve_cg(op.vmult, b, control)
+    _profile(f"phase 11: {n_it} plain-CG iterations, refine {STEP64_MAIN} f64 on K3", n_it,
+             lambda: solve_cg(op.vmult, b, control)[0])
+
+
+def _profile(tag, n_it, solve):
+    """Run ``solve`` once to warm up, then once under ``torch.profiler``;
+    print the wall time, the device's busy time and share, and the device
+    time per iteration of the eight costliest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solve()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        x, _ = solve_cg(op.vmult, b, control)
+        solve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (the CPU ops that launched them carry the
@@ -570,11 +597,11 @@ def phase11_profile():
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(t for _, t, _ in rows) / 1e6
-    print(f"phase 11: {n_it} plain-CG iterations, refine {STEP64_MAIN} f64 on K3 under the profiler: wall "
-          f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (busy share {busy / wall:.3f}; the profiler's "
-          f"own host cost makes the idle share an upper bound)")
+    print(f"{tag} under the profiler: wall {wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (busy share "
+          f"{busy / wall:.3f}; the profiler's own host cost makes the idle share an upper bound)")
+    head = tag.split(":")[0]
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
-        print(f"phase 11:   {t / 1e3 / n_it:8.4f} ms/iteration  {n:5d} calls  {key[:90]}")
+        print(f"{head}:   {t / 1e3 / n_it:8.4f} ms/iteration  {n:5d} calls  {key[:90]}")
 
 def _bound_ms(n_bytes, flops, label):
     """The least time for ``n_bytes`` of traffic and ``flops`` operations
@@ -861,6 +888,236 @@ def phase17_k6_and_budget():
     return main, launches
 
 
+# K2 against its plain version: tests/test_pallas_banded.py's cases
+# (elements (mx, my, mz), p, q, graded, kind, value_const), then BP1 and BP3
+# at the main shape of the BP sweep (drivers/bp.py, p = 5, target 4e6 DoFs)
+K2_CASES = (
+    ((4, 5, 6), 3, 5, False, "stiffness", None),
+    ((4, 5, 6), 3, 4, True, "stiffness", 2.5),
+    ((3, 4, 5), 5, 7, True, "stiffness", None),
+    ((4, 5, 6), 2, 4, True, "mass", None),
+    ((3, 4, 5), 4, 6, False, "mass", 3.0),
+)
+K2_TOL = {"f64": 1e-13, "f32": 1e-5, "bf16": 3e-2}  # of max|out|, as K1
+BP_DEGREE = 5
+BP_TARGET_DOFS = 4_000_000  # 32^3 elements at p = 5: 4,173,281 DoFs a component
+BP_ITERATIONS = 100
+# BP goldens of the JAX reference, computed on the CPU under x64 with
+#   space, op = make_bp_operator(bp, BrickMesh((4, 4, 4)), 3, dtype=float64)
+#   b = assemble_rhs(space, 1.0)  (broadcast to 3 components for BP2/4/6)
+#   solve_cg_merged(op.vmult, b, SolverControl(2000, 1e-12 * |b|))
+# -> (iterations, L2 norm of component 0); 2,197 DoFs a component.
+BP_GOLDEN = {
+    "bp1": (40, 0.9520052454926876),
+    "bp2": (40, 0.9520052454926893),
+    "bp3": (44, 0.024987777385572767),
+    "bp4": (44, 0.02498777738557277),
+    "bp5": (50, 0.024987994378402857),
+    "bp6": (50, 0.02498799437840286),
+}
+
+
+def _k2_mesh(n_el, graded):
+    """The mesh of a K2 case: tests/test_pallas_banded.py's graded breaks."""
+    import numpy as np
+
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+
+    if not graded:
+        return BrickMesh(n_el)
+    rng = np.random.default_rng(7)
+    return BrickMesh.graded(*(np.cumsum(np.concatenate([[0.0], 0.6 + rng.random(m)])) for m in n_el))
+
+
+def _k2_compare(tables, label, stream, nc, seed):
+    """K2 against its plain version on one table set, ``nc`` components,
+    from a NaN-filled output; returns (max abs err, relative error, u) and
+    asserts the bound, finiteness and the identity faces (bitwise)."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.banded import banded_apply, banded_apply_reference
+    from deal_and_ceed_on_gpu_torch.ops.stencil import face_mask
+
+    sd = getattr(torch, stream) if stream else tables.dtype
+    shape = tables.shape if nc == 1 else (nc, *tables.shape)
+    u = torch.as_tensor(np.random.default_rng(seed).standard_normal(shape), dtype=tables.dtype, device=DEVICE).to(sd)
+    got = banded_apply(u, tables, out=torch.full_like(u, float("nan")))
+    torch.cuda.synchronize()
+    want = banded_apply_reference(u, tables)
+    err = float((got.double() - want.double()).abs().max())
+    rel = err / max(float(want.double().abs().max()), 1e-300)
+    face = face_mask(tables.shape, DEVICE).expand(shape)
+    faces_ok = bool(torch.equal(got[face], u[face]))
+    if not (bool(torch.isfinite(got).all()) and rel <= K2_TOL[label] and faces_ok):
+        raise AssertionError(f"K2 disagrees with its plain version: grid {shape} p={tables.p} {tables.kind} "
+                             f"{label}: max abs {err:.3e}, rel {rel:.3e}, faces equal {faces_ok}")
+    return err, rel, u
+
+
+def _k2_bound_ms(tables, u, label):
+    """The least time of one K2 apply: read u and the tables and write out
+    once each, or its multiply-adds (7(2p+1) a point for stiffness, 3(2p+1)
+    for mass) at the compute type's peak."""
+    nt = 2 * tables.p + 1
+    fma = (7 if tables.kind == "stiffness" else 3) * nt
+    n_bytes = 2 * u.numel() * u.element_size() + sum(t.numel() * t.element_size() for t in tables.tables)
+    return _bound_ms(n_bytes, 2 * fma * u.numel(), label)
+
+
+def phase18_k2_vs_plain():
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.drivers.bp import target_mesh
+    from deal_and_ceed_on_gpu_torch.ops.banded import BandedTables, banded_apply, banded_apply_reference
+
+    for i, (n_el, p, q, graded, kind, c) in enumerate(K2_CASES):
+        basis = Basis1D.make(p, q, "gauss")
+        for label, dtype, stream in PRECISIONS:
+            tables = BandedTables.create(_k2_mesh(n_el, graded), basis, getattr(torch, dtype), DEVICE, kind, c)
+            for nc in (1, 3):
+                err, rel, _ = _k2_compare(tables, label, stream, nc, seed=i)
+                print(f"phase 18: K2 elements {n_el} p={p} q={q} graded={graded} {kind} c={c} nc={nc} {label}: "
+                      f"max abs err {err:.3e} (rel {rel:.3e})")
+    main = {}
+    mesh = target_mesh(BP_DEGREE, BP_TARGET_DOFS)
+    basis = Basis1D.make(BP_DEGREE, BP_DEGREE + 2, "gauss")
+    for names, kind in ((("bp1", "bp2"), "mass"), (("bp3", "bp4"), "stiffness")):
+        for label, dtype, stream in PRECISIONS:
+            tables = BandedTables.create(mesh, basis, getattr(torch, dtype), DEVICE, kind)
+            for bp, nc in zip(names, (1, 3)):
+                err, rel, u = _k2_compare(tables, label, stream, nc, seed=nc)
+                ms = _time_ms(lambda: banded_apply(u, tables))
+                plain_ms = _time_ms(lambda: banded_apply_reference(u, tables), n=3)
+                bound_ms, bound_by = _k2_bound_ms(tables, u, label)
+                print(f"phase 18: K2 {bp} shape {tuple(u.shape)} "
+                      f"p={BP_DEGREE} q={BP_DEGREE + 2} {kind} {label}: max abs err {err:.3e} (rel {rel:.3e}); "
+                      f"kernel {ms:.4f} ms ({2 * u.numel() * u.element_size() / ms / 1e6:.1f} GB/s of ideal traffic), "
+                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                if bp == "bp3" and nc == 1:
+                    main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                del u
+    return main
+
+
+def phase19_k1_components():
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.drivers.bp import target_mesh
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.ops.stencil import StencilTables, stencil_apply, stencil_apply_reference
+
+    cases = [(BrickMesh(shape, upper=(1.0, 0.8, 1.3)), p) for shape in SMALL_SHAPES[1:] for p in (2, 5, 8)]
+    cases.append((target_mesh(BP_DEGREE, BP_TARGET_DOFS), BP_DEGREE))
+    main = {}
+    for k, (mesh, p) in enumerate(cases):
+        for label, dtype, stream in PRECISIONS:
+            tables = StencilTables.create(mesh, Basis1D.make(p), getattr(torch, dtype), DEVICE)
+            sd = getattr(torch, stream) if stream else tables.dtype
+            u = torch.as_tensor(np.random.default_rng(k).standard_normal((3, *tables.shape)), dtype=tables.dtype,
+                                device=DEVICE).to(sd)
+            got = stencil_apply(u, tables)
+            single = torch.stack([stencil_apply(u[c], tables) for c in range(3)])
+            torch.cuda.synchronize()
+            want = stencil_apply_reference(u, tables)
+            err = float((got.double() - want.double()).abs().max())
+            rel = err / float(want.double().abs().max())
+            same = bool(torch.equal(got, single))
+            if not (same and rel <= K2_TOL[label]):
+                raise AssertionError(f"K1 with 3 components: grid {tables.shape} p={p} {label}: equal to three "
+                                     f"launches {same}, rel err to the twin {rel:.3e}")
+            line = f"phase 19: K1 nc=3 grid {tables.shape} p={p} {label}: equal to 3 launches, rel err {rel:.3e}"
+            if k == len(cases) - 1:
+                ms = _time_ms(lambda: stencil_apply(u, tables))
+                ms3 = _time_ms(lambda: [stencil_apply(u[c], tables) for c in range(3)])
+                plain_ms = _time_ms(lambda: stencil_apply_reference(u, tables), n=3)
+                bound_ms, bound_by = _k1_bound_ms(u.numel(), p, label)
+                line += (f"; kernel {ms:.4f} ms, three 1-component launches {ms3:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"bound {bound_ms:.4f} ms ({bound_by})")
+                main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            print(line)
+            del u, got, single, want
+    return main
+
+
+def phase20_bp_golden():
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import SolverControl, solve_cg_merged
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs, l2_norm_function, make_bp_operator
+    from deal_and_ceed_on_gpu_torch.ops import banded, stencil
+
+    for bp, (it_g, l2_g) in BP_GOLDEN.items():
+        banded.LAUNCHES, stencil.LAUNCHES, stencil.NC_LAUNCHES = 0, 0, 0
+        space, op = make_bp_operator(bp, BrickMesh((4, 4, 4)), 3, dtype=torch.float64, device=DEVICE)
+        nc = getattr(op, "n_components", 1)
+        b = assemble_rhs(space, 1.0)
+        b = b if nc == 1 else b.expand(nc, -1).contiguous()
+        x, info = solve_cg_merged(op.vmult, b, SolverControl(2000, 1e-12 * float(torch.linalg.vector_norm(b))))
+        l2 = float(l2_norm_function(space, x if nc == 1 else x[0]))
+        rel = abs(l2 - l2_g) / l2_g
+        launches = {"banded": banded.LAUNCHES, "stencil": stencil.LAUNCHES, "stencil nc>1": stencil.NC_LAUNCHES}
+        print(f"phase 20: {bp} ({op.backend}, {nc} comp) f64: {info['n_iterations']} iterations (golden {it_g}), "
+              f"L2 norm {l2:.17g} (golden {l2_g:.17g}, rel {rel:.2e}); launches {launches}")
+        need = {"bp5": "stencil", "bp6": "stencil nc>1"}.get(bp, "banded")
+        if abs(info["n_iterations"] - it_g) > 1 or not rel <= 1e-10 or launches[need] == 0:
+            raise AssertionError(f"phase 20: the {bp} golden failed or its kernel never launched")
+
+
+def phase21_main_path():
+    """The BP sweep at p = 5, 4.17M DoFs a component; returns K2's and K1's
+    (3 components) launches per precision."""
+    from deal_and_ceed_on_gpu_torch.drivers.bp import run_sweep
+    from deal_and_ceed_on_gpu_torch.ops import banded, stencil
+
+    k2, k1nc = {}, {}
+    best = {}
+    for label, dtype, stream in PRECISIONS:
+        banded.LAUNCHES, stencil.NC_LAUNCHES = 0, 0
+        bps = ("bp1", "bp2", "bp3", "bp4", "bp5", "bp6") if stream is None else ("bp3", "bp6")
+        modes = ("pcg-merged", "vmult") if stream is None else ("pcg-merged",)
+        for bp in bps:
+            print(f"phase 21: main path, {bp}, {label}")
+            r = run_sweep(bp, (BP_DEGREE,), BP_TARGET_DOFS, BP_ITERATIONS, 3, dtype, modes,
+                          stream_dtype=stream, device=DEVICE)[BP_DEGREE]
+            if not all(r["finite"].values()) or not math.isfinite(r["l2_norm"]):
+                raise AssertionError(f"phase 21: {bp} ({label}) produced non-finite values: {r}")
+            for mode in modes:
+                best[(bp, label, mode)] = r[mode]
+        k2[label], k1nc[label] = banded.LAUNCHES, stencil.NC_LAUNCHES
+        print(f"phase 21: {label}: K2 launches {k2[label]}, K1 launches with 3 components {k1nc[label]}")
+        if k2[label] == 0 or k1nc[label] == 0:
+            raise AssertionError(f"phase 21: the {label} main path never launched K2 or K1 with 3 components")
+    # BP3 beside the plain separable comparator, in turns
+    for backend in ("separable", "banded", "banded", "separable"):
+        for label, dtype, _ in PRECISIONS[:2]:
+            r = run_sweep("bp3", (BP_DEGREE,), BP_TARGET_DOFS, BP_ITERATIONS, 3, dtype, backend=backend,
+                          device=DEVICE)[BP_DEGREE]
+            for mode in ("pcg-merged", "vmult"):
+                key = ("bp3 " + backend, label, mode)
+                best[key] = max(best.get(key, 0.0), r[mode])
+    for (bp, label, mode), tp in best.items():
+        print(f"phase 21: {bp:14s} {label} {mode:10s} {tp:.6g} DoF/s")
+    # where a scalar BP's pcg-merged iteration goes: BP3 f64 on K2
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import IterationNumberControl, solve_cg_merged
+    from deal_and_ceed_on_gpu_torch.drivers.bp import target_mesh
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs, make_bp_operator
+
+    space, op = make_bp_operator("bp3", target_mesh(BP_DEGREE, BP_TARGET_DOFS), BP_DEGREE, dtype=torch.float64,
+                                 device=DEVICE)
+    b = assemble_rhs(space, 1.0)
+    control = IterationNumberControl(20, 0.0)
+    _profile("phase 21: 20 pcg-merged iterations, BP3 p=5 f64 on K2", 20,
+             lambda: solve_cg_merged(op.vmult, b, control)[0])
+    return k2, k1nc
+
+
 def main():
     smi = phase0_device()
     phase1_build()
@@ -880,6 +1137,10 @@ def main():
     phase15_golden_fused()
     phase16_fused_timing()
     k6, k6_launches = phase17_k6_and_budget()
+    k2 = phase18_k2_vs_plain()
+    k1_nc = phase19_k1_components()
+    phase20_bp_golden()
+    k2_launches, k1_nc_launches = phase21_main_path()
     import torch
 
     records = [
@@ -934,6 +1195,28 @@ def main():
             "replaces": "scripts/exp_solver_budget.py:147",
             "launches": k6_launches[label],
             **k6[label],
+        }
+        for label, _, _ in PRECISIONS
+    ] + [
+        {
+            "name": f"banded_k2_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/banded.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_banded.py:253",
+            "launches": k2_launches[label],
+            **k2[label],
+            "library_ms": None,
+        }
+        for label, _, _ in PRECISIONS
+    ] + [
+        {
+            "name": f"stencil_k1_nc3_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/stencil.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py:443",
+            "launches": k1_nc_launches[label],
+            **k1_nc[label],
+            "library_ms": None,
         }
         for label, _, _ in PRECISIONS
     ]

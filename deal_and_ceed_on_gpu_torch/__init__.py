@@ -1,7 +1,7 @@
 """deal_and_ceed_on_gpu_torch — the PyTorch + CUDA port of deal_and_ceed_on_gpu_tpu.
 
-A matrix-free high-order FEM framework (CEED bake-off problem BP5 and the
-step-64 Helmholtz problem so far) for NVIDIA Hopper: plain PyTorch for the tensor code, hand-written CUDA
+A matrix-free high-order FEM framework (the CEED bake-off problems BP1-BP6
+and the step-64 Helmholtz problem so far) for NVIDIA Hopper: plain PyTorch for the tensor code, hand-written CUDA
 kernels for the hot operator apply (``csrc/``, built with ``nvcc`` at first
 use). Module names mirror the JAX package, which stays the reference. The
 port never imports jax; the host-side numpy modules are its own copies.
@@ -10,11 +10,13 @@ Layer map:
   L0  mesh/dof/geometry     -> mesh.py, basis.py, geometry.py, fe_space.py
   L2  matrix-free kernels   -> ops/ (sum_factorization, local_global,
                                separable, stencil + csrc/stencil.cu (K1),
+                               banded + csrc/banded.cu (K2),
                                qgrid + csrc/qgrid.cu (K3), cg + csrc/cg.cu
                                (K5, the fused CG iteration), copy +
                                csrc/copy.cu (K6, the bandwidth probe))
-  L3  operators + solvers   -> models/ (poisson, helmholtz), solvers/
-  L4  drivers               -> drivers/bp5.py, drivers/step64.py,
+  L3  operators + solvers   -> models/ (poisson, helmholtz, mass, vector,
+                               bp), solvers/
+  L4  drivers               -> drivers/bp5.py, drivers/bp.py, drivers/step64.py,
                                scripts/exp_solver_budget.py
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
@@ -25,6 +27,7 @@ from .fe_space import FESpace
 from .geometry import Geometry
 from .mesh import BrickMesh
 from .models.helmholtz import HelmholtzOperator
+from .models.mass import MassOperator
 from .models.poisson import PoissonOperator
 from .solvers import (
     IterationNumberControl,
@@ -42,6 +45,7 @@ __all__ = [
     "Geometry",
     "FESpace",
     "HelmholtzOperator",
+    "MassOperator",
     "PoissonOperator",
     "SolverControl",
     "IterationNumberControl",

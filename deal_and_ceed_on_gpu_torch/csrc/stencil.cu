@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py::_kernel
 // (launched by _stencil_call). It computes the same function, on the port's
-// unpadded [nz, ny, nx] grid (x fastest):
+// unpadded [nz, ny, nx] grid (x fastest), or a stack [nc, nz, ny, nx] of nc
+// components that share the tables (the vector BP6, one launch for all
+// components; the port's form of pallas_stencil.py::StackedStencilOperator):
 //
 //   v[z,y,x]   = sz[z] sy[y] sx[x] u[z,y,x]         (sz/sy/sx zero on Dirichlet rows)
 //   acc        = sum_t bz[z,t] v[z-p+t,y,x] + by[y,t] v[z,y-p+t,x] + bx[x,t] v[z,y,x-p+t]
@@ -77,24 +79,31 @@ struct MinBlocks {
 };
 
 // V: with the value term (a is read); the instantiation without it is the
-// plain Poisson stencil, unchanged by the extra operand.
-template <typename S, typename C, int P, bool V>
+// plain Poisson stencil, unchanged by the extra operand. NC: a stack of
+// components (blockIdx.z = component * nchunks + z range); the scalar
+// instantiation is the one-component kernel unchanged (a runtime component
+// offset cost the f32 kernel its register budget: it spilled at p = 5).
+template <typename S, typename C, int P, bool V, bool NC>
 __global__ void __launch_bounds__(BX * BY, MinBlocks<C>::value)
 stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
                const C* __restrict__ bz, const C* __restrict__ by,
                const C* __restrict__ bx, const C* __restrict__ sz,
                const C* __restrict__ sy, const C* __restrict__ sx,
-               const C* __restrict__ a, int nz, int ny, int nx, int zchunk) {
+               const C* __restrict__ a, int nz, int ny, int nx, int zchunk, int nchunks) {
   constexpr int NT = 2 * P + 1;
   __shared__ C tile[BY + 2 * P][BX + 2 * P];
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int x = blockIdx.x * BX + tx;
   const int y = blockIdx.y * BY + ty;
-  const int z0 = blockIdx.z * zchunk;
+  const int comp = NC ? blockIdx.z / nchunks : 0;
+  const int z0 = (NC ? blockIdx.z % nchunks : blockIdx.z) * zchunk;
   const int z1 = z0 + zchunk < nz ? z0 + zchunk : nz;
   const bool inside = x < nx && y < ny;
   const long plane = (long)ny * nx;
+  // the component's offset is folded into the in-plane offsets below (col,
+  // off_*), which are live anyway
+  const long coff = NC ? (long)comp * nz * plane : 0L;
 
   // Raw input (storage type) at plane zz and in-plane offset off, zero
   // outside the grid (ok: the (y, x) point exists). It is converted and
@@ -114,7 +123,8 @@ stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
     bxr[t] = inside ? bx[(long)x * NT + t] : C(0);
     byr[t] = inside ? by[(long)y * NT + t] : C(0);
   }
-  const long col = (long)y * nx + x;
+  const long acol = (long)y * nx + x;  // the value table's, shared by the components
+  const long col = coff + acol;
   const C sxy = inside ? sy[y] * sx[x] : C(0);
 
   // the halo points this thread loads (the first P rows load the y halo
@@ -125,8 +135,8 @@ stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
   const bool ok_b = hy && x < nx && yb < ny;
   const bool ok_l = hx && y < ny && xl >= 0 && xl < nx;
   const bool ok_r = hx && y < ny && xr < nx;
-  const long off_t = (long)yt * nx + x, off_b = (long)yb * nx + x;
-  const long off_l = (long)y * nx + xl, off_r = (long)y * nx + xr;
+  const long off_t = coff + (long)yt * nx + x, off_b = coff + (long)yb * nx + x;
+  const long off_l = coff + (long)y * nx + xl, off_r = coff + (long)y * nx + xr;
   const C f_t = ok_t ? sy[yt] * sx[x] : C(0), f_b = ok_b ? sy[yb] * sx[x] : C(0);
   const C f_l = ok_l ? sy[y] * sx[xl] : C(0), f_r = ok_r ? sy[y] * sx[xr] : C(0);
 
@@ -145,7 +155,7 @@ stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
   S pt = raw(ok_t, z0, off_t), pb = raw(ok_b, z0, off_b);
   S pl = raw(ok_l, z0, off_l), pr = raw(ok_r, z0, off_r);
   // the value coefficient at the current plane, loaded one plane ahead too
-  auto aval = [&](int zz) -> C { return (V && inside && zz < nz) ? a[zz * plane + col] : C(0); };
+  auto aval = [&](int zz) -> C { return (V && inside && zz < nz) ? a[zz * plane + acol] : C(0); };
   C pa = aval(z0);
 
   for (int z = z0; z < z1; ++z) {
@@ -196,42 +206,45 @@ stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
 
 template <typename S, typename C, int P>
 cudaError_t launch(const void* u, void* out, const void* bz, const void* by, const void* bx,
-                   const void* sz, const void* sy, const void* sx, const void* a, int nz, int ny,
-                   int nx, cudaStream_t stream) {
+                   const void* sz, const void* sy, const void* sx, const void* a, int nc, int nz,
+                   int ny, int nx, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int gx = (nx + BX - 1) / BX, gy = (ny + BY - 1) / BY;
-  // split z into enough ranges for ~4 blocks per SM, but keep each range
-  // at least 4p planes so priming the queue (2p planes) stays a small share
-  const long cols = (long)gx * gy;
+  // split z into enough ranges for ~4 blocks per SM over all components,
+  // but keep each range at least 4p planes so priming the queue (2p planes)
+  // stays a small share
+  const long cols = (long)gx * gy * nc;
   const long want = (4L * (sms > 0 ? sms : 132) + cols - 1) / cols;
   int zchunk = (int)((nz + want - 1) / want);
   const int min_chunk = nz < 4 * P ? nz : 4 * P;
   if (zchunk < min_chunk) zchunk = min_chunk;
-  const int gz = (nz + zchunk - 1) / zchunk;
-  auto kernel = a != nullptr ? stencil_kernel<S, C, P, true> : stencil_kernel<S, C, P, false>;
-  kernel<<<dim3(gx, gy, gz), dim3(BX, BY), 0, stream>>>(
+  const int nchunks = (nz + zchunk - 1) / zchunk;
+  if ((long)nc * nchunks > 65535) return cudaErrorInvalidConfiguration;
+  auto kernel = a != nullptr ? (nc > 1 ? stencil_kernel<S, C, P, true, true> : stencil_kernel<S, C, P, true, false>)
+                              : (nc > 1 ? stencil_kernel<S, C, P, false, true> : stencil_kernel<S, C, P, false, false>);
+  kernel<<<dim3(gx, gy, nc * nchunks), dim3(BX, BY), 0, stream>>>(
       static_cast<const S*>(u), static_cast<S*>(out), static_cast<const C*>(bz),
       static_cast<const C*>(by), static_cast<const C*>(bx), static_cast<const C*>(sz),
       static_cast<const C*>(sy), static_cast<const C*>(sx), static_cast<const C*>(a), nz, ny, nx,
-      zchunk);
+      zchunk, nchunks);
   return cudaGetLastError();
 }
 
 template <typename S, typename C>
 cudaError_t launch_degree(int p, const void* u, void* out, const void* bz, const void* by,
                           const void* bx, const void* sz, const void* sy, const void* sx,
-                          const void* a, int nz, int ny, int nx, cudaStream_t s) {
+                          const void* a, int nc, int nz, int ny, int nx, cudaStream_t s) {
   switch (p) {
-    case 1: return launch<S, C, 1>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
-    case 2: return launch<S, C, 2>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
-    case 3: return launch<S, C, 3>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
-    case 4: return launch<S, C, 4>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
-    case 5: return launch<S, C, 5>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
-    case 6: return launch<S, C, 6>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
-    case 7: return launch<S, C, 7>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
-    case 8: return launch<S, C, 8>(u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 1: return launch<S, C, 1>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 2: return launch<S, C, 2>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 3: return launch<S, C, 3>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 4: return launch<S, C, 4>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 5: return launch<S, C, 5>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 6: return launch<S, C, 6>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 7: return launch<S, C, 7>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 8: return launch<S, C, 8>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -241,18 +254,19 @@ static_assert(BX >= MAX_DEGREE && BY >= MAX_DEGREE, "halo rows/cols are loaded b
 }  // namespace
 
 // dtype_code: 0 = (f64 storage, f64 compute), 1 = (f32, f32), 2 = (bf16, f32).
-// a: the value coefficient [nz, ny, nx] at the compute type, or null.
+// a: the value coefficient [nz, ny, nx] at the compute type, or null; u and
+// out are [nc, nz, ny, nx] (nc >= 1 components sharing the tables and a).
 // Returns the cudaError_t of the launch (0 on success); never synchronises.
 extern "C" int stencil_apply_launch(int dtype_code, int p, const void* u, void* out,
                                     const void* bz, const void* by, const void* bx,
                                     const void* sz, const void* sy, const void* sx,
-                                    const void* a, int nz, int ny, int nx, void* stream) {
-  if (nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+                                    const void* a, int nc, int nz, int ny, int nx, void* stream) {
+  if (nc < 1 || nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
-    case 0: return (int)launch_degree<double, double>(p, u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
-    case 1: return (int)launch_degree<float, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
-    case 2: return (int)launch_degree<__nv_bfloat16, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nz, ny, nx, s);
+    case 0: return (int)launch_degree<double, double>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 1: return (int)launch_degree<float, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 2: return (int)launch_degree<__nv_bfloat16, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,82 @@
+"""BP1 mass operator: dst = M src (values-only quad-point op).
+
+Counterpart of ``deal_and_ceed_on_gpu_tpu/models/mass.py``. CEED BP1 is
+full Gauss quadrature q = p+2, the rectangular-interpolation path the
+reference's collocation evaluator skips. Backends:
+
+- ``structured``: the torch cell loop, ``values * JxW`` at the quadrature
+  points (uniform or graded bricks);
+- ``separable``: the Kronecker form ``Mz (x) My (x) Mx`` (``mass_terms``;
+  diagonal at GLL collocation);
+- ``banded``: K2, the hand-written CUDA kernel (``ops/banded.py``,
+  ``kind="mass"``) on uniform or graded bricks, any rule; the JAX
+  ``backend="pallas"``;
+- ``qgrid``: K3 (``ops/qgrid.py``) with the value term only, ``("const",
+  det_j)`` on a uniform brick and the ``det`` table on a graded one; the JAX
+  ``backend="pallas_qgrid"``.
+
+The JAX backend ``pallas_general`` (K4) is not ported yet (ROADMAP §2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..fe_space import FESpace
+from .operator_base import MatrixFreeOperator, tensor_product_diagonal
+
+__all__ = ["MassOperator"]
+
+_NOT_PORTED = {
+    "pallas_general": "the element-major kernel K4",
+}
+
+
+class MassOperator(MatrixFreeOperator):
+    needs_values = True
+    needs_gradients = False
+
+    def __init__(
+        self,
+        space: FESpace,
+        backend: str = "structured",
+        stream_dtype: torch.dtype | None = None,
+    ):
+        if backend in _NOT_PORTED:
+            raise ValueError(
+                f"mass backend {backend!r} needs {_NOT_PORTED[backend]}, not ported yet "
+                "(ROADMAP §2); use structured, separable, banded or qgrid"
+            )
+        super().__init__(space, backend, stream_dtype)
+        geo = space.geometry
+        if backend == "banded":
+            from ..ops.banded import BandedTables
+
+            self._banded = BandedTables.create(space.mesh, space.basis, space.dtype, space.device, kind="mass")
+            return
+        if backend == "qgrid":
+            from ..ops.qgrid import QGridTables
+
+            val = ("const", geo.det_j) if geo.uniform else ("table", geo.det_q_full())
+            self._qgrid = QGridTables.create(space.mesh, space.basis, space.dtype, val=val, device=space.device)
+            return
+        if backend == "separable":
+            from ..ops.separable import mass_terms
+
+            self._sep_terms = mass_terms(space.mesh, space.basis, space.dtype, space.device)
+            return
+        if backend != "structured":
+            raise ValueError(f"mass backend {backend!r}: use structured, separable, banded or qgrid")
+        self._jxw = space.tensor(self.jxw_layout())
+
+    def _apply_fold_scale(self, s: float) -> None:
+        if self.backend == "structured":
+            self._jxw = self._jxw * s
+            return
+        super()._apply_fold_scale(s)
+
+    def quad_point_op(self, vals, grads):
+        return vals * self._jxw, None
+
+    def _compute_diagonal(self) -> torch.Tensor:
+        return tensor_product_diagonal(self.space, value_const=1.0)

@@ -18,8 +18,13 @@ Backends:
 - ``stencil``: K1 (``ops/stencil.py``), set up by ``PoissonOperator`` and
   ``HelmholtzOperator`` (with K1's value term); one ``vmult`` is one K1
   launch, and ``fused_cg_step`` gives K5 (``ops/cg.py``) on its tables.
-- ``qgrid``: K3 (``ops/qgrid.py``), set up by ``PoissonOperator`` and
-  ``HelmholtzOperator``; one ``vmult`` is one constrained K3 apply.
+- ``qgrid``: K3 (``ops/qgrid.py``), set up by ``PoissonOperator``,
+  ``HelmholtzOperator`` and ``MassOperator``; one ``vmult`` is one
+  constrained K3 apply.
+- ``banded``: K2 (``ops/banded.py``), set up by ``PoissonOperator`` and
+  ``MassOperator`` on uniform or graded bricks; its tables carry the
+  Dirichlet mask, and one ``vmult`` is one K2 launch (identity faces
+  written in the kernel).
 
 ``stream_dtype``: the dtype of the vectors ``vmult`` takes and returns
 (bfloat16 halves their bytes); the apply computes at the space's dtype.
@@ -39,7 +44,7 @@ from ..ops import sum_factorization as sf
 
 __all__ = ["MatrixFreeOperator", "assemble_rhs", "l2_norm_function", "tensor_product_diagonal"]
 
-_LAYOUT_AXES = {"structured": (1, 3, 5), "separable": None, "stencil": None, "qgrid": None}
+_LAYOUT_AXES = {"structured": (1, 3, 5), "separable": None, "stencil": None, "qgrid": None, "banded": None}
 
 
 class MatrixFreeOperator:
@@ -70,6 +75,8 @@ class MatrixFreeOperator:
         # tables); the fused CG step built on them is cached
         self._stencil = None
         self._fused_cg_step = None
+        # banded backend: subclasses that support it fill _banded (K2 tables)
+        self._banded = None
 
     # -------------------------- subclass hook ------------------------- #
     def quad_point_op(self, vals, grads):
@@ -118,8 +125,12 @@ class MatrixFreeOperator:
         return lg.scatter_structured(v_local, self.space.degree).reshape(-1)
 
     def apply_cell_loop(self, u_flat: torch.Tensor) -> torch.Tensor:
-        """The raw cell loop (no constraint handling): reference L-2."""
+        """The raw cell loop (no constraint handling): reference L-2. K2
+        has no raw mode (its tables carry the Dirichlet mask): on the
+        ``banded`` backend this is its constrained apply."""
         s = self.space
+        if self.backend == "banded":
+            return self.kernel_apply(u_flat.reshape(s.grid_shape)).reshape(-1)
         if self.backend == "qgrid":
             from ..ops.qgrid import qgrid_apply
 
@@ -144,12 +155,9 @@ class MatrixFreeOperator:
         """dst = A src with Dirichlet rows acting as identity
         (``bp5/step-64.cu:263-276``); returns a fresh ``stream_dtype`` dst."""
         s = self.space
-        if self.backend == "stencil":
-            from ..ops.stencil import stencil_apply
-
-            # K1 masks the constrained rows and writes the identity rows
-            u = src.to(self.stream_dtype).reshape(s.grid_shape)
-            return stencil_apply(u, self._stencil).reshape(-1)
+        if self.backend in ("stencil", "banded"):
+            # K1 / K2 mask the constrained rows and write the identity rows
+            return self.kernel_apply(src.to(self.stream_dtype).reshape(s.grid_shape)).reshape(-1)
         src = src.to(s.dtype)
         if self.backend == "qgrid":
             from ..ops.qgrid import qgrid_apply
@@ -159,6 +167,20 @@ class MatrixFreeOperator:
             return out.reshape(-1).to(self.stream_dtype)
         dst = self.apply_cell_loop(s.zero_constrained_values(src))
         return s.copy_constrained_values(src, dst).to(self.stream_dtype)
+
+    def kernel_apply(self, u: torch.Tensor) -> torch.Tensor:
+        """One launch of the ``stencil`` (K1) or ``banded`` (K2) kernel on a
+        ``[nz, ny, nx]`` grid or a ``[nc, nz, ny, nx]`` stack of components
+        at the stream dtype: the constrained apply, identity faces included."""
+        if self.backend == "stencil":
+            from ..ops.stencil import stencil_apply
+
+            return stencil_apply(u, self._stencil)
+        if self.backend == "banded":
+            from ..ops.banded import banded_apply
+
+            return banded_apply(u, self._banded)
+        raise NotImplementedError(f"{type(self).__name__} ({self.backend}) has no stencil or banded kernel")
 
     def __call__(self, src: torch.Tensor) -> torch.Tensor:
         return self.vmult(src)
@@ -182,6 +204,9 @@ class MatrixFreeOperator:
             return
         if self._qgrid is not None:
             self._qgrid.fold_scale(s)
+            return
+        if self._banded is not None:
+            self._banded.scale_(s)  # the x tables K2 reads, in place
             return
         if self._sep_terms is not None:
             for t in self._sep_terms:
@@ -231,14 +256,19 @@ class MatrixFreeOperator:
 
 
 def tensor_product_diagonal(
-    space: FESpace, gradient: bool = False, value_q: np.ndarray | None = None
+    space: FESpace,
+    gradient: bool = False,
+    value_q: np.ndarray | None = None,
+    value_const: float | None = None,
 ) -> torch.Tensor:
     """diag(A) on a uniform or graded brick (copy of the JAX package's
     brick path): the per-element local diagonal separates into 1D
     quadrature sums ``m1_a = sum_q w_q S[q,a]^2``, ``k1_a = sum_q w_q
-    D[q,a]^2`` weighted by the per-element merged coefficient; a varying
-    value coefficient ``value_q [n_cells, n_q]`` is contracted axis by
-    axis. Host numpy, one scatter-add, Dirichlet rows pinned to 1."""
+    D[q,a]^2`` weighted by the per-element merged coefficient; a constant
+    value coefficient ``value_const`` (the mass operator: 1) adds ``c det_e
+    m1 (x) m1 (x) m1``, a varying one ``value_q [n_cells, n_q]`` is
+    contracted axis by axis. Host numpy, one scatter-add, Dirichlet rows
+    pinned to 1."""
     basis, geo = space.basis, space.geometry
     S2, D2, w = basis.S**2, basis.D**2, basis.q_weights
     m1 = np.einsum("q,qa->a", w, S2)
@@ -251,8 +281,10 @@ def tensor_product_diagonal(
         local_e += md[:, 0, None, None, None] * np.einsum("k,j,i->kji", m1, m1, k1)
         local_e += md[:, 1, None, None, None] * np.einsum("k,j,i->kji", m1, k1, m1)
         local_e += md[:, 2, None, None, None] * np.einsum("k,j,i->kji", k1, m1, m1)
+    det_e = geo.det_per_cell()[:, None, None, None]
+    if value_const is not None:
+        local_e += value_const * det_e * np.einsum("k,j,i->kji", m1, m1, m1)
     if value_q is not None:
-        det_e = geo.det_per_cell()[:, None, None, None]
         q = basis.n_q
         aq = value_q.reshape(n_cells, q, q, q)
         t = np.einsum("ezyx,xi->ezyi", aq, w[:, None] * S2, optimize=True)

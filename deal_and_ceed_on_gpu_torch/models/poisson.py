@@ -11,7 +11,10 @@ reference's ``LocalPoissonOperator`` + ``PoissonOperator``
   uniform brick with GLL collocation; the counterpart of the JAX
   ``backend="pallas"`` on a collocated basis;
 - ``qgrid``: K3 (``ops/qgrid.py``), any Gauss-type rule (q = p+1, p+2) on
-  a uniform brick, grad ``const``; the JAX ``backend="pallas_qgrid"``.
+  a uniform brick, grad ``const``; the JAX ``backend="pallas_qgrid"``;
+- ``banded``: K2 (``ops/banded.py``, ``kind="stiffness"``), the seven-sweep
+  banded Kronecker kernel on a uniform or graded brick, any rule (BP3/BP4:
+  Gauss q = p+2); the JAX ``backend="pallas"`` on a non-collocated basis.
 """
 
 from __future__ import annotations
@@ -44,6 +47,11 @@ class PoissonOperator(MatrixFreeOperator):
             self._qgrid = QGridTables.create(
                 space.mesh, space.basis, space.dtype, grad=("const", geo.const_merged_diag), device=space.device
             )
+            return
+        if backend == "banded":
+            from ..ops.banded import BandedTables
+
+            self._banded = BandedTables.create(space.mesh, space.basis, space.dtype, space.device)
             return
         if backend == "stencil":
             from ..ops.stencil import StencilTables

@@ -1,0 +1,275 @@
+"""K2, the banded Kronecker apply of the Gauss-rule BPs: host tables, CUDA wrapper, plain version.
+
+Counterpart of ``deal_and_ceed_on_gpu_tpu/ops/pallas_banded.py``. On a
+uniform or graded brick the constrained operator of BP1-BP4 (any Gauss
+rule) is exactly a sum of Kronecker products of banded 1D factors
+(half-bandwidth p):
+
+    stiffness:  A = Mz (x) My (x) Ax  +  Mz (x) Ay (x) Mx  +  Gz (x) My (x) Mx
+    mass:       M = Gz (x) My (x) Mx
+
+with ``A_a = Z^T diag(1/h_e) K_e Z`` and ``M_a = Z^T diag(h_e) B_e Z`` the
+assembled 1D stiffness and mass factors of axis a (per-element widths of a
+graded brick absorbed per axis), ``Gz = Az + c Mz`` for stiffness (a
+constant value coefficient c folded into the z factor, 0 without one) and
+``Gz = c Mz`` for mass (c = 1 without one). The Dirichlet rows and columns
+of every factor are zero, so the apply is the constrained ``M A M``; the
+kernel also writes the identity rows (``out = u`` on the six faces), so one
+``vmult`` is one launch. The apply runs z -> y -> x, as the TPU kernel:
+
+    w1 = Mz u,  w2 = Gz u                         (z; w1 stiffness only)
+    q1 = My w1, q2 = My w2 + Ay w1                (y; mass: q2 = My w2)
+    out = Mx q2 + Ax q1                           (x; mass: Mx q2)
+
+Tables, in the compute dtype, per axis ``[n_d, 2p+1]`` with
+``table[i, t] = A[i, i - p + t]`` (the transpose of the band layout of
+``ops/separable.py``): ``mx, my, gz`` for mass, plus ``ax, ay, mz`` for
+stiffness. The port works on the unpadded ``[nz, ny, nx]`` grid, with an
+optional leading component count ``nc`` (the vector BPs: one launch for all
+components, shared tables), the port's form of ``StackedBandedOperator``.
+
+``banded_apply`` launches the CUDA kernel (``csrc/banded.cu``) for a CUDA
+tensor and calls the plain version ``banded_apply_reference`` for a CPU
+tensor; ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .separable import _bands_from_dense, band_matrix_1d
+from .stencil import face_mask
+
+__all__ = [
+    "KINDS",
+    "LAUNCHES",
+    "MAX_DEGREE",
+    "SOURCE",
+    "BandedTables",
+    "banded_apply",
+    "banded_apply_reference",
+    "banded_tables_np",
+]
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "banded.cu"
+MAX_DEGREE = 8
+# the tables of each kind, in the launcher's argument order
+KINDS = {"stiffness": ("mx", "ax", "my", "ay", "mz", "gz"), "mass": ("mx", "my", "gz")}
+
+# kernel launches made by banded_apply (a run resets it to 0 to count its own)
+LAUNCHES = 0
+
+# (storage dtype, compute dtype) -> the launcher's dtype code
+_DTYPE_CODES = {
+    (torch.float64, torch.float64): 0,
+    (torch.float32, torch.float32): 1,
+    (torch.bfloat16, torch.float32): 2,
+}
+
+
+def banded_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | None = None) -> dict[str, np.ndarray]:
+    """Host tables of K2 in float64, built as ``pallas_banded.BandedLayout``
+    builds them (on the real rows only): per axis the mass and stiffness
+    factors assembled with the per-element widths, Dirichlet rows and
+    columns zeroed, as ``[n_d, 2p+1]`` band tables; the z table is
+    ``gz = Az + c Mz`` (stiffness) or ``c Mz`` (mass)."""
+    if kind not in KINDS:
+        raise ValueError(f"banded kernel: kind {kind!r} is not one of {sorted(KINDS)}")
+    p = basis.degree
+    if not 1 <= p <= MAX_DEGREE:
+        raise ValueError(f"banded kernel: degree {p} outside 1..{MAX_DEGREE}")
+    w, S, D = basis.q_weights, basis.S, basis.D
+    K_e = np.einsum("q,qa,qb->ab", w, D, D)
+    B_e = np.einsum("q,qa,qb->ab", w, S, S)
+    hx, hy, hz = mesh.h_axes()
+    mx, my, mz = mesh.n_elements
+
+    def axis(m, h):
+        """(mass bands, stiffness bands) of one axis, Dirichlet rows and
+        columns zeroed: the per-axis factor of M A M."""
+        h = np.broadcast_to(np.asarray(h, float).reshape(-1), (m,))
+        A1 = band_matrix_1d(m, p, K_e, scale=1.0 / h)
+        M1 = band_matrix_1d(m, p, B_e, scale=h)
+        for mat in (A1, M1):
+            mat[0, :] = mat[:, 0] = mat[-1, :] = mat[:, -1] = 0.0
+        return (np.ascontiguousarray(_bands_from_dense(M1, p).T),
+                np.ascontiguousarray(_bands_from_dense(A1, p).T))
+
+    tabs = {}
+    tabs["mx"], tabs["ax"] = axis(mx, hx)
+    tabs["my"], tabs["ay"] = axis(my, hy)
+    tabs["mz"], az = axis(mz, hz)
+    c = 0.0 if value_const is None else float(value_const)
+    if kind == "stiffness":
+        tabs["gz"] = az + c * tabs["mz"]  # the value term folded into the z factor
+        return tabs
+    return {"mx": tabs["mx"], "my": tabs["my"], "gz": (1.0 if value_const is None else c) * tabs["mz"]}
+
+
+@dataclasses.dataclass
+class BandedTables:
+    """K2's device tables; ``ax, ay, mz`` are None for the mass kind.
+    ``scale_`` rescales the tables the kernel reads, in place."""
+
+    p: int
+    mx: torch.Tensor
+    my: torch.Tensor
+    gz: torch.Tensor
+    ax: torch.Tensor | None = None
+    ay: torch.Tensor | None = None
+    mz: torch.Tensor | None = None
+
+    @staticmethod
+    def from_numpy(tabs: dict, p: int, dtype: torch.dtype, device="cuda") -> "BandedTables":
+        """Tables from ``banded_tables_np`` keys (the kind follows from them),
+        copied: ``scale_`` never reaches the caller's arrays."""
+        return BandedTables(p, **{k: torch.tensor(np.asarray(v), dtype=dtype, device=device) for k, v in tabs.items()})
+
+    @staticmethod
+    def create(mesh, basis, dtype: torch.dtype, device="cuda", kind="stiffness", value_const=None) -> "BandedTables":
+        return BandedTables.from_numpy(banded_tables_np(mesh, basis, kind, value_const), basis.degree, dtype, device)
+
+    @property
+    def kind(self) -> str:
+        return "mass" if self.ax is None else "stiffness"
+
+    @property
+    def tables(self) -> tuple[torch.Tensor, ...]:
+        """The tables of the kind, in the launcher's order (``KINDS``)."""
+        return tuple(getattr(self, k) for k in KINDS[self.kind])
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (self.gz.shape[0], self.my.shape[0], self.mx.shape[0])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.gz.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.gz.device
+
+    def scale_(self, s: float) -> None:
+        """``A <- s A``: every Kronecker term carries exactly one x factor,
+        so scaling the x tables scales the apply (identity faces unaffected),
+        as ``BandedLayout.fold_bands`` does."""
+        self.mx.mul_(s)
+        if self.ax is not None:
+            self.ax.mul_(s)
+
+
+def _check(u: torch.Tensor, tables: BandedTables, out: torch.Tensor | None = None) -> int:
+    """Validate ``u`` (and ``out``) against the tables; return the
+    launcher's dtype code."""
+    code = _DTYPE_CODES.get((u.dtype, tables.dtype))
+    if code is None:
+        raise TypeError(
+            f"banded: storage {u.dtype} with compute {tables.dtype} is not one "
+            f"of {[tuple(str(d) for d in k) for k in _DTYPE_CODES]}"
+        )
+    if u.dim() not in (3, 4) or tuple(u.shape[-3:]) != tables.shape or u.dim() == 4 and u.shape[0] < 1:
+        raise ValueError(f"banded: u has shape {tuple(u.shape)}, tables {tables.shape} (or [nc, ...])")
+    if u.device != tables.device:
+        raise ValueError(f"banded: u on {u.device}, tables on {tables.device}")
+    nt = 2 * tables.p + 1
+    for name, t in zip(KINDS[tables.kind], tables.tables):
+        n = {"x": tables.shape[2], "y": tables.shape[1], "z": tables.shape[0]}[name[1]]
+        if tuple(t.shape) != (n, nt) or t.dtype != tables.dtype or t.device != tables.device:
+            raise ValueError(f"banded: table {name} is not [{n}, {nt}] {tables.dtype} on {tables.device}")
+    if not u.is_contiguous() or not all(t.is_contiguous() for t in tables.tables):
+        raise ValueError("banded: u and the tables must be contiguous")
+    if out is not None:
+        if out.shape != u.shape or out.dtype != u.dtype or out.device != u.device or not out.is_contiguous():
+            raise ValueError("banded: out must be a contiguous tensor of u's shape, dtype and device")
+        lo, hi = u.data_ptr(), u.data_ptr() + u.numel() * u.element_size()
+        olo = out.data_ptr()
+        if olo < hi and lo < olo + out.numel() * out.element_size():
+            raise ValueError("banded: out must not overlap u")
+    return code
+
+
+def _sweep(v: torch.Tensor, table: torch.Tensor, axis: int, p: int):
+    """The 2p+1 terms ``table[i, t] * v[i - p + t]`` along ``axis`` (-3, -2
+    or -1) of ``v``, zero outside the grid, in tap order (a generator: the
+    caller's sum holds one term at a time)."""
+    n = v.shape[axis]
+    pad = [0, 0] * (-axis - 1) + [p, p]
+    vp = torch.nn.functional.pad(v, pad)
+    shape = [n if a == axis else 1 for a in (-3, -2, -1)]
+    return (table[:, t].reshape(shape) * vp.narrow(axis, t, n) for t in range(2 * p + 1))
+
+
+def apply_plain(uc: torch.Tensor, tables: BandedTables) -> torch.Tensor:
+    """K2's arithmetic in torch ops on a grid (or a stack of grids) at the
+    compute dtype, the taps summed in the TPU kernel's order: z taps, then
+    y, then x, each tap's pair of products added before it enters the sum
+    (``pallas_banded.py:374-431``); ``uc`` on the faces."""
+    p = tables.p
+    stiff = tables.kind == "stiffness"
+    w2 = sum(_sweep(uc, tables.gz, -3, p), torch.zeros_like(uc))
+    if stiff:
+        w1 = sum(_sweep(uc, tables.mz, -3, p), torch.zeros_like(uc))
+        q1 = sum(_sweep(w1, tables.my, -2, p), torch.zeros_like(uc))
+        q2 = sum((a + b for a, b in zip(_sweep(w2, tables.my, -2, p), _sweep(w1, tables.ay, -2, p))),
+                 torch.zeros_like(uc))
+        acc = sum((a + b for a, b in zip(_sweep(q2, tables.mx, -1, p), _sweep(q1, tables.ax, -1, p))),
+                  torch.zeros_like(uc))
+    else:
+        q2 = sum(_sweep(w2, tables.my, -2, p), torch.zeros_like(uc))
+        acc = sum(_sweep(q2, tables.mx, -1, p), torch.zeros_like(uc))
+    return torch.where(face_mask(tables.shape, uc.device), uc, acc)
+
+
+def banded_apply_reference(u: torch.Tensor, tables: BandedTables) -> torch.Tensor:
+    """The plain torch version of K2: the same formula in torch ops."""
+    _check(u, tables)
+    return apply_plain(u.to(tables.dtype), tables).to(u.dtype)
+
+
+_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _launcher():
+    from ..utils.cuda_build import load_library
+
+    fn = load_library(SOURCE).banded_apply_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def banded_apply(u: torch.Tensor, tables: BandedTables, out: torch.Tensor | None = None) -> torch.Tensor:
+    """``out = K2(u)`` on a ``[nz, ny, nx]`` or ``[nc, nz, ny, nx]`` tensor
+    (one launch for all components): the CUDA kernel for a CUDA tensor
+    (raises if it cannot launch), the plain version for a CPU tensor.
+    ``out``: a buffer of u's shape and dtype to write (every entry is
+    written), else a new tensor."""
+    global LAUNCHES
+    code = _check(u, tables, out)
+    if u.device.type == "cpu":
+        want = banded_apply_reference(u, tables)
+        return want if out is None else out.copy_(want)
+    if u.device.type != "cuda":
+        raise ValueError(f"banded: unsupported device {u.device}")
+    launch = _launcher()
+    out = torch.empty_like(u) if out is None else out
+    nc = 1 if u.dim() == 3 else u.shape[0]
+    nz, ny, nx = tables.shape
+    ptrs = [t.data_ptr() for t in tables.tables]
+    if tables.kind == "mass":  # launcher order (mx, ax, my, ay, mz, gz)
+        ptrs = [ptrs[0], None, ptrs[1], None, None, ptrs[2]]
+    with torch.cuda.device(u.device):
+        rc = launch(
+            code, tables.p, int(tables.kind == "stiffness"), u.data_ptr(), out.data_ptr(), *ptrs,
+            nc, nz, ny, nx, torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"banded kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out

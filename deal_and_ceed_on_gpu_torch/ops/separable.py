@@ -33,6 +33,7 @@ __all__ = [
     "diag_vector_1d",
     "apply_separable",
     "band_apply",
+    "mass_terms",
     "poisson_terms",
 ]
 
@@ -186,3 +187,20 @@ def poisson_terms(mesh, basis: Basis1D, dtype: torch.dtype, device="cuda") -> li
             diag = None
         terms.append({"coef": 1.0, "band": band, "diag": diag})
     return terms
+
+
+def mass_terms(mesh, basis: Basis1D, dtype: torch.dtype, device="cuda") -> list[dict]:
+    """BP1 mass on a (uniform or graded) tensor brick: one Kronecker term
+    (fully diagonal at GLL collocation, the lumped spectral-element mass;
+    three banded factors for Gauss rules)."""
+    p = basis.degree
+    tabs = _axis_tables(mesh, basis)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    if basis.collocation:
+        diag = _bshape(tabs[0]["d"], 0) * _bshape(tabs[1]["d"], 1) * _bshape(tabs[2]["d"], 2)
+        return [{"coef": 1.0, "band": [], "diag": dev(diag)}]
+    band = [(a, dev(tabs[a]["B"]), dev(_bands_from_dense(tabs[a]["B"], p)), p) for a in (0, 1, 2)]
+    return [{"coef": 1.0, "band": band, "diag": None}]

@@ -20,6 +20,12 @@ and optionally the value coefficient ``a [nz, ny, nx]``: the collocated
 Helmholtz mass term ``diag(d3 a) u = S diag(a) S u`` (the JAX kernel's
 ``has_value``), added to the taps as ``a * v`` before the final scaling.
 
+K1 also takes a stack ``[nc, nz, ny, nx]`` of nc components that share the
+tables (and ``a``), with identity faces per component, in one launch: the
+vector BP6, the port's form of ``StackedStencilOperator``
+(``pallas_stencil.py:701-864``; a batch index, not z-stacked slabs).
+``NC_LAUNCHES`` counts the launches with more than one component.
+
 ``stencil_apply`` launches the CUDA kernel (``csrc/stencil.cu``) for a CUDA
 tensor and calls the plain twin ``stencil_apply_reference`` for a CPU
 tensor; ``LAUNCHES`` counts kernel launches, ``VALUE_LAUNCHES`` those with
@@ -40,6 +46,7 @@ from .separable import _bands_from_dense, band_matrix_1d, diag_vector_1d
 __all__ = [
     "LAUNCHES",
     "MAX_DEGREE",
+    "NC_LAUNCHES",
     "VALUE_LAUNCHES",
     "SOURCE",
     "StencilTables",
@@ -55,6 +62,8 @@ MAX_DEGREE = 8
 LAUNCHES = 0
 # of those, the launches with the value term
 VALUE_LAUNCHES = 0
+# of those, the launches with more than one component
+NC_LAUNCHES = 0
 
 # (storage dtype, compute dtype) -> the launcher's dtype code
 _DTYPE_CODES = {
@@ -160,8 +169,8 @@ def _check(u: torch.Tensor, tables: StencilTables) -> int:
             f"stencil: storage {u.dtype} with compute {tables.dtype} is not one "
             f"of {[tuple(str(d) for d in k) for k in _DTYPE_CODES]}"
         )
-    if tuple(u.shape) != tables.shape:
-        raise ValueError(f"stencil: u has shape {tuple(u.shape)}, tables {tables.shape}")
+    if u.dim() not in (3, 4) or tuple(u.shape[-3:]) != tables.shape or u.dim() == 4 and u.shape[0] < 1:
+        raise ValueError(f"stencil: u has shape {tuple(u.shape)}, tables {tables.shape} (or [nc, ...])")
     if u.device != tables.device:
         raise ValueError(f"stencil: u on {u.device}, tables on {tables.device}")
     nt = 2 * tables.p + 1
@@ -189,8 +198,9 @@ def face_mask(shape, device) -> torch.Tensor:
 
 
 def apply_plain(uc: torch.Tensor, tables: StencilTables) -> torch.Tensor:
-    """K1's arithmetic in torch ops on a grid at the compute dtype:
-    ``S (Bz + By + Bx [+ a]) S uc`` inside, ``uc`` on the faces."""
+    """K1's arithmetic in torch ops on a grid (or a stack of grids) at the
+    compute dtype: ``S (Bz + By + Bx [+ a]) S uc`` inside, ``uc`` on the
+    faces."""
     p = tables.p
     nz, ny, nx = tables.shape
     sz = tables.sz[:, None, None]
@@ -201,11 +211,11 @@ def apply_plain(uc: torch.Tensor, tables: StencilTables) -> torch.Tensor:
     # kernel sums them
     acc = torch.zeros_like(uc)
     for t in range(2 * p + 1):
-        acc += tables.bz[:, t, None, None] * vp[t : t + nz, p : p + ny, p : p + nx]
+        acc += tables.bz[:, t, None, None] * vp[..., t : t + nz, p : p + ny, p : p + nx]
     for t in range(2 * p + 1):
-        acc += tables.by[None, :, t, None] * vp[p : p + nz, t : t + ny, p : p + nx]
+        acc += tables.by[None, :, t, None] * vp[..., p : p + nz, t : t + ny, p : p + nx]
     for t in range(2 * p + 1):
-        acc += tables.bx[None, None, :, t] * vp[p : p + nz, p : p + ny, t : t + nx]
+        acc += tables.bx[None, None, :, t] * vp[..., p : p + nz, p : p + ny, t : t + nx]
     if tables.a is not None:
         acc += tables.a * v
     return torch.where(face_mask((nz, ny, nx), uc.device), uc, acc * sz * syx)
@@ -217,7 +227,7 @@ def stencil_apply_reference(u: torch.Tensor, tables: StencilTables) -> torch.Ten
     return apply_plain(u.to(tables.dtype), tables).to(u.dtype)
 
 
-_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _launcher():
@@ -230,10 +240,11 @@ def _launcher():
 
 
 def stencil_apply(u: torch.Tensor, tables: StencilTables) -> torch.Tensor:
-    """``out = K1(u)`` on a ``[nz, ny, nx]`` tensor: the CUDA kernel for a
-    CUDA tensor (raises if it cannot launch), the plain twin for a CPU
-    tensor. The output is a new tensor of ``u``'s dtype."""
-    global LAUNCHES, VALUE_LAUNCHES
+    """``out = K1(u)`` on a ``[nz, ny, nx]`` or ``[nc, nz, ny, nx]`` tensor
+    (one launch for all components): the CUDA kernel for a CUDA tensor
+    (raises if it cannot launch), the plain twin for a CPU tensor. The
+    output is a new tensor of ``u``'s dtype."""
+    global LAUNCHES, VALUE_LAUNCHES, NC_LAUNCHES
     code = _check(u, tables)
     if u.device.type == "cpu":
         return stencil_apply_reference(u, tables)
@@ -242,17 +253,20 @@ def stencil_apply(u: torch.Tensor, tables: StencilTables) -> torch.Tensor:
     launch = _launcher()
     out = torch.empty_like(u)
     nz, ny, nx = tables.shape
+    nc = 1 if u.dim() == 3 else u.shape[0]
     with torch.cuda.device(u.device):
         rc = launch(
             code, tables.p, u.data_ptr(), out.data_ptr(),
             tables.bz.data_ptr(), tables.by.data_ptr(), tables.bx.data_ptr(),
             tables.sz.data_ptr(), tables.sy.data_ptr(), tables.sx.data_ptr(),
             None if tables.a is None else tables.a.data_ptr(),
-            nz, ny, nx, torch.cuda.current_stream(u.device).cuda_stream,
+            nc, nz, ny, nx, torch.cuda.current_stream(u.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"stencil kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     if tables.a is not None:
         VALUE_LAUNCHES += 1
+    if nc > 1:
+        NC_LAUNCHES += 1
     return out

@@ -40,12 +40,15 @@ def solve_cg(
     ``DiagonalMatrix`` (both drivers fill it with 1.0,
     ``bp5/step-64.cu:428-432``; None is that identity without a vector); it
     may also be a callable preconditioner. ``dot_dtype``: accumulation dtype
-    of the dot products and scalars (float32 for bfloat16 vectors)."""
+    of the dot products and scalars (float32 for bfloat16 vectors). The
+    vectors may have any shape (``[3, n]`` for the vector BPs): the dots run
+    over all entries, as the JAX solvers' ``jnp.sum`` does."""
     dt = b.dtype
     dd = dot_dtype or dt
 
     def dot(u, v):
-        return torch.dot(u.to(dd), v.to(dd))
+        # over all entries: a [3, n] vector solves like a flat one
+        return torch.dot(u.to(dd).reshape(-1), v.to(dd).reshape(-1))
 
     if callable(diag):
         precond = diag

@@ -56,12 +56,14 @@ def solve_cg_merged(
     """Solve A x = b. Returns ``(x, info)``; see ``solve_cg`` for the
     ``diag`` convention (a vector or None, the identity) and ``dot_dtype``
     (the dots and recurrences accumulate at it: float32 for bfloat16
-    vectors)."""
+    vectors). The vectors may have any shape (``[3, n]`` for the vector
+    BPs): the dots run over all entries."""
     dt = b.dtype
     dd = dot_dtype or dt
 
     def dot(u, v):
-        return torch.dot(u, v)
+        # over all entries: a [3, n] vector solves like a flat one
+        return torch.dot(u.reshape(-1), v.reshape(-1))
 
     def dots7(d, g, h):
         """The update_b seven-way reduction at the accumulation dtype. With

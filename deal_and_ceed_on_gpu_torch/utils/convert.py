@@ -13,7 +13,10 @@ same tables without the padding. The Helmholtz value table of a JAX stencil
 operator (``_a``, from ``StencilLayout.pad_node_field``) starts at the
 origin of an output-tile-aligned box; the fused CG state of the JAX
 ``CGFusedStep`` is ``[4, zt, yt, nxp]`` in the vector layout's padded
-coordinates. The port cuts both to the real grid.
+coordinates. The port cuts both to the real grid. The banded tables of a
+JAX ``BandedLayout`` (``mx_np`` ... ``bzg_np``, ``[2p+1, n_padded]``, taps
+leading) sit at offset 0 in x, ``YOFF`` in y and ``p`` in z; the port's K2
+takes them cut to the real rows and transposed to ``[n_d, 2p+1]``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 
 __all__ = [
     "JAX_STENCIL_YOFF",
+    "banded_tables_from_jax",
     "cg_state_from_jax",
     "qgrid_tables_from_jax",
     "stencil_tables_from_jax",
@@ -80,3 +84,16 @@ def qgrid_tables_from_jax(layout) -> dict:
         "c_val": float(layout.c_val) if layout.c_val is not None else 0.0,
         "C": cut(layout.C, (slice(None),)), "a_q": cut(layout.a_q),
     }
+
+
+def banded_tables_from_jax(layout) -> dict:
+    """The port's K2 tables (``ops.banded.banded_tables_np`` keys, float64)
+    from the padded host copies of a JAX ``BandedLayout`` (its ``kind``
+    picks the keys: ``mx, ax, my, ay, mz, gz`` or ``mx, my, gz``)."""
+    p = layout.p
+    nz, ny, nx = layout.real_shape
+    cuts = {"x": slice(0, nx), "y": slice(JAX_STENCIL_YOFF, JAX_STENCIL_YOFF + ny), "z": slice(p, p + nz)}
+    src = {"mx": layout.mx_np, "ax": layout.ax_np, "my": layout.my_np, "ay": layout.ay_np,
+           "mz": layout.mz_np, "gz": layout.bzg_np}
+    keys = ("mx", "ax", "my", "ay", "mz", "gz") if layout.kind == "stiffness" else ("mx", "my", "gz")
+    return {k: np.ascontiguousarray(np.asarray(src[k], dtype=np.float64)[:, cuts[k[1]]].T) for k in keys}

@@ -140,3 +140,39 @@ def test_bf16_vectors_accumulate_in_f32():
     assert torch.isfinite(x).all()
     err = float((x.float() - x_ref).abs().max() / x_ref.abs().max())
     assert err < 5e-2
+
+
+def _vector_rhs(space, rhs):
+    """Three different right-hand sides, one per component."""
+    fs = (1.0, lambda x: x[..., 0], lambda x: 1.0 + x[..., 1] * x[..., 2])
+    return [rhs(space, f) for f in fs]
+
+
+@pytest.mark.parametrize("solver", ["cg", "merged"])
+def test_vector_rhs_solves_like_three_scalar_solves_and_jax(solver):
+    """A [3, n] right-hand side (the vector BPs): the dots run over all
+    entries, so the block solve converges to the three scalar solutions and
+    matches JAX's shape-blind solver on the same [3, n] problem."""
+    from deal_and_ceed_on_gpu_tpu.models.vector import VectorOperator as VecJ
+
+    jop, _, top, _ = _setup(3, (3, 2, 2))
+    bt = torch.stack(_vector_rhs(top.space, rhs_t))
+    bj = jnp.stack(_vector_rhs(jop.space, rhs_j))
+    tol = 1e-12 * float(torch.linalg.vector_norm(bt))
+    solve_t = {"cg": pt.solve_cg, "merged": pt.solve_cg_merged}[solver]
+    solve_j = {"cg": jx.solve_cg, "merged": jx.solve_cg_merged}[solver]
+    def vmult3(v):
+        return torch.stack([top.vmult(r) for r in v])
+
+    xt, it = solve_t(vmult3, bt, pt.SolverControl(500, tol))
+    assert tuple(xt.shape) == (3, top.space.n_dofs)
+    for c in range(3):
+        xc, _ = solve_t(top.vmult, bt[c], pt.SolverControl(500, 1e-13 * float(torch.linalg.vector_norm(bt[c]))))
+        np.testing.assert_allclose(xt[c].numpy(), xc.numpy(), rtol=1e-9, atol=1e-12)
+    xj, ij = solve_j(VecJ(jop).vmult, bj, jx.SolverControl(500, tol))
+    assert abs(it["n_iterations"] - int(ij["n_iterations"])) <= 1
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-9, atol=1e-12)
+    # a 1-D vector keeps the same dots: the scalar solve is unchanged
+    x1, i1 = solve_t(top.vmult, bt[0], pt.SolverControl(500, tol))
+    x1j, i1j = solve_j(jop.vmult, bj[0], jx.SolverControl(500, tol))
+    assert abs(i1["n_iterations"] - int(i1j["n_iterations"])) <= 1

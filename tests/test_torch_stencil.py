@@ -242,3 +242,44 @@ def test_kernel_with_value_matches_twin_on_card(cuda_device, p, storage, compute
     want = st.stencil_apply_reference(u, tables)
     err = (got.double() - want.double()).abs().max() / want.double().abs().max()
     assert float(err) <= tol
+
+
+@pytest.mark.parametrize("value", [False, True])
+def test_components_match_single_calls(value):
+    """K1 on [3, nz, ny, nx]: the shared tables (and value table) applied
+    per component in one call, equal to three single calls; identity faces
+    per component."""
+    _, ts = _spaces((4, 3, 2), 3)
+    a = 0.5 + np.random.default_rng(1).random(ts.grid_shape) if value else None
+    tables = st.StencilTables.create(ts.mesh, ts.basis, torch.float64, device="cpu", value=a)
+    u = torch.as_tensor(_random((3, *ts.grid_shape), seed=7))
+    got = st.stencil_apply(u, tables)
+    for c in range(3):
+        assert torch.equal(got[c], st.stencil_apply(u[c].contiguous(), tables))
+    face = st.face_mask(ts.grid_shape, "cpu").expand(u.shape)
+    assert torch.equal(got[face], u[face])
+    with pytest.raises(ValueError):
+        st.stencil_apply(u[None], tables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 5, 8])
+@pytest.mark.parametrize("storage,compute,tol", [
+    (torch.float64, torch.float64, 1e-13),
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.float32, 3e-2),
+])
+def test_kernel_with_components_on_card(cuda_device, p, storage, compute, tol):
+    """nc = 3 in one launch: equal to three 1-component launches, and to the
+    twin within the kernel's tolerance."""
+    mesh = pt.BrickMesh((4, 3, 6), upper=UPPER)
+    tables = st.StencilTables.create(mesh, pt.Basis1D.make(p), compute, cuda_device)
+    u = torch.as_tensor(_random((3, *tables.shape), seed=p), device=cuda_device).to(storage)
+    before = st.NC_LAUNCHES
+    got = st.stencil_apply(u, tables)
+    torch.cuda.synchronize()
+    assert st.NC_LAUNCHES == before + 1
+    assert torch.equal(got, torch.stack([st.stencil_apply(u[c], tables) for c in range(3)]))
+    want = st.stencil_apply_reference(u, tables)
+    err = (got.double() - want.double()).abs().max() / want.double().abs().max()
+    assert float(err) <= tol
