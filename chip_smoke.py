@@ -7,9 +7,10 @@ sources in the checkout, and fails (non-zero exit, no result line) if
 anything does not build, launch, agree or converge. Phases:
 
 0. the card: torch/CUDA versions and ``nvidia-smi`` name and power limit;
-1. build K1 (``csrc/stencil.cu``), K3 (``csrc/qgrid.cu``), K5
-   (``csrc/cg.cu``) and K6 (``csrc/copy.cu``), one ``nvcc`` each, started
-   together; print the build times and ptxas usage;
+1. build K1 (``csrc/stencil.cu``), K2 (``csrc/banded.cu``), K3
+   (``csrc/qgrid.cu``), K4 (``csrc/general.cu``), K5 (``csrc/cg.cu``) and K6
+   (``csrc/copy.cu``), one ``nvcc`` each, started together; print the build
+   times and ptxas usage;
 2. K1 against its plain torch twin on the card, at small shapes (p = 2, 3,
    5, 8) and at the main path's shape, in f64, f32 and bf16 storage;
 3. the main path: ``drivers/bp5.run_cycle`` at cycle 33 (12,468,001 DoFs,
@@ -70,7 +71,29 @@ anything does not build, launch, agree or converge. Phases:
     component) in f64 and f32, pcg-merged and vmult (K2 / K1 must have
     launched, no NaN); BP3 and BP6 pcg-merged with bf16 vectors; BP3 beside
     the plain ``separable`` comparator in turns; a ``torch.profiler`` trace
-    of 20 BP3 f64 pcg-merged iterations on K2 (as phase 11).
+    of 20 BP3 f64 pcg-merged iterations on K2 (as phase 11);
+22. K4 (``csrc/general.cu``) against ``general_apply_reference``: every grad
+    x val mode, f64 and f32, p = 1..8 with Gauss q = p+1, p+2, p+3 and GLL,
+    E = 37 (not a multiple of the block), from a NaN-filled output; then the
+    main shape (sine-mapped 52^3, p = 3, Gauss q = 4, full6) timed beside
+    its plain version and bound, and the const mode at BP3's shape (p = 5,
+    q = 7, 32^3) beside the one library call that computes it, ``U @ A_loc``;
+23. the mapped goldens of the JAX reference: ``sine_map(0.05)`` at 4^3 and
+    8^3 elements, p = 3, f64 Jacobi merged CG to 1e-10 (GLL on ``general``
+    and ``structured``, Gauss q = 4 on ``general``, ``qgrid`` and
+    ``structured``; K4 must have launched);
+24. the main path: ``scripts/bench_solvers_r3.run_case`` on the sine-mapped
+    32^3 mesh (912,673 DoFs, GLL) on ``general``: true relative residual <=
+    1.2e-10, against the ``structured`` comparator and the 16^3 golden,
+    time to solution, K4 launches, one apply's gather / K4 / scatter split,
+    and mapped Helmholtz once on ``general`` against ``qgrid``;
+25. step-64 on ``general`` (K4 with const grad and the value table) against
+    the refine 2-6 goldens;
+26. the second main path: ``scripts/bench_general.run``, the sine-mapped
+    52^3 vmult (3,869,893 DoFs, Gauss q = 4) in f64 and f32 on ``general``,
+    ``qgrid`` and ``structured``, BP3 on ``general``, and mapped Helmholtz
+    once on ``general`` against ``qgrid``;
+27. a ``torch.profiler`` trace of 20 iterations of the phase-24 solve.
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -149,10 +172,11 @@ K3_CASES = (
     ((32, 32, 32), 5, 7, "const", None),
 )
 K3_TOL = {"f64": 1e-12, "f32": 1e-5}  # of max|want|
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; vector (non
-# tensor-core) f64 34 TFLOP/s, f32 67 TFLOP/s
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; f64 67
+# TFLOP/s (its tensor cores; 34 outside them), f32 67 TFLOP/s outside the
+# tensor cores (what an exact f32 computation can use)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f64": 34e12, "f32": 67e12, "bf16": 67e12}
+PEAK_FLOPS = {"f64": 67e12, "f32": 67e12, "bf16": 67e12}
 
 
 def phase0_device():
@@ -171,14 +195,15 @@ def phase0_device():
 
 
 def phase1_build():
-    from deal_and_ceed_on_gpu_torch.ops import banded, cg, copy, qgrid, stencil
+    from deal_and_ceed_on_gpu_torch.ops import banded, cg, copy, general, qgrid, stencil
     from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
 
     def timed(source):
         t0 = time.perf_counter()
         return build_library(source), time.perf_counter() - t0
 
-    sources = {"K1": stencil.SOURCE, "K2": banded.SOURCE, "K3": qgrid.SOURCE, "K5": cg.SOURCE, "K6": copy.SOURCE}
+    sources = {"K1": stencil.SOURCE, "K2": banded.SOURCE, "K3": qgrid.SOURCE, "K4": general.SOURCE,
+               "K5": cg.SOURCE, "K6": copy.SOURCE}
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(timed, sources.values()))
     for name, (lib, seconds) in zip(sources, builds):
@@ -1118,6 +1143,299 @@ def phase21_main_path():
     return k2, k1nc
 
 
+# Mapped goldens of the JAX reference, computed on the CPU under x64 with
+#   mesh = BrickMesh((m, m, m)).deform(*sine_map(0.05))
+#   space = FESpace.create(mesh, 3, n_q=4, rule=rule, dtype=float64)
+#   op = PoissonOperator(space, backend="structured"); b = assemble_rhs(space, 1.0)
+#   solve_cg_merged(op.vmult, b, ReductionControl(2000, tolerance=0.0,
+#                   reduction=1e-10), diag=op.jacobi_preconditioner())
+# -> (m, rule): (DoFs, iterations, solution L2 norm);
+# tests/test_torch_mapped.py recomputes them.
+MAPPED_GOLDEN = {
+    (4, "gauss_lobatto"): (2_197, 46, 0.024534414385752046),
+    (4, "gauss"): (2_197, 37, 0.02453741432528072),
+    (8, "gauss_lobatto"): (15_625, 101, 0.02453945424610477),
+    (8, "gauss"): (15_625, 83, 0.024539730371789335),
+    (16, "gauss_lobatto"): (117_649, 209, 0.02453997361423021),
+}
+MAPPED_MAIN = 32  # 912,673 DoFs at p = 3 (scripts/bench_solvers_r3.py, RESULTS.md:428-436)
+# The path-1 golden, computed the same way but too slow (about 40 s on a
+# CPU) for the tests to recompute: `PYTHONPATH=. python
+# tests/test_torch_mapped.py 32` prints it. The JAX record's 414 iterations
+# on its TPU (RESULTS.md:434) differ: the same f64 solve on the CPU takes 426.
+MAPPED_MAIN_GOLDEN = {(MAPPED_MAIN, "gauss_lobatto"): (912_673, 426, 0.02454002973587898)}
+MAPPED_TPU_ITERATIONS = 414  # for information
+MAPPED_VMULT = 52  # 3,869,893 DoFs at p = 3 (scripts/bench_general.py:65-70)
+K4_TOL = {"f64": 1e-12, "f32": 1e-5}  # of max|want|, as K3
+K4_CASE_CELLS = 37  # not a multiple of any block's element count
+
+
+def _k4_bound_ms(k, label):
+    """The least time of one K4 apply: read U and the streamed tables and
+    write W once each, or the operations of the sum factorization (the
+    sweeps the kernel runs and the pointwise products) at the type's peak."""
+    size = 8 if label == "f64" else 4
+    E, P1, Q = k.n_cells, k.p + 1, k.q
+    n_bytes = (2 * E * P1**3 + sum(t.numel() for t in (k.C, k.av) if t is not None)) * size
+    g, v = k.grad_kind != 0, k.val_kind != 0
+    nx, ny, nz = (2 if g else 1), (3 if g else 1), (3 if g else 0) + (1 if v else 0)
+    sweeps = 2 * P1 * (nx * P1 * P1 * Q + ny * P1 * Q * Q + nz * Q**3) + 2 * Q * (nz * P1 * Q * Q + ny * P1 * P1 * Q
+                                                                                  + nx * P1**3)
+    pointwise = Q**3 * ({0: 0, 1: 3, 2: 3, 3: 18}[k.grad_kind] + (1 if v else 0))
+    return _bound_ms(n_bytes, E * (sweeps + pointwise), label)
+
+
+def _k4_case(basis, E, grad, val, dtype, seed):
+    """A K4 table set: const coefficients from scalars, random positive
+    diag3/full6/value tables (full6 diagonally dominant)."""
+    import numpy as np
+
+    from deal_and_ceed_on_gpu_torch.ops.general import GeneralCellKernel
+
+    rng = np.random.default_rng(seed)
+    Q = basis.n_q**3
+    gspec = vspec = None
+    if grad == "const":
+        gspec = ("const", (1.3, 0.7, 1.1))
+    elif grad == "diag3":
+        gspec = ("diag3", 0.5 + rng.random((E, Q, 3)))
+    elif grad == "full6":
+        c = 0.2 * rng.random((E, Q, 6))
+        c[..., (0, 3, 5)] += 1.0
+        gspec = ("full6", c)
+    if val == "const":
+        vspec = ("const", 2.5)
+    elif val == "table":
+        vspec = ("table", 0.5 + rng.random((E, Q)))
+    return GeneralCellKernel(basis, E, dtype, grad=gspec, val=vspec, device=DEVICE)
+
+
+def _k4_compare(k, label, seed):
+    """K4 against its plain version from a NaN-filled output; returns (max
+    abs err, relative error, u) and asserts the bound and finiteness."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.general import general_apply, general_apply_reference
+
+    u = torch.as_tensor(np.random.default_rng(seed).standard_normal((k.n_cells, k.n_local)), dtype=k.dtype,
+                        device=DEVICE)
+    got = general_apply(u, k, out=torch.full_like(u, float("nan")))
+    torch.cuda.synchronize()
+    want = general_apply_reference(u, k)
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-300)
+    if not (bool(torch.isfinite(got).all()) and rel <= K4_TOL[label]):
+        raise AssertionError(f"K4 disagrees with its plain version: p={k.p} q={k.q} E={k.n_cells} grad_kind="
+                             f"{k.grad_kind} val_kind={k.val_kind} {label}: max abs {err:.3e}, rel {rel:.3e}")
+    return err, rel, u
+
+
+def phase22_k4_vs_plain():
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D, BrickMesh, FESpace, sine_map
+    from deal_and_ceed_on_gpu_torch.ops.general import GeneralCellKernel, general_apply, general_apply_reference
+    from deal_and_ceed_on_gpu_torch.ops.general import general_tables_np
+
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    modes = [(g, v) for g in (None, "const", "diag3", "full6") for v in (None, "const", "table") if g or v]
+    worst = {label: 0.0 for label in dtypes}
+    n_cases = 0
+    for p in range(1, 9):
+        for rule, q in (("gauss", p + 1), ("gauss", p + 2), ("gauss", p + 3), ("gauss_lobatto", p + 1)):
+            basis = Basis1D.make(p, q, rule)
+            for i, (grad, val) in enumerate(modes):
+                for label, dtype in dtypes.items():
+                    k = _k4_case(basis, K4_CASE_CELLS, grad, val, dtype, seed=100 * p + i)
+                    _, rel, _ = _k4_compare(k, label, seed=i)
+                    worst[label] = max(worst[label], rel)
+                    n_cases += 1
+            print(f"phase 22: K4 p={p} q={q} {rule}, E={K4_CASE_CELLS}, {len(modes)} grad x val modes, f64 and f32: "
+                  f"agree (worst rel err so far f64 {worst['f64']:.3e}, f32 {worst['f32']:.3e})")
+    print(f"phase 22: K4 agrees with its plain version on {n_cases} cases, NaN-filled outputs fully written")
+
+    # the main shape: sine-mapped 52^3, p = 3, Gauss q = 4, full6 (the
+    # tables of PoissonOperator(space, backend="general"), built once)
+    mesh = BrickMesh((MAPPED_VMULT,) * 3).deform(*sine_map(0.05))
+    space = FESpace.create(mesh, 3, n_q=4, rule="gauss", dtype=torch.float64, device="cpu")
+    tabs = general_tables_np(space.basis, mesh.n_cells, grad=("full6", space.geometry.merged_coef_full()))
+    main = {}
+    for label, dtype in dtypes.items():
+        k = GeneralCellKernel.from_numpy(tabs, dtype, DEVICE)
+        err, rel, u = _k4_compare(k, label, seed=7)
+        ms = _time_ms(lambda: general_apply(u, k))
+        plain_ms = _time_ms(lambda: general_apply_reference(u, k), n=5)
+        bound_ms, bound_by = _k4_bound_ms(k, label)
+        print(f"phase 22: K4 sine-mapped {MAPPED_VMULT}^3 p=3 q=4 full6 (E={k.n_cells}) {label}: max abs err "
+              f"{err:.3e} (rel {rel:.3e}); K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, {100 * bound_ms / ms:.1f} % reached)")
+        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
+        del k, u
+    del tabs
+    # const mode at BP3's shape: one torch.matmul with the element matrix
+    # A_loc = sum_d G_d diag(cw_d) G_d^T computes the same function
+    basis = Basis1D.make(5, 7, "gauss")
+    bp3 = BrickMesh((32, 32, 32))
+    geo = FESpace.create(bp3, 5, n_q=7, rule="gauss", device="cpu").geometry
+    const = {}
+    for label, dtype in dtypes.items():
+        k = GeneralCellKernel(basis, bp3.n_cells, dtype, grad=("const", geo.const_merged_diag),
+                              w3d=geo.w3d, device=DEVICE)
+        err, rel, u = _k4_compare(k, label, seed=8)
+        V, G = k.dense_tables
+        a_loc = sum((G[d] * k.cw[d]) @ G[d].T for d in range(3))
+        lib = torch.matmul(u, a_loc)
+        lib_rel = float((lib - general_apply_reference(u, k)).abs().max() / lib.abs().max())
+        ms = _time_ms(lambda: general_apply(u, k))
+        plain_ms = _time_ms(lambda: general_apply_reference(u, k), n=5)
+        library_ms = _time_ms(lambda: torch.matmul(u, a_loc))
+        bound_ms, bound_by = _k4_bound_ms(k, label)
+        print(f"phase 22: K4 BP3 p=5 q=7 32^3 const (E={k.n_cells}) {label}: max abs err {err:.3e} (rel {rel:.3e}); "
+              f"K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul(U, A_loc) {library_ms:.4f} ms "
+              f"(rel diff {lib_rel:.1e}), bound {bound_ms:.4f} ms ({bound_by})")
+        const[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+        del k, u, lib
+    return main, const
+
+
+def _mapped_solve(m, rule, backend):
+    """One mapped Jacobi solve (``scripts/bench_solvers_r3.run_case``);
+    returns its result and K4's launches."""
+    from deal_and_ceed_on_gpu_torch.ops import general
+    from deal_and_ceed_on_gpu_torch.scripts.bench_solvers_r3 import run_case
+
+    general.LAUNCHES = 0
+    r = run_case(m, backend, rule, device=DEVICE)
+    return r, general.LAUNCHES
+
+
+def _check_mapped(tag, r, m, rule, it_slack=1):
+    dofs, it_g, l2_g = {**MAPPED_GOLDEN, **MAPPED_MAIN_GOLDEN}[(m, rule)]
+    rel = abs(r["l2_norm"] - l2_g) / l2_g
+    print(f"{tag}: {m}^3 {rule} ({r['space'].n_dofs} DoFs): {r['n_iterations']} iterations (golden {it_g}), "
+          f"L2 norm {r['l2_norm']:.17g} (golden {l2_g:.17g}, rel {rel:.2e}), true rel res {r['true_rel_res']:.2e}")
+    if r["space"].n_dofs != dofs or abs(r["n_iterations"] - it_g) > it_slack or not rel <= 1e-10:
+        raise AssertionError(f"{tag}: the mapped golden at {m}^3 {rule} failed")
+
+
+def phase23_mapped_golden():
+    for m in (4, 8):
+        for rule, backends in (("gauss_lobatto", ("general", "structured")),
+                               ("gauss", ("general", "qgrid", "structured"))):
+            for backend in backends:
+                r, launches = _mapped_solve(m, rule, backend)
+                _check_mapped(f"phase 23: {backend}", r, m, rule)
+                if backend == "general" and launches == 0:
+                    raise AssertionError("phase 23: the general backend never launched K4")
+
+
+def phase24_main_path():
+    """Path 1: the sine-mapped 32^3 Jacobi solve on K4; returns K4's
+    launches in it."""
+    from deal_and_ceed_on_gpu_torch.models import PoissonOperator
+    from deal_and_ceed_on_gpu_torch.scripts.bench_general import apply_split_ms
+
+    r, _ = _mapped_solve(16, "gauss_lobatto", "general")
+    _check_mapped("phase 24: general", r, 16, "gauss_lobatto")
+    r, launches = _mapped_solve(MAPPED_MAIN, "gauss_lobatto", "general")
+    print(f"phase 24: main path, sine-mapped {MAPPED_MAIN}^3 GLL on K4: {r['n_iterations']} iterations (the JAX "
+          f"record on its TPU: {MAPPED_TPU_ITERATIONS}, for information), true rel res {r['true_rel_res']:.3e}, "
+          f"L2 norm {r['l2_norm']:.17g}, time to solution {r['solve_s'][0]:.4f} s (first) / {r['solve_s'][1]:.4f} s "
+          f"(second), set-up {r['setup_s']:.3f} s + diagonal {r['diag_s']:.3f} s, K4 launches {launches}")
+    _check_mapped("phase 24: general", r, MAPPED_MAIN, "gauss_lobatto")
+    if launches == 0 or not r["true_rel_res"] <= 1.2e-10:
+        raise AssertionError("phase 24: the main path never launched K4 or missed its residual")
+    c, _ = _mapped_solve(MAPPED_MAIN, "gauss_lobatto", "structured")
+    rel = abs(c["l2_norm"] - r["l2_norm"]) / c["l2_norm"]
+    print(f"phase 24: comparator structured: {c['n_iterations']} iterations, L2 norm rel diff {rel:.2e}, time to "
+          f"solution {c['solve_s'][1]:.4f} s")
+    if abs(c["n_iterations"] - r["n_iterations"]) > 1 or not rel <= 1e-10:
+        raise AssertionError("phase 24: K4 and the structured comparator disagree at 32^3")
+    parts = apply_split_ms(PoissonOperator(r["space"], backend="general"))
+    print("phase 24: one apply at 32^3 (CUDA events), ms: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    _helmholtz_k4_vs_k3("phase 24", r["space"])
+    return launches
+
+
+def _helmholtz_k4_vs_k3(tag, space):
+    """Mapped Helmholtz (the a(x) JxW value table and full6) once on
+    ``space``: K4 against K3."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import HelmholtzOperator
+
+    u = _grid_tensor((space.n_dofs,), torch.float64, seed=4)
+    a = HelmholtzOperator(space, backend="general").vmult(u)
+    b = HelmholtzOperator(space, backend="qgrid").vmult(u)
+    rel = float((a - b).abs().max() / b.abs().max())
+    finite = bool(torch.isfinite(a).all())
+    print(f"{tag}: mapped Helmholtz, {space.n_dofs} DoFs {space.basis.n_q}-point rule f64, K4 against K3: rel diff "
+          f"{rel:.2e}, finite {finite}")
+    if not (rel <= 1e-12 and finite):
+        raise AssertionError(f"{tag}: mapped Helmholtz on K4 and K3 disagree")
+
+
+def phase25_step64_general():
+    from deal_and_ceed_on_gpu_torch.ops import general
+
+    for n_refine in range(2, 7):
+        general.LAUNCHES = 0
+        r, _ = _step64(n_refine, backend="general")
+        _check_golden("phase 25: K4 f64 plain CG", r, n_refine, 0 if n_refine == 2 else 1)
+        print(f"phase 25: K4 launches {general.LAUNCHES}")
+        if general.LAUNCHES == 0:
+            raise AssertionError("phase 25: step-64 on general never launched K4")
+
+
+def phase26_main_path():
+    """Path 2: the sine-mapped 52^3 vmult and BP3 on K4, K3, the plain
+    loop; returns K4's launches per precision (f64, f32) and in BP3."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, sine_map
+    from deal_and_ceed_on_gpu_torch.ops import general
+    from deal_and_ceed_on_gpu_torch.scripts.bench_general import run
+
+    launches = {}
+    for label, dtype in (("f64", "float64"), ("f32", "float32")):
+        general.LAUNCHES = 0
+        out = run(MAPPED_VMULT, (dtype,), bp3_elements=0, split=True, device=DEVICE)
+        launches[label] = general.LAUNCHES
+        print(f"phase 26: {label}: K4 launches {launches[label]}")
+        if launches[label] == 0 or not all(v > 0 for k, v in out.items() if k[0] != "split"):
+            raise AssertionError(f"phase 26: the {label} main path never launched K4")
+    bp3 = {}
+    for label, dtype in (("f64", "float64"), ("f32", "float32")):
+        general.LAUNCHES = 0
+        run(MAPPED_VMULT, (dtype,), backends=(), bp3_elements=32, device=DEVICE)
+        bp3[label] = general.LAUNCHES
+    space = FESpace.create(BrickMesh((MAPPED_VMULT,) * 3).deform(*sine_map(0.05)), 3, n_q=4, rule="gauss",
+                           dtype=torch.float64, device=DEVICE)
+    _helmholtz_k4_vs_k3("phase 26", space)
+    return launches, bp3
+
+
+def phase27_profile():
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, IterationNumberControl, PoissonOperator, sine_map
+    from deal_and_ceed_on_gpu_torch import solve_cg_merged
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+
+    space = FESpace.create(BrickMesh((MAPPED_MAIN,) * 3).deform(*sine_map(0.05)), 3, dtype=torch.float64,
+                           device=DEVICE)
+    op = PoissonOperator(space, backend="general")
+    b = assemble_rhs(space, 1.0)
+    diag = op.jacobi_preconditioner()
+    control = IterationNumberControl(20, 0.0)
+    _profile(f"phase 27: 20 Jacobi pcg-merged iterations, sine-mapped {MAPPED_MAIN}^3 f64 on K4", 20,
+             lambda: solve_cg_merged(op.vmult, b, control, diag=diag)[0])
+
+
 def main():
     smi = phase0_device()
     phase1_build()
@@ -1141,6 +1459,13 @@ def main():
     k1_nc = phase19_k1_components()
     phase20_bp_golden()
     k2_launches, k1_nc_launches = phase21_main_path()
+    k4, k4_const = phase22_k4_vs_plain()
+    phase23_mapped_golden()
+    k4_launches = {"f64": phase24_main_path()}
+    phase25_step64_general()
+    k4_vmult_launches, k4_bp3_launches = phase26_main_path()
+    k4_launches["f32"] = k4_vmult_launches["f32"]
+    phase27_profile()
     import torch
 
     records = [
@@ -1219,6 +1544,26 @@ def main():
             "library_ms": None,
         }
         for label, _, _ in PRECISIONS
+    ] + [
+        {
+            "name": f"general_k4_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/general.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_general.py:59",
+            "launches": k4_launches[label],
+            **k4[label],
+        }
+        for label in ("f64", "f32")
+    ] + [
+        {
+            "name": f"general_k4_const_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/general.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_general.py:59",
+            "launches": k4_bp3_launches[label],
+            **k4_const[label],
+        }
+        for label in ("f64", "f32")
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

@@ -15,7 +15,9 @@ The vmult chain folds ``1 / max(|A u|, 1)`` into the operator tables
 (``fold_scale``), as the JAX driver does, so every step is one pure apply.
 
 The default backend is the port's kernel of each BP (``models/bp.py``): K2
-(``banded``) for BP1-BP4, K1 (``stencil``) for BP5/BP6 on a uniform brick.
+(``banded``) for BP1-BP4, K1 (``stencil``) for BP5/BP6 on a uniform brick;
+``--backend general`` runs any BP on K4 (the JAX driver names
+``pallas_general`` for the Gauss-rule BPs).
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs the plain torch versions of the kernels (the test path).
 
@@ -140,9 +142,9 @@ def main(argv=None):
     ap.add_argument("--repetitions", type=int, default=3)
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     ap.add_argument(
-        "--backend", default=None, choices=["banded", "stencil", "separable", "structured", "qgrid"],
+        "--backend", default=None, choices=["banded", "stencil", "separable", "structured", "qgrid", "general"],
         help="operator backend (default: the BP's kernel, banded (K2) for BP1-BP4 and stencil (K1) for "
-        "BP5/BP6; separable / structured: plain torch; qgrid: K3)",
+        "BP5/BP6; separable / structured: plain torch; qgrid: K3; general: K4, any rule)",
     )
     ap.add_argument(
         "--stream-dtype", default=None, choices=["bfloat16"],

@@ -9,7 +9,9 @@ the iteration count and the solution's L2 norm, with the plain and the
 merged CG solver in turn (``step-64/step-64.cu:682-688``).
 
 The default backend is ``qgrid``: K3 on the card, its plain torch version on
-the CPU. ``structured`` is the plain torch cell loop, the comparator.
+the CPU. ``general`` is K4 (the element-major cell apply between the torch
+gather and scatter). ``structured`` is the plain torch cell loop, the
+comparator.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs the plain versions. Not ported yet: the ``fdm``/``mg``
 preconditioners (ROADMAP slice E) and the ``.vtr`` output (slice H).
@@ -33,7 +35,7 @@ from .bp5 import DTYPES, resolve_device
 
 __all__ = ["run", "main"]
 
-BACKENDS = ("qgrid", "structured")
+BACKENDS = ("qgrid", "general", "structured")
 PRECONDITIONERS = ("none", "jacobi")
 
 
@@ -90,7 +92,7 @@ def main(argv=None):
     ap.add_argument("--dtype", default="float64", choices=["float32", "float64"])
     ap.add_argument(
         "--backend", default="qgrid", choices=BACKENDS,
-        help="qgrid: the K3 CUDA kernel; structured: the plain torch cell loop",
+        help="qgrid: the K3 CUDA kernel; general: the K4 CUDA kernel; structured: the plain torch cell loop",
     )
     ap.add_argument(
         "--precond", default="none", choices=PRECONDITIONERS,

@@ -86,14 +86,14 @@ class FESpace:
 
     def node_coords(self) -> np.ndarray:
         """``[n_dofs, 3]`` physical coordinates of the global DoFs
-        (x fastest), host-side."""
+        (x fastest), host-side; includes the mesh deformation if any."""
         cx, cy, cz = self.mesh.node_coords_1d(self.degree, self.basis.nodes)
         nz, ny, nx = self.grid_shape
         X = np.zeros((nz, ny, nx, 3))
         X[..., 0] = cx[None, None, :]
         X[..., 1] = cy[None, :, None]
         X[..., 2] = cz[:, None, None]
-        return X.reshape(-1, 3)
+        return self.mesh.map_points(X).reshape(-1, 3)
 
     def copy_constrained_values(
         self, src: torch.Tensor, dst: torch.Tensor

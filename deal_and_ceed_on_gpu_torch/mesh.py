@@ -1,11 +1,11 @@
 """Structured brick meshes with lexicographic continuous Q_p DoF numbering.
 
-Host copy of the uniform and graded brick of ``deal_and_ceed_on_gpu_tpu/mesh.py``
-(the reference's L0 layer: ``parallel::distributed::Triangulation`` +
-``DoFHandler``/``FE_Q`` + ``AffineConstraints``, ``bp5/step-64.cu:310-358,
-660-663``). On a structured brick every map the reference stores as per-cell
-index tables is index arithmetic, so the element<->global DoF relation is
-computed, never gathered from memory. Mapped meshes are not ported yet.
+Host copy of ``deal_and_ceed_on_gpu_tpu/mesh.py`` (the reference's L0 layer:
+``parallel::distributed::Triangulation`` + ``DoFHandler``/``FE_Q`` +
+``AffineConstraints``, ``bp5/step-64.cu:310-358, 660-663``): uniform, graded
+and mapped (smoothly deformed) bricks. On a structured brick every map the
+reference stores as per-cell index tables is index arithmetic, so the
+element<->global DoF relation is computed, never gathered from memory.
 
 Conventions
 -----------
@@ -20,10 +20,11 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 
-__all__ = ["BrickMesh"]
+__all__ = ["BrickMesh", "MappedMesh", "shear_map", "sine_map"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +54,32 @@ class BrickMesh:
 
     @property
     def is_uniform(self) -> bool:
-        return self.widths is None
+        return self.widths is None and not self.is_mapped
+
+    @property
+    def is_mapped(self) -> bool:
+        """True when a smooth deformation is applied on top of the brick
+        (:class:`MappedMesh`); the geometry then carries full per-q-point
+        Jacobians instead of per-axis widths."""
+        return False
+
+    def map_points(self, X: np.ndarray) -> np.ndarray:
+        """Apply the mesh deformation to brick coordinates (identity here)."""
+        return X
+
+    def deform(
+        self,
+        mapping: Callable[[np.ndarray], np.ndarray],
+        mapping_jacobian: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+    ) -> "MappedMesh":
+        """Deform this brick by a smooth map ``x = phi(X)`` of its physical
+        coordinates (deal.II's ``MappingQGeneric`` path; Jacobians consumed
+        at ``bp5/step-64.cu:90-113``). The discrete geometry is the degree-p
+        isoparametric interpolant of ``phi`` at the element nodal points."""
+        return MappedMesh(
+            self.n_elements, self.lower, self.upper, self.widths,
+            mapping=mapping, mapping_jacobian=mapping_jacobian,
+        )
 
     @staticmethod
     def graded(breaks_x, breaks_y, breaks_z) -> "BrickMesh":
@@ -90,6 +116,8 @@ class BrickMesh:
         widths = None
         if self.widths is not None:
             widths = tuple(np.repeat(w / f, f) for w in self.widths)
+        # dataclasses.replace keeps the concrete class: a MappedMesh keeps
+        # its mapping through refinement
         return dataclasses.replace(
             self, n_elements=tuple(m * f for m in self.n_elements), widths=widths
         )
@@ -125,7 +153,7 @@ class BrickMesh:
     def h(self) -> tuple[float, float, float]:
         """Element extents per axis — uniform meshes only."""
         if not self.is_uniform:
-            raise ValueError("graded mesh: use h_axes()")
+            raise ValueError("graded or mapped mesh: use h_axes()")
         return tuple(
             (self.upper[d] - self.lower[d]) / self.n_elements[d] for d in range(3)
         )
@@ -204,3 +232,83 @@ class BrickMesh:
         bz = np.isin(np.arange(nz), (0, nz - 1))
         mask = bx[None, None, :] | by[None, :, None] | bz[:, None, None]  # [nz, ny, nx]
         return mask.reshape(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class MappedMesh(BrickMesh):
+    """A brick mesh deformed by a smooth map ``x = phi(X)``.
+
+    Topology, DoF numbering and constraints are those of the underlying brick
+    (``X`` coordinates); only the geometry changes: per element and
+    quadrature point the full Jacobian ``J = dx/dxi`` is carried, as the
+    reference's ``MappingQGeneric`` tables provide it (``bp5/step-64.cu:
+    90-113``). The discrete mapping is the degree-p interpolant of ``phi``
+    at the FE nodal points (``MappingQGeneric<dim>(p)``, ``bp5/step-64.cu:
+    234``).
+
+    ``mapping`` takes ``[..., 3]`` brick coordinates to ``[..., 3]``
+    physical ones; the optional ``mapping_jacobian`` returns the analytic
+    ``[..., 3, 3]`` ``d phi_c / d X_r`` (tests check the interpolated
+    Jacobians against it).
+    """
+
+    mapping: Callable[[np.ndarray], np.ndarray] = None
+    mapping_jacobian: Optional[Callable[[np.ndarray], np.ndarray]] = None
+
+    @property
+    def is_mapped(self) -> bool:
+        return True
+
+    def map_points(self, X: np.ndarray) -> np.ndarray:
+        return np.asarray(self.mapping(np.asarray(X, dtype=np.float64)))
+
+
+def shear_map(s_xy: float = 0.0, s_xz: float = 0.0, s_yz: float = 0.0):
+    """Affine shear ``x += s_xy*y + s_xz*z; y += s_yz*z``: the simplest
+    deformation with a full (non-diagonal, constant) Jacobian. Returns
+    ``(phi, jacobian)``."""
+    M = np.array([[1.0, s_xy, s_xz], [0.0, 1.0, s_yz], [0.0, 0.0, 1.0]])
+
+    def phi(X):
+        return X @ M.T
+
+    def jac(X):
+        return np.broadcast_to(M, X.shape[:-1] + (3, 3)).copy()
+
+    return phi, jac
+
+
+def sine_map(amplitude: float = 0.05, periods: int = 1):
+    """Smooth wave deformation of the unit cube (a Kershaw-style smoothly
+    varying metric): every Jacobian entry varies per quadrature point and
+    all six merged-coefficient planes are non-zero. Returns ``(phi,
+    jacobian)``."""
+    a, k = amplitude, 2.0 * np.pi * periods
+
+    def phi(X):
+        x, y, z = X[..., 0], X[..., 1], X[..., 2]
+        return np.stack(
+            [
+                x + a * np.sin(k * y) * np.sin(k * z),
+                y + a * np.sin(k * x) * np.sin(k * z),
+                z + a * np.sin(k * x) * np.sin(k * y),
+            ],
+            axis=-1,
+        )
+
+    def jac(X):
+        x, y, z = X[..., 0], X[..., 1], X[..., 2]
+        J = np.zeros(X.shape[:-1] + (3, 3))
+        sx, cx = np.sin(k * x), np.cos(k * x)
+        sy, cy = np.sin(k * y), np.cos(k * y)
+        sz, cz = np.sin(k * z), np.cos(k * z)
+        J[..., 0, 0] = J[..., 1, 1] = J[..., 2, 2] = 1.0
+        J[..., 0, 1] = a * k * cy * sz
+        J[..., 0, 2] = a * k * sy * cz
+        J[..., 1, 0] = a * k * cx * sz
+        J[..., 1, 2] = a * k * sx * cz
+        J[..., 2, 0] = a * k * cx * sy
+        J[..., 2, 1] = a * k * sx * cy
+        return J
+
+    return phi, jac

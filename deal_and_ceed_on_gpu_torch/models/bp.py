@@ -15,8 +15,9 @@ Counterpart of ``deal_and_ceed_on_gpu_tpu/models/bp.py``: the CEED BPs
 
 ``make_bp_operator`` with ``backend=None`` takes the port's kernels: K1
 (``stencil``) for the collocated stiffness of BP5/BP6 on a uniform brick,
-K2 (``banded``) for everything else; ``separable`` and ``structured`` stay
-selectable as the plain comparators.
+K4 (``general``) on a mapped mesh, K2 (``banded``) for everything else;
+``general`` and ``qgrid`` take any BP, and ``separable`` and ``structured``
+stay selectable as the plain comparators.
 """
 
 from __future__ import annotations
@@ -54,10 +55,11 @@ BP_SPECS = {
 
 def default_backend(spec: BPSpec, mesh: BrickMesh) -> str:
     """The kernel backend of a BP: K1 needs GLL collocation and a uniform
-    brick, K2 takes any rule on a uniform or graded brick."""
+    brick, K2 takes any rule on a uniform or graded brick, K4 any rule on
+    any mesh."""
     if spec.kind == "stiffness" and spec.rule == "gauss_lobatto" and mesh.is_uniform:
         return "stencil"
-    return "banded"
+    return "general" if mesh.is_mapped else "banded"
 
 
 def make_bp_operator(

@@ -7,20 +7,23 @@ reference's ``HelmholtzOperator`` + ``LocalHelmholtzOperator``
 coefficient ``a(x) = 10 / (0.05 + 2|x|^2)`` (``step-64/step-64.cu:96-118``)
 is evaluated once at set-up over the physical quadrature points. Backends:
 
-- ``structured``: the torch cell loop with values and gradients, uniform
-  bricks (the plain comparator on the card);
-- ``separable``: GLL collocation only: the Poisson Kronecker terms plus the
-  assembled ``a JxW`` diagonal;
-- ``qgrid``: K3 (``ops/qgrid.py``) with grad ``const`` and the ``a(x_q) det``
-  value table, uniform bricks, any Gauss-type rule: the reference's native
-  step-64 configuration (Q3, Gauss q = 4);
+- ``structured``: the torch cell loop with values and gradients, any mesh
+  (the six-plane merged coefficient on graded and mapped ones; the plain
+  comparator on the card);
+- ``separable``: GLL collocation on a uniform or graded brick: the Poisson
+  Kronecker terms plus the assembled ``a JxW`` diagonal;
+- ``qgrid``: K3 (``ops/qgrid.py``) with the weightless grad ``const`` /
+  ``diag3`` / ``full6`` of the mesh and the ``a(x_q) det`` value table, any
+  Gauss-type rule: the reference's native step-64 configuration (Q3, Gauss
+  q = 4) and its graded and mapped variants;
+- ``general``: K4 (``ops/general.py``) with the JxW-weighted grad ``const``
+  / ``diag3`` / ``full6`` and the ``a(x_q) JxW`` value table, any rule and
+  geometry: the JAX ``pallas_general`` backend;
 - ``stencil``: K1 with its value term (``ops/stencil.py``), GLL collocation
   on a uniform brick: the JAX ``pallas`` backend. Quadrature points are the
   nodes, so the assembled value diagonal is ``d3 a = S diag(a) S`` with the
   nodal ``a(x) hx hy hz`` (K1's ``S`` holds the unit-cell weights); its
   ``fused_cg_step`` is K5 with the value term.
-
-The JAX backend ``pallas_general`` (K4) is not ported yet (ROADMAP §2).
 """
 
 from __future__ import annotations
@@ -32,12 +35,9 @@ import torch
 
 from ..fe_space import FESpace
 from .operator_base import MatrixFreeOperator, tensor_product_diagonal
+from .poisson import full_contraction, grad_spec
 
 __all__ = ["HelmholtzOperator", "default_coefficient"]
-
-_NOT_PORTED = {
-    "pallas_general": "the element-major kernel K4",
-}
 
 
 def default_coefficient(x: np.ndarray) -> np.ndarray:
@@ -56,11 +56,6 @@ class HelmholtzOperator(MatrixFreeOperator):
         coefficient_fn: Callable[[np.ndarray], np.ndarray] = default_coefficient,
         stream_dtype: torch.dtype | None = None,
     ):
-        if backend in _NOT_PORTED:
-            raise ValueError(
-                f"Helmholtz backend {backend!r} needs {_NOT_PORTED[backend]}, not ported yet "
-                "(ROADMAP §2); use structured, separable, qgrid or stencil"
-            )
         super().__init__(space, backend, stream_dtype)
         geo = space.geometry
         a_q = np.asarray(coefficient_fn(geo.q_points_phys()), dtype=np.float64)
@@ -96,26 +91,38 @@ class HelmholtzOperator(MatrixFreeOperator):
                 {"coef": 1.0, "band": [], "diag": space.tensor(dvec.reshape(space.grid_shape))}
             ]
             return
-        if not geo.uniform:
-            raise ValueError(f"{backend} Helmholtz: uniform bricks only (graded and mapped bricks wait for slice D)")
         if backend == "qgrid":
             from ..ops.qgrid import QGridTables
 
             self._qgrid = QGridTables.create(
                 space.mesh, space.basis, space.dtype,
-                grad=("const", geo.const_merged_diag), val=("table", a_q * geo.det_q_full()),
+                grad=grad_spec(geo, weighted=False), val=("table", a_q * geo.det_q_full()),
                 device=space.device,
+            )
+            return
+        if backend == "general":
+            from ..ops.general import build_general_operator
+
+            self._general = build_general_operator(
+                space, grad=grad_spec(geo, weighted=True), val=("table", a_q * geo.jxw_full())
             )
             return
         # structured: fold JxW into the value coefficient, a(x_q) * JxW(e, q)
         self._coef_val = space.tensor(self.to_layout(a_q * geo.jxw_full()))
-        self._cdiag = geo.const_merged_diag
-        self._w3d = space.tensor(self.w3d_layout())
+        if geo.uniform:
+            self._cdiag = geo.const_merged_diag
+            self._w3d = space.tensor(self.w3d_layout())
+            self._coef_g = None
+        else:
+            self._coef_g = space.tensor(self.to_layout(geo.merged_coef_full()))  # [..., 6]
 
     def _apply_fold_scale(self, s: float) -> None:
         if self.backend == "structured":
             self._coef_val = self._coef_val * s
-            self._cdiag = tuple(c * s for c in self._cdiag)
+            if self._coef_g is None:
+                self._cdiag = tuple(c * s for c in self._cdiag)
+            else:
+                self._coef_g = self._coef_g * s
             return
         super()._apply_fold_scale(s)
 
@@ -129,6 +136,10 @@ class HelmholtzOperator(MatrixFreeOperator):
 
     def quad_point_op(self, vals, grads):
         gx, gy, gz = grads
-        cx, cy, cz = self._cdiag
-        w = self._w3d
-        return vals * self._coef_val, (gx * (cx * w), gy * (cy * w), gz * (cz * w))
+        if self._coef_g is None:
+            cx, cy, cz = self._cdiag
+            w = self._w3d
+            flux = (gx * (cx * w), gy * (cy * w), gz * (cz * w))
+        else:
+            flux = full_contraction(self._coef_g, gx, gy, gz)
+        return vals * self._coef_val, flux

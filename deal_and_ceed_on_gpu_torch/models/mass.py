@@ -12,10 +12,11 @@ reference's collocation evaluator skips. Backends:
   ``kind="mass"``) on uniform or graded bricks, any rule; the JAX
   ``backend="pallas"``;
 - ``qgrid``: K3 (``ops/qgrid.py``) with the value term only, ``("const",
-  det_j)`` on a uniform brick and the ``det`` table on a graded one; the JAX
-  ``backend="pallas_qgrid"``.
-
-The JAX backend ``pallas_general`` (K4) is not ported yet (ROADMAP §2).
+  det_j)`` on a uniform brick and the ``det`` table on a graded or mapped
+  one; the JAX ``backend="pallas_qgrid"``;
+- ``general``: K4 (``ops/general.py``) with the value term only, ``("const",
+  det_j)`` on a uniform brick and the JxW table otherwise; the JAX
+  ``backend="pallas_general"``.
 """
 
 from __future__ import annotations
@@ -26,10 +27,6 @@ from ..fe_space import FESpace
 from .operator_base import MatrixFreeOperator, tensor_product_diagonal
 
 __all__ = ["MassOperator"]
-
-_NOT_PORTED = {
-    "pallas_general": "the element-major kernel K4",
-}
 
 
 class MassOperator(MatrixFreeOperator):
@@ -42,11 +39,6 @@ class MassOperator(MatrixFreeOperator):
         backend: str = "structured",
         stream_dtype: torch.dtype | None = None,
     ):
-        if backend in _NOT_PORTED:
-            raise ValueError(
-                f"mass backend {backend!r} needs {_NOT_PORTED[backend]}, not ported yet "
-                "(ROADMAP §2); use structured, separable, banded or qgrid"
-            )
         super().__init__(space, backend, stream_dtype)
         geo = space.geometry
         if backend == "banded":
@@ -60,13 +52,19 @@ class MassOperator(MatrixFreeOperator):
             val = ("const", geo.det_j) if geo.uniform else ("table", geo.det_q_full())
             self._qgrid = QGridTables.create(space.mesh, space.basis, space.dtype, val=val, device=space.device)
             return
+        if backend == "general":
+            from ..ops.general import build_general_operator
+
+            val = ("const", geo.det_j) if geo.uniform else ("table", geo.jxw_full())
+            self._general = build_general_operator(space, val=val)
+            return
         if backend == "separable":
             from ..ops.separable import mass_terms
 
             self._sep_terms = mass_terms(space.mesh, space.basis, space.dtype, space.device)
             return
         if backend != "structured":
-            raise ValueError(f"mass backend {backend!r}: use structured, separable, banded or qgrid")
+            raise ValueError(f"mass backend {backend!r}: use structured, separable, banded, qgrid or general")
         self._jxw = space.tensor(self.jxw_layout())
 
     def _apply_fold_scale(self, s: float) -> None:

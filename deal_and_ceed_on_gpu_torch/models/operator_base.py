@@ -25,6 +25,10 @@ Backends:
   ``MassOperator`` on uniform or graded bricks; its tables carry the
   Dirichlet mask, and one ``vmult`` is one K2 launch (identity faces
   written in the kernel).
+- ``general``: K4 (``ops/general.py``) between the element-major gather
+  and the overlap-add scatter, set up by ``PoissonOperator``,
+  ``HelmholtzOperator`` and ``MassOperator``: any rule, any geometry
+  (uniform, graded, mapped); the JAX ``pallas_general`` backend.
 
 ``stream_dtype``: the dtype of the vectors ``vmult`` takes and returns
 (bfloat16 halves their bytes); the apply computes at the space's dtype.
@@ -37,14 +41,22 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..basis import Basis1D
+from ..basis import Basis1D, basis_tables_3d
 from ..fe_space import FESpace
+from ..geometry import Geometry
 from ..ops import local_global as lg
 from ..ops import sum_factorization as sf
 
 __all__ = ["MatrixFreeOperator", "assemble_rhs", "l2_norm_function", "tensor_product_diagonal"]
 
-_LAYOUT_AXES = {"structured": (1, 3, 5), "separable": None, "stencil": None, "qgrid": None, "banded": None}
+_LAYOUT_AXES = {
+    "structured": (1, 3, 5),
+    "separable": None,
+    "stencil": None,
+    "qgrid": None,
+    "banded": None,
+    "general": None,
+}
 
 
 class MatrixFreeOperator:
@@ -57,6 +69,8 @@ class MatrixFreeOperator:
         backend: str = "structured",
         stream_dtype: torch.dtype | None = None,
     ):
+        if backend == "pallas_general":
+            raise ValueError("backend 'pallas_general' is the JAX package's name for K4; the port's is 'general'")
         if backend not in _LAYOUT_AXES:
             raise ValueError(f"unknown backend {backend!r}")
         self.space = space
@@ -77,6 +91,9 @@ class MatrixFreeOperator:
         self._fused_cg_step = None
         # banded backend: subclasses that support it fill _banded (K2 tables)
         self._banded = None
+        # general backend: subclasses that support it fill _general (K4 and
+        # its gather/scatter, ops/general.build_general_operator)
+        self._general = None
 
     # -------------------------- subclass hook ------------------------- #
     def quad_point_op(self, vals, grads):
@@ -93,11 +110,14 @@ class MatrixFreeOperator:
 
     def jxw_layout(self) -> np.ndarray:
         """JxW in the structured local layout: a tiny broadcastable array on
-        uniform meshes, per-element tensor factors on graded ones."""
+        uniform meshes, per-element tensor factors on graded ones, the full
+        per-q-point table on mapped ones."""
         geo = self.space.geometry
         w3 = self.w3d_layout()
         if geo.uniform:
             return geo.det_j * w3
+        if geo.mapped:
+            return self.to_layout(geo.jxw_full())
         hx, hy, hz = self.space.mesh.h_axes()
         mx, my, mz = self.space.mesh.n_elements
         det = (
@@ -131,6 +151,8 @@ class MatrixFreeOperator:
         s = self.space
         if self.backend == "banded":
             return self.kernel_apply(u_flat.reshape(s.grid_shape)).reshape(-1)
+        if self.backend == "general":
+            return self._general(u_flat)
         if self.backend == "qgrid":
             from ..ops.qgrid import qgrid_apply
 
@@ -208,6 +230,9 @@ class MatrixFreeOperator:
         if self._banded is not None:
             self._banded.scale_(s)  # the x tables K2 reads, in place
             return
+        if self._general is not None:
+            self._general.fold_scale(s)  # the coefficients K4 reads, in place
+            return
         if self._sep_terms is not None:
             for t in self._sep_terms:
                 t["coef"] = t["coef"] * s
@@ -268,8 +293,12 @@ def tensor_product_diagonal(
     value coefficient ``value_const`` (the mass operator: 1) adds ``c det_e
     m1 (x) m1 (x) m1``, a varying one ``value_q [n_cells, n_q]`` is
     contracted axis by axis. Host numpy, one scatter-add, Dirichlet rows
-    pinned to 1."""
+    pinned to 1. A mapped mesh takes the general path of
+    :func:`_general_local_diagonal` (the dense basis tables and the six
+    merged-coefficient planes)."""
     basis, geo = space.basis, space.geometry
+    if geo.mapped:
+        return _scatter_local_diagonal(space, _general_local_diagonal(space, gradient, value_q, value_const))
     S2, D2, w = basis.S**2, basis.D**2, basis.q_weights
     m1 = np.einsum("q,qa->a", w, S2)
     k1 = np.einsum("q,qa->a", w, D2)
@@ -290,10 +319,46 @@ def tensor_product_diagonal(
         t = np.einsum("ezyx,xi->ezyi", aq, w[:, None] * S2, optimize=True)
         t = np.einsum("ezyi,yj->ezji", t, w[:, None] * S2, optimize=True)
         local_e = local_e + det_e * np.einsum("ezji,zk->ekji", t, w[:, None] * S2, optimize=True)
+    return _scatter_local_diagonal(space, local_e)
+
+
+def _scatter_local_diagonal(space: FESpace, local_e: np.ndarray) -> torch.Tensor:
+    """Scatter-add per-element local diagonals and pin the Dirichlet rows."""
     diag = np.zeros(space.n_dofs)
     np.add.at(diag, space.mesh.element_dof_map(space.degree).reshape(-1), local_e.reshape(-1))
     diag[space.mesh.boundary_dof_mask(space.degree)] = 1.0
     return space.tensor(diag)
+
+
+def _general_local_diagonal(
+    space: FESpace,
+    gradient: bool,
+    value_q: np.ndarray | None,
+    value_const: float | None,
+) -> np.ndarray:
+    """Per-element diagonal on general (mapped) geometry:
+    ``diag_e[a] = sum_q grad phi_a(q)^T C_e(q) grad phi_a(q) + value terms``
+    with the six merged-coefficient planes, as one product ``[E, 6 n_q] x
+    [6 n_q, n_local]``."""
+    geo = space.geometry
+    V, G = basis_tables_3d(space.basis)
+    n_cells = space.mesh.n_cells
+    local_e = np.zeros((n_cells, V.shape[0]))
+    if gradient:
+        C = geo.merged_coef_full()  # [E, n_q, 6]
+        n_q = C.shape[1]
+        T = np.empty((n_q, 6, V.shape[0]))
+        for plane, (r, s) in enumerate(((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))):
+            T[:, plane, :] = (1.0 if r == s else 2.0) * (G[r] * G[s]).T
+        local_e += C.reshape(n_cells, n_q * 6) @ T.reshape(n_q * 6, -1)
+    if value_const is not None or value_q is not None:
+        jxw = geo.jxw_full()  # [E, n_q]
+        if value_q is not None:
+            jxw = jxw * value_q.reshape(n_cells, -1)
+        elif value_const != 1.0:
+            jxw = jxw * value_const
+        local_e += np.einsum("aq,aq,eq->ea", V, V, jxw, optimize=True)
+    return local_e
 
 
 # --------------------------------------------------------------------- #
@@ -338,10 +403,15 @@ def l2_norm_function(space: FESpace, u_flat: torch.Tensor, n_q: int | None = Non
     q = w.shape[0]
     w3d = (w[:, None, None] * w[None, :, None] * w[None, None, :]).reshape(1, q, 1, q, 1, q)
     mx, my, mz = space.mesh.n_elements
-    hx, hy, hz = space.mesh.h_axes()
-    det = (
-        hz.reshape(mz, 1, 1, 1, 1, 1)
-        * hy.reshape(1, 1, my, 1, 1, 1)
-        * hx.reshape(1, 1, 1, 1, mx, 1)
-    )
+    if space.mesh.is_mapped:
+        # per-q-point det(J) at the validation rule's points
+        det_q = Geometry.from_mesh(space.mesh, vb).det_q_full()
+        det = np.moveaxis(det_q.reshape(mz, my, mx, q, q, q), (3, 4, 5), (1, 3, 5))
+    else:
+        hx, hy, hz = space.mesh.h_axes()
+        det = (
+            hz.reshape(mz, 1, 1, 1, 1, 1)
+            * hy.reshape(1, 1, my, 1, 1, 1)
+            * hx.reshape(1, 1, 1, 1, mx, 1)
+        )
     return torch.sqrt(torch.sum(vals * vals * space.tensor(det * w3d)))

@@ -83,6 +83,8 @@ def banded_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | 
     p = basis.degree
     if not 1 <= p <= MAX_DEGREE:
         raise ValueError(f"banded kernel: degree {p} outside 1..{MAX_DEGREE}")
+    if mesh.is_mapped:
+        raise ValueError("banded kernel: uniform or graded bricks only (mapped meshes: use general or qgrid)")
     w, S, D = basis.q_weights, basis.S, basis.D
     K_e = np.einsum("q,qa,qb->ab", w, D, D)
     B_e = np.einsum("q,qa,qb->ab", w, S, S)

@@ -15,13 +15,24 @@ Both are dense slices/concats: no indices, no atomics, deterministic (the
 reference resolves the same write conflicts with ``atomicAdd`` or graph
 colouring, ``bp5/fe_evaluation_gl.h:162-181``). The 3D version applies this
 per axis, giving the interleaved local layout ``[mz, p+1, my, p+1, mx, p+1]``.
+The element-major form ``[E, (p+1)^3]`` of the general cell kernel (K4,
+``ops/general.py``) is one strided copy away: ``gather_elements`` reads the
+overlapping windows with ``unfold`` (one copy), ``scatter_elements`` views
+them back in the interleaved layout and overlap-adds as above.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["split_axis", "join_axis", "gather_structured", "scatter_structured"]
+__all__ = [
+    "split_axis",
+    "join_axis",
+    "gather_structured",
+    "scatter_structured",
+    "gather_elements",
+    "scatter_elements",
+]
 
 
 def split_axis(u: torch.Tensor, axis: int, m: int, p: int) -> torch.Tensor:
@@ -72,3 +83,22 @@ def scatter_structured(v: torch.Tensor, p: int) -> torch.Tensor:
     v = join_axis(v, 2, p)  # [mz, p1, ny, nx]
     v = join_axis(v, 0, p)  # [nz, ny, nx]
     return v
+
+
+def gather_elements(u: torch.Tensor, n_elements, p: int) -> torch.Tensor:
+    """``[nz, ny, nx]`` global nodal grid -> element-major local vectors
+    ``[E, (p+1)^3]``: cells (ez, ey, ex), local DoFs (k, j, i), x fastest
+    (the transpose at ``pallas_general.py:366-369``, in one copy)."""
+    mx, my, mz = n_elements
+    p1 = p + 1
+    w = u.unfold(0, p1, p).unfold(1, p1, p).unfold(2, p1, p)  # [mz, my, mx, p1, p1, p1]
+    return w.reshape(mx * my * mz, p1**3)
+
+
+def scatter_elements(w: torch.Tensor, n_elements, p: int) -> torch.Tensor:
+    """Overlap-add of element-major local vectors ``[E, (p+1)^3]`` ->
+    ``[nz, ny, nx]`` (``pallas_general.py:371-372``)."""
+    mx, my, mz = n_elements
+    p1 = p + 1
+    w6 = w.reshape(mz, my, mx, p1, p1, p1).permute(0, 3, 1, 4, 2, 5)
+    return scatter_structured(w6, p)

@@ -137,6 +137,11 @@ def _axis_tables(mesh, basis):
       B  = Z^T diag(h_e)  M  Z   (value factor, Gauss rules)
       d  = Z^T diag(h_e * w) Z   (pointwise weights, GLL collocation)
     """
+    if mesh.is_mapped:
+        raise ValueError(
+            "separable backend: uniform or graded bricks only (mapped meshes have "
+            "non-separable metric terms: use structured, qgrid or general)"
+        )
     p = basis.degree
     S, D, w = basis.S, basis.D, basis.q_weights
     K_e = np.einsum("q,qa,qb->ab", w, D, D)

@@ -16,7 +16,11 @@ origin of an output-tile-aligned box; the fused CG state of the JAX
 coordinates. The port cuts both to the real grid. The banded tables of a
 JAX ``BandedLayout`` (``mx_np`` ... ``bzg_np``, ``[2p+1, n_padded]``, taps
 leading) sit at offset 0 in x, ``YOFF`` in y and ``p`` in z; the port's K2
-takes them cut to the real rows and transposed to ``[n_d, 2p+1]``.
+takes them cut to the real rows and transposed to ``[n_d, 2p+1]``. A JAX
+``GeneralCellKernel`` holds dense ``V``/``G_d`` tables ``[(p+1)^3, q^3]``
+and its streamed coefficients padded to whole element blocks (``C [K, Ep,
+Q]``, ``av [Ep, Q]``); the port's K4 takes the 1D ``S``/``D`` tables of the
+same basis and the coefficients cut to the ``E`` real cells.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ __all__ = [
     "JAX_STENCIL_YOFF",
     "banded_tables_from_jax",
     "cg_state_from_jax",
+    "general_tables_from_jax",
     "qgrid_tables_from_jax",
     "stencil_tables_from_jax",
     "stencil_value_from_jax",
@@ -97,3 +102,35 @@ def banded_tables_from_jax(layout) -> dict:
            "mz": layout.mz_np, "gz": layout.bzg_np}
     keys = ("mx", "ax", "my", "ay", "mz", "gz") if layout.kind == "stiffness" else ("mx", "my", "gz")
     return {k: np.ascontiguousarray(np.asarray(src[k], dtype=np.float64)[:, cuts[k[1]]].T) for k in keys}
+
+
+def general_tables_from_jax(kernel, basis) -> dict:
+    """The port's K4 tables (``ops.general.general_tables_np`` keys,
+    float64) from a JAX ``GeneralCellKernel`` built on ``basis``: the 1D
+    ``S``/``D`` of the basis (checked against the kernel's dense tables, so
+    a basis or index-order mismatch raises), ``cw``/``vw`` as they are, and
+    the streamed ``C``/``av`` cut to the real cells."""
+    from ..basis import basis_tables_3d
+
+    E = int(kernel._E)
+    tabs, streamed = kernel._tabs, kernel._streamed
+    V, G = basis_tables_3d(basis)
+    dense = [("G", np.asarray(g, dtype=np.float64), G[d]) for d, g in enumerate(tabs.get("G", ()))]
+    if "V" in tabs:
+        dense.append(("V", np.asarray(tabs["V"], dtype=np.float64), V))
+    for name, have, want in dense:
+        if have.shape != want.shape or not np.allclose(have, want, rtol=1e-6, atol=1e-6 * np.abs(want).max()):
+            raise ValueError(f"general_tables_from_jax: the kernel's {name} table is not the basis's")
+
+    def host(a):
+        return None if a is None else np.ascontiguousarray(np.asarray(a, dtype=np.float64))
+
+    return {
+        "p": basis.degree, "q": basis.n_q, "n_cells": E,
+        "grad_kind": int(kernel.grad_kind), "val_kind": int(kernel.val_kind),
+        "S": np.asarray(basis.S, dtype=np.float64), "D": np.asarray(basis.D, dtype=np.float64),
+        "cw": host(tabs.get("cw")),
+        "C": host(np.asarray(streamed["C"])[:, :E]) if "C" in streamed else None,
+        "vw": host(np.asarray(tabs["vw"]).reshape(-1)) if "vw" in tabs else None,
+        "av": host(np.asarray(streamed["av"])[:E]) if "av" in streamed else None,
+    }

@@ -135,8 +135,10 @@ def test_graded_separable_matches_jax():
     want = np.asarray(jx.PoissonOperator(js, backend="separable").vmult(jnp.asarray(u)))
     got = pt.PoissonOperator(ts, backend="separable").vmult(torch.as_tensor(u)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
-    with pytest.raises(ValueError):
-        pt.PoissonOperator(ts, backend="structured")
+    # the structured loop takes graded bricks too (the six-plane merged
+    # coefficient); K1's stencil stays on uniform bricks
+    got = pt.PoissonOperator(ts, backend="structured").vmult(torch.as_tensor(u)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError):
         pt.PoissonOperator(ts, backend="stencil")
 
