@@ -72,12 +72,18 @@ anything does not build, launch, agree or converge. Phases:
     launched, no NaN); BP3 and BP6 pcg-merged with bf16 vectors; BP3 beside
     the plain ``separable`` comparator in turns; a ``torch.profiler`` trace
     of 20 BP3 f64 pcg-merged iterations on K2 (as phase 11);
-22. K4 (``csrc/general.cu``) against ``general_apply_reference``: every grad
-    x val mode, f64 and f32, p = 1..8 with Gauss q = p+1, p+2, p+3 and GLL,
-    E = 37 (not a multiple of the block), from a NaN-filled output; then the
-    main shape (sine-mapped 52^3, p = 3, Gauss q = 4, full6) timed beside
-    its plain version and bound, and the const mode at BP3's shape (p = 5,
-    q = 7, 32^3) beside the one library call that computes it, ``U @ A_loc``;
+22. K4 (``csrc/general.cu``) against ``general_apply_reference``: the
+    ptxas registers and spills of each of its instantiations; every grad x
+    val mode, f64 and f32, p = 1..8 with Gauss q = p+1, p+2, p+3 and GLL,
+    E = 37 (not a multiple of the block), from a NaN-filled output; two
+    table sets of one (p, q) (Gauss and GLL at q = p+1) launched alternately
+    on one stream and on two; element counts on and just past a block's
+    element group and E = 1; then the main shape (sine-mapped 52^3, p = 3,
+    Gauss q = 4, full6) timed beside its plain version and bound, the const
+    mode at BP3's shape (p = 5, q = 7, 32^3) beside the one library call
+    that computes it, ``U @ A_loc``, and (f64) the path-1 shape (sine-mapped
+    32^3, GLL, full6) and step-64's refine-6 shape (const grad + value
+    table, p = 3, q = 4, E = 262,144);
 23. the mapped goldens of the JAX reference: ``sine_map(0.05)`` at 4^3 and
     8^3 elements, p = 3, f64 Jacobi merged CG to 1e-10 (GLL on ``general``
     and ``structured``, Gauss q = 4 on ``general``, ``qgrid`` and
@@ -1213,32 +1219,149 @@ def _k4_case(basis, E, grad, val, dtype, seed):
 def _k4_compare(k, label, seed):
     """K4 against its plain version from a NaN-filled output; returns (max
     abs err, relative error, u) and asserts the bound and finiteness."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.general import general_apply
+
+    u = _k4_input(k, seed)
+    got = general_apply(u, k, out=torch.full_like(u, float("nan")))
+    torch.cuda.synchronize()
+    err, rel = _k4_check(k, label, u, got)
+    return err, rel, u
+
+
+def _k4_input(k, seed):
     import numpy as np
     import torch
 
-    from deal_and_ceed_on_gpu_torch.ops.general import general_apply, general_apply_reference
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal((k.n_cells, k.n_local)), dtype=k.dtype,
+                           device=DEVICE)
 
-    u = torch.as_tensor(np.random.default_rng(seed).standard_normal((k.n_cells, k.n_local)), dtype=k.dtype,
-                        device=DEVICE)
-    got = general_apply(u, k, out=torch.full_like(u, float("nan")))
-    torch.cuda.synchronize()
+
+def _k4_check(k, label, u, got):
+    """K4's output ``got`` against the plain version on ``u``: (max abs
+    err, relative error); raises past K4_TOL or on a non-finite entry."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.general import general_apply_reference
+
     want = general_apply_reference(u, k)
     err = float((got - want).abs().max())
     rel = err / max(float(want.abs().max()), 1e-300)
     if not (bool(torch.isfinite(got).all()) and rel <= K4_TOL[label]):
         raise AssertionError(f"K4 disagrees with its plain version: p={k.p} q={k.q} E={k.n_cells} grad_kind="
                              f"{k.grad_kind} val_kind={k.val_kind} {label}: max abs {err:.3e}, rel {rel:.3e}")
-    return err, rel, u
+    return err, rel
+
+
+def _k4_ptxas():
+    """K4's ptxas report (``-Xptxas -v`` in the build log): one line per
+    precision and kernel (full6, or the other modes), ``p/q:registers`` per
+    instantiation, and every instantiation with a stack frame or spill
+    stores."""
+    import re
+
+    from deal_and_ceed_on_gpu_torch.ops import general
+    from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
+
+    report, name = {}, None
+    for line in build_library(general.SOURCE).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"general_kernelI([df])Li(\d+)ELi(\d+)ELb([01])E", line)
+        if "Compiling entry function" in line or "Function properties for" in line:
+            name = (m.group(1), int(m.group(2)), int(m.group(3)), m.group(4) == "1") if m else None
+        elif name and "bytes stack frame" in line:
+            stack, spill = (int(x) for x in re.findall(r"(\d+) bytes (?:stack frame|spill stores)", line))
+            report.setdefault(name, {}).update(stack=stack, spill=spill)
+        elif name and "registers" in line:
+            report.setdefault(name, {})["regs"] = int(line.split("Used ")[1].split()[0])
+    for dt, label in (("d", "f64"), ("f", "f32")):
+        for full6 in (True, False):
+            keys = sorted(k for k in report if k[0] == dt and k[3] == full6)
+            print(f"phase 22: ptxas K4 {label} {'full6' if full6 else 'const/diag3/value'}: " + " ".join(
+                f"{p}/{q}:{report[k].get('regs')}" for k in keys for p, q in [k[1:3]]))
+    bad = [(k, v) for k, v in sorted(report.items()) if v.get("stack") or v.get("spill")]
+    print(f"phase 22: ptxas K4: {len(report)} instantiations, {len(bad)} with a stack frame or spill stores"
+          + "".join(f"; {k}: {v}" for k, v in bad))
+
+
+def _k4_alternating():
+    """Two table sets of one (p, q), Gauss and GLL at q = p+1, launched
+    alternately with no sync between, on one stream and then on two, each
+    against its own plain version."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.ops.general import general_apply
+
+    n = 0
+    for p in (2, 5, 8):
+        for label, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            ks = [_k4_case(Basis1D.make(p, p + 1, rule), K4_CASE_CELLS, "full6", "table", dtype, seed=p)
+                  for rule in ("gauss", "gauss_lobatto")]
+            us = [_k4_input(k, seed=i) for i, k in enumerate(ks)]
+            outs = [torch.full_like(u, float("nan")) for u in us]
+            for _ in range(3):
+                for k, u, o in zip(ks, us, outs):
+                    general_apply(u, k, out=o)
+            _k4_check(ks[0], label, us[0], outs[0])
+            _k4_check(ks[1], label, us[1], outs[1])
+            streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+            outs = [torch.full_like(u, float("nan")) for u in us]
+            torch.cuda.synchronize()
+            for k, u, o, st in zip(ks, us, outs, streams):
+                with torch.cuda.stream(st):
+                    general_apply(u, k, out=o)
+            torch.cuda.synchronize()
+            for k, u, o in zip(ks, us, outs):
+                _k4_check(k, label, u, o)
+            n += 4
+    print(f"phase 22: K4 Gauss and GLL tables of one (p, q) launched alternately (one stream, two streams): "
+          f"{n} checks agree")
+
+
+def _k4_group_edges():
+    """Element counts on and just past a block's element group (about 128
+    or 256 threads of q^2: both sizes are covered), and E = 1."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+
+    n = 0
+    for p, q in ((1, 2), (3, 4), (5, 7), (8, 11)):
+        groups = {max(1, threads // q**2) for threads in (128, 256)}
+        for E in sorted({1} | {m * eb + d for eb in groups for m in (1, 3) for d in (0, 1)}):
+            for label, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+                k = _k4_case(Basis1D.make(p, q, "gauss"), E, "diag3", "table", dtype, seed=E)
+                _k4_compare(k, label, seed=E)
+                n += 1
+    print(f"phase 22: K4 at element counts on and past the element group and E = 1: {n} cases agree")
+
+
+def _k4_time(k, label, tag, library=None):
+    """K4 on ``k`` against its plain version, timed beside both and the
+    bound; returns its record (and prints it)."""
+    from deal_and_ceed_on_gpu_torch.ops.general import general_apply, general_apply_reference
+
+    err, rel, u = _k4_compare(k, label, seed=7)
+    ms = _time_ms(lambda: general_apply(u, k))
+    plain_ms = _time_ms(lambda: general_apply_reference(u, k), n=5)
+    library_ms = None if library is None else _time_ms(lambda: library(u))
+    bound_ms, bound_by = _k4_bound_ms(k, label)
+    print(f"phase 22: K4 {tag} (E={k.n_cells}) {label}: max abs err {err:.3e} (rel {rel:.3e}); K4 {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, " + ("" if library is None else f"torch.matmul(U, A_loc) {library_ms:.4f} ms, ")
+          + f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f} % reached)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def phase22_k4_vs_plain():
-    import numpy as np
     import torch
 
-    from deal_and_ceed_on_gpu_torch import Basis1D, BrickMesh, FESpace, sine_map
-    from deal_and_ceed_on_gpu_torch.ops.general import GeneralCellKernel, general_apply, general_apply_reference
-    from deal_and_ceed_on_gpu_torch.ops.general import general_tables_np
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.ops.general import general_apply_reference
+    from deal_and_ceed_on_gpu_torch.scripts.bench_k4 import k4_shapes
 
+    _k4_ptxas()
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     modes = [(g, v) for g in (None, "const", "diag3", "full6") for v in (None, "const", "table") if g or v]
     worst = {label: 0.0 for label in dtypes}
@@ -1255,51 +1378,27 @@ def phase22_k4_vs_plain():
             print(f"phase 22: K4 p={p} q={q} {rule}, E={K4_CASE_CELLS}, {len(modes)} grad x val modes, f64 and f32: "
                   f"agree (worst rel err so far f64 {worst['f64']:.3e}, f32 {worst['f32']:.3e})")
     print(f"phase 22: K4 agrees with its plain version on {n_cases} cases, NaN-filled outputs fully written")
+    _k4_alternating()
+    _k4_group_edges()
 
-    # the main shape: sine-mapped 52^3, p = 3, Gauss q = 4, full6 (the
-    # tables of PoissonOperator(space, backend="general"), built once)
-    mesh = BrickMesh((MAPPED_VMULT,) * 3).deform(*sine_map(0.05))
-    space = FESpace.create(mesh, 3, n_q=4, rule="gauss", dtype=torch.float64, device="cpu")
-    tabs = general_tables_np(space.basis, mesh.n_cells, grad=("full6", space.geometry.merged_coef_full()))
-    main = {}
-    for label, dtype in dtypes.items():
-        k = GeneralCellKernel.from_numpy(tabs, dtype, DEVICE)
-        err, rel, u = _k4_compare(k, label, seed=7)
-        ms = _time_ms(lambda: general_apply(u, k))
-        plain_ms = _time_ms(lambda: general_apply_reference(u, k), n=5)
-        bound_ms, bound_by = _k4_bound_ms(k, label)
-        print(f"phase 22: K4 sine-mapped {MAPPED_VMULT}^3 p=3 q=4 full6 (E={k.n_cells}) {label}: max abs err "
-              f"{err:.3e} (rel {rel:.3e}); K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}, {100 * bound_ms / ms:.1f} % reached)")
-        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None)
-        del k, u
-    del tabs
-    # const mode at BP3's shape: one torch.matmul with the element matrix
-    # A_loc = sum_d G_d diag(cw_d) G_d^T computes the same function
-    basis = Basis1D.make(5, 7, "gauss")
-    bp3 = BrickMesh((32, 32, 32))
-    geo = FESpace.create(bp3, 5, n_q=7, rule="gauss", device="cpu").geometry
-    const = {}
-    for label, dtype in dtypes.items():
-        k = GeneralCellKernel(basis, bp3.n_cells, dtype, grad=("const", geo.const_merged_diag),
-                              w3d=geo.w3d, device=DEVICE)
-        err, rel, u = _k4_compare(k, label, seed=8)
-        V, G = k.dense_tables
-        a_loc = sum((G[d] * k.cw[d]) @ G[d].T for d in range(3))
-        lib = torch.matmul(u, a_loc)
-        lib_rel = float((lib - general_apply_reference(u, k)).abs().max() / lib.abs().max())
-        ms = _time_ms(lambda: general_apply(u, k))
-        plain_ms = _time_ms(lambda: general_apply_reference(u, k), n=5)
-        library_ms = _time_ms(lambda: torch.matmul(u, a_loc))
-        bound_ms, bound_by = _k4_bound_ms(k, label)
-        print(f"phase 22: K4 BP3 p=5 q=7 32^3 const (E={k.n_cells}) {label}: max abs err {err:.3e} (rel {rel:.3e}); "
-              f"K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul(U, A_loc) {library_ms:.4f} ms "
-              f"(rel diff {lib_rel:.1e}), bound {bound_ms:.4f} ms ({bound_by})")
-        const[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms)
-        del k, u, lib
-    return main, const
+    # K4 alone at its main paths' shapes (scripts/bench_k4.py): the sine-mapped
+    # 52^3 full6 table of path 2, BP3's const mode beside torch.matmul(U,
+    # A_loc), the path-1 shape (sine-mapped 32^3, GLL, full6) and step-64's
+    # refine-6 shape on general (const grad + the a(x) JxW value table)
+    rec = {}
+    for name, label, k, library in k4_shapes(device=DEVICE):
+        if library is not None:
+            u = _k4_input(k, seed=8)
+            want = general_apply_reference(u, k)
+            lib_rel = float((library(u) - want).abs().max() / want.abs().max())
+            print(f"phase 22: {name} {label}: torch.matmul(U, A_loc) against the plain version: rel diff {lib_rel:.1e}")
+            del u, want
+        rec[name, label] = _k4_time(k, label, name, library=library)
+        del k, library
+    main = {label: rec["mapped52-full6", label] for label in dtypes}
+    const = {label: rec["bp3-const", label] for label in dtypes}
+    gll32, step64 = rec["mapped32-gll-full6", "f64"], rec["step64-r6", "f64"]
+    return main, const, gll32, step64
 
 
 def _mapped_solve(m, rule, backend):
@@ -1389,6 +1488,7 @@ def phase25_step64_general():
         print(f"phase 25: K4 launches {general.LAUNCHES}")
         if general.LAUNCHES == 0:
             raise AssertionError("phase 25: step-64 on general never launched K4")
+    return general.LAUNCHES  # at refine 6
 
 
 def phase26_main_path():
@@ -1459,10 +1559,10 @@ def main():
     k1_nc = phase19_k1_components()
     phase20_bp_golden()
     k2_launches, k1_nc_launches = phase21_main_path()
-    k4, k4_const = phase22_k4_vs_plain()
+    k4, k4_const, k4_gll32, k4_step64 = phase22_k4_vs_plain()
     phase23_mapped_golden()
     k4_launches = {"f64": phase24_main_path()}
-    phase25_step64_general()
+    k4_step64_launches = phase25_step64_general()
     k4_vmult_launches, k4_bp3_launches = phase26_main_path()
     k4_launches["f32"] = k4_vmult_launches["f32"]
     phase27_profile()
@@ -1564,6 +1664,17 @@ def main():
             **k4_const[label],
         }
         for label in ("f64", "f32")
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/general.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_general.py:59",
+            "launches": launches,
+            **record,
+        }
+        for name, launches, record in (("general_k4_gll32_f64", k4_launches["f64"], k4_gll32),
+                                       ("general_k4_step64_f64", k4_step64_launches, k4_step64))
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

@@ -19,8 +19,10 @@ Coefficients are JxW-weighted, as the JAX ``GeneralCellKernel`` takes them:
 These are not K3's conventions: K3 (``ops/qgrid.py``) takes weightless
 coefficients (the weights sit in its backward tables), K4 weighted ones.
 
-``general_apply`` launches the CUDA kernel (``csrc/general.cu``, sum
-factorization with the 1D ``S``/``D`` tables) for a CUDA tensor and calls
+``general_apply`` launches the CUDA kernel (``csrc/general.cu``: even-odd
+sum factorization, a thread a 1D line, the 1D ``S``/``D`` tables passed by
+value with each launch from the host copies ``S_host``/``D_host``; symmetric
+rules only, ``symmetric``) for a CUDA tensor and calls
 the plain version ``general_apply_reference`` (the JAX kernel body: dense
 ``V``/``G`` tables and ``torch.matmul``) for a CPU tensor; ``LAUNCHES``
 counts kernel launches. ``build_general_operator`` wraps the cell apply in
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from . import local_global as lg
+from .sum_factorization import full_f32
 
 __all__ = [
     "LAUNCHES",
@@ -113,9 +116,10 @@ class GeneralCellKernel:
     """K4 on explicit local cell vectors ``[E, (p+1)^3]``: no mesh, no
     local<->global transfer (the adaptive operators of the JAX package batch
     their cells through the same contract). Parameters as the JAX class:
-    ``basis`` (any rule), ``n_cells``, ``dtype``, ``grad``, ``val``, ``w3d``;
-    the TPU-only knobs (``block_e``, ``precision``, ``vmem_limit_bytes``)
-    have no counterpart: K4 computes exactly at f64 or f32 and picks its own
+    ``basis`` (any rule; the CUDA kernel takes the symmetric ones, Gauss and
+    GLL), ``n_cells``, ``dtype``, ``grad``, ``val``, ``w3d``; the TPU-only
+    knobs (``block_e``, ``precision``, ``vmem_limit_bytes``) have no
+    counterpart: K4 computes exactly at f64 or f32 and picks its own
     tiling."""
 
     def __init__(self, basis, n_cells, dtype, grad=None, val=None, w3d=None, device="cuda"):
@@ -135,6 +139,12 @@ class GeneralCellKernel:
             a = tabs[name]
             setattr(self, name, None if a is None else torch.as_tensor(
                 np.array(a, dtype=np.float64), dtype=dtype, device=device))
+        # the kernel takes the 1D tables by value with each launch, from host memory
+        self.S_host, self.D_host = (np.array(tabs[n], dtype=np.float64, order="C") for n in ("S", "D"))
+        # its even-odd sweeps need symmetric rules (Gauss, GLL): S[q-1-a, p-i] = S[a, i], D antisymmetric
+        S, D = self.S_host, self.D_host
+        tol = 1e-12 * max(1.0, float(np.abs(S).max()), float(np.abs(D).max()))
+        self.symmetric = bool(np.abs(S[::-1, ::-1] - S).max() <= tol and np.abs(D[::-1, ::-1] + D).max() <= tol)
 
     @property
     def n_local(self) -> int:
@@ -212,11 +222,12 @@ def _check(ul: torch.Tensor, k: GeneralCellKernel) -> int:
     return code
 
 
+@full_f32()
 def general_apply_reference(ul: torch.Tensor, k: GeneralCellKernel) -> torch.Tensor:
     """The plain torch version of K4, the JAX kernel body: ``g_d = U G_d``
     with the dense tables, the coefficient contraction, ``W = sum_d f_d
     G_d^T (+ (U V) v V^T)``. f32 products run in full f32
-    (``sum_factorization`` pins ``allow_tf32 = False``)."""
+    (``sum_factorization.full_f32``, whatever the caller's TF32 setting)."""
     _check(ul, k)
     V, G = k.dense_tables
     acc = None
@@ -245,7 +256,7 @@ def _launcher():
     from ..utils.cuda_build import load_library
 
     fn = load_library(SOURCE).general_apply_launch
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 9
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 11
     fn.restype = ctypes.c_int
     return fn
 
@@ -265,6 +276,9 @@ def general_apply(ul: torch.Tensor, k: GeneralCellKernel, out: torch.Tensor | No
         return w if out is None else out.copy_(w)
     if ul.device.type != "cuda":
         raise ValueError(f"general: unsupported device {ul.device}")
+    if not k.symmetric:
+        raise ValueError("general: the CUDA kernel needs a symmetric 1D rule (Gauss or GLL): S[q-1-a, p-i] = S[a, i], "
+                         "D[q-1-a, p-i] = -D[a, i]")
     launch = _launcher()
     if out is None:
         out = torch.empty_like(ul)
@@ -276,7 +290,7 @@ def general_apply(ul: torch.Tensor, k: GeneralCellKernel, out: torch.Tensor | No
         rc = launch(
             code, k.p, k.q, k.grad_kind, k.val_kind, k.n_cells, ul.data_ptr(), out.data_ptr(),
             k.S.data_ptr(), k.D.data_ptr(), ptr(k.cw), ptr(k.C), ptr(k.vw), ptr(k.av),
-            torch.cuda.current_stream(ul.device).cuda_stream,
+            torch.cuda.current_stream(ul.device).cuda_stream, k.S_host.ctypes.data, k.D_host.ctypes.data,
         )
     if rc != 0:
         raise RuntimeError(f"general kernel launch failed: cudaError {rc}")

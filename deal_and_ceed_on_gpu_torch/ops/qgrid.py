@@ -30,7 +30,7 @@ tensor and calls the plain version ``qgrid_apply_reference`` for a CPU
 tensor; ``LAUNCHES`` counts kernel launches. ``constrained=True`` is the
 operator's ``vmult``: ``M A M`` plus identity rows on the six boundary
 faces, in the one launch. f32 products in the plain version run in full
-f32 (``sum_factorization`` pins ``allow_tf32 = False``).
+f32 (``sum_factorization.sweep`` scopes ``full_f32`` to each product).
 """
 
 from __future__ import annotations

@@ -15,36 +15,49 @@ Matrices follow the convention ``S[q, a]``, ``D[q, a]``: rows = quadrature
 points, columns = nodal coefficients. ``evaluate`` contracts with the node
 axis (forward), ``integrate`` contracts with the quadrature axis (transpose).
 
-Precision is pinned when this module is imported: a float32 matrix product
-may otherwise run in TF32 on the card (about three decimal digits, the GPU
-form of the TPU's bf16 matmul default), which is far too coarse for an FEM
-operator apply.
+A float32 matrix product may run in TF32 on the card (about three decimal
+digits, the GPU form of the TPU's bf16 matmul default), which is far too
+coarse for an FEM operator apply. The JAX package passes ``precision=`` to
+each contraction; the port scopes full float32 to its own products with
+:func:`full_f32`, which ``sweep`` enters, and leaves the caller's global
+settings as it found them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["pin_precision", "sweep", "evaluate", "integrate"]
+__all__ = ["full_f32", "sweep", "evaluate", "integrate"]
 
 
-def pin_precision() -> None:
-    """Full-precision float32 products and convolutions (no TF32)."""
+@contextlib.contextmanager
+def full_f32():
+    """Full-precision float32 products and convolutions (no TF32) inside the
+    block; the caller's ``torch.backends.cuda.matmul.allow_tf32``,
+    ``torch.backends.cudnn.allow_tf32`` and float32 matmul precision are
+    restored on exit, also on an exception."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-
-
-pin_precision()
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])
 
 
 def sweep(t: torch.Tensor, mat: torch.Tensor, axis: int, transpose: bool = False):
-    """Contract ``axis`` of ``t`` with ``mat`` (``[q, a]``); the contracted
-    axis is replaced in place (size a -> q, or q -> a when transpose)."""
+    """Contract ``axis`` of ``t`` with ``mat`` (``[q, a]``) in full float32
+    or float64; the contracted axis is replaced in place (size a -> q, or
+    q -> a when transpose)."""
     axis = axis % t.dim()
-    out = torch.tensordot(t, mat, dims=([axis], [0 if transpose else 1]))
+    with full_f32():
+        out = torch.tensordot(t, mat, dims=([axis], [0 if transpose else 1]))
     return torch.movedim(out, -1, axis)
 
 

@@ -1,7 +1,9 @@
 """Wall-clock timing with device fencing (reference ``Timer`` +
 ``cudaDeviceSynchronize``, ``bp5/step-64.cu:442-457``): PyTorch returns
 before the card finishes, so ``stop`` synchronises the device of the fenced
-tensors before it reads the clock."""
+tensors before it reads the clock. As a context manager (``with Timer() as
+t:``) it synchronises the current CUDA device, when CUDA is initialised,
+on exit."""
 
 from __future__ import annotations
 
@@ -30,3 +32,12 @@ class Timer:
         self.elapsed += time.perf_counter() - self._t0
         self._t0 = None
         return self.elapsed
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self.stop()
+        return False

@@ -256,3 +256,109 @@ def test_mapped_poisson_general_matches_structured_on_card(cuda_device):
     assert gk.LAUNCHES == before + 1
     b = PoissonOperator(space, backend="structured").vmult(u)
     assert float((a - b).abs().max() / b.abs().max()) <= 1e-12
+
+
+def _card_case(p, rule, E, grad, val, dtype, device, seed):
+    name, qoff = RULES[rule]
+    q = p + qoff
+    gspec, vspec = _specs(E, q**3, grad, val, seed=seed)
+    k = gk.GeneralCellKernel(pt.Basis1D.make(p, q, name), E, dtype, grad=gspec, val=vspec, device=device)
+    u = torch.as_tensor(np.random.default_rng(seed).standard_normal((E, (p + 1) ** 3)), dtype=dtype, device=device)
+    return k, u
+
+
+def _assert_agrees(k, u, got):
+    want = gk.general_apply_reference(u, k)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max() / want.abs().max()) <= {torch.float64: 1e-12, torch.float32: 1e-5}[u.dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p", [2, 5, 8])
+def test_two_rules_of_one_degree_alternate_on_card(cuda_device, p, dtype):
+    """Gauss and GLL tables at q = p+1 share K4's instantiation: launched
+    alternately with no sync between, on one stream and on two, each
+    agrees with its own plain version."""
+    cases = [_card_case(p, rule, N_CELLS, "full6", "table", dtype, cuda_device, seed=p + i)
+             for i, rule in enumerate(("gauss_p1", "gll"))]
+    outs = [torch.full_like(u, float("nan")) for _, u in cases]
+    for _ in range(3):
+        for (k, u), o in zip(cases, outs):
+            gk.general_apply(u, k, out=o)
+    torch.cuda.synchronize()
+    for (k, u), o in zip(cases, outs):
+        _assert_agrees(k, u, o)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [torch.full_like(u, float("nan")) for _, u in cases]
+    torch.cuda.synchronize()
+    for (k, u), o, s in zip(cases, outs, streams):
+        with torch.cuda.stream(s):
+            gk.general_apply(u, k, out=o)
+    torch.cuda.synchronize()
+    for (k, u), o in zip(cases, outs):
+        _assert_agrees(k, u, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p,rule", [(1, "gauss_p1"), (3, "gauss_p1"), (5, "gauss_p2"), (8, "gauss_p2")])
+def test_element_group_edges_on_card(cuda_device, p, rule, dtype):
+    """E = 1, and element counts on and just past a block's element group
+    (about 128 or 256 threads of q^2: both sizes are covered), from a
+    NaN-filled output."""
+    q = p + RULES[rule][1]
+    groups = {max(1, threads // q**2) for threads in (128, 256)}
+    for E in sorted({1} | {eb + d for eb in groups for d in (0, 1)} | {2 * eb + 1 for eb in groups}):
+        k, u = _card_case(p, rule, E, "diag3", "const", dtype, cuda_device, seed=E)
+        _assert_agrees(k, u, gk.general_apply(u, k, out=torch.full_like(u, float("nan"))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("grad,val", [("full6", "table"), ("const", None)])
+def test_many_element_groups_on_card(cuda_device, grad, val, dtype):
+    """Many more element groups than the card holds blocks at once (p = 3,
+    q = 4: 8 elements a group, 5,001 groups), with a ragged last group."""
+    k, u = _card_case(3, "gauss_p1", 40_003, grad, val, dtype, cuda_device, seed=11)
+    _assert_agrees(k, u, gk.general_apply(u, k, out=torch.full_like(u, float("nan"))))
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+def test_every_rule_the_kernel_is_built_for_is_symmetric(p):
+    """The CUDA kernel's even-odd sweeps need S[q-1-a, p-i] = S[a, i] and
+    D[q-1-a, p-i] = -D[a, i]: every Gauss and GLL rule it is built for."""
+    for name, q in (("gauss", p + 1), ("gauss", p + 2), ("gauss", p + 3), ("gauss_lobatto", p + 1)):
+        k = gk.GeneralCellKernel(pt.Basis1D.make(p, q, name), 2, torch.float64, val=("const", 1.0), device="cpu")
+        assert k.symmetric, (name, q)
+
+
+def test_asymmetric_tables_are_flagged_and_run_plain_on_cpu():
+    basis = pt.Basis1D.make(3, 5, "gauss")
+    tabs = gk.general_tables_np(basis, 4, grad=("const", (1.0, 2.0, 3.0)))
+    tabs["S"] = tabs["S"].copy()
+    tabs["S"][0, 0] += 1e-3
+    k = gk.GeneralCellKernel.from_numpy(tabs, torch.float64, "cpu")
+    assert not k.symmetric
+    u = torch.as_tensor(np.random.default_rng(0).standard_normal((4, 64)))
+    assert torch.equal(gk.general_apply(u, k), gk.general_apply_reference(u, k))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_asymmetric_tables_on_card(cuda_device):
+    tabs = gk.general_tables_np(pt.Basis1D.make(3, 5, "gauss"), 4, grad=("const", (1.0, 2.0, 3.0)))
+    tabs["D"] = tabs["D"].copy()
+    tabs["D"][1, 2] += 1e-3
+    k = gk.GeneralCellKernel.from_numpy(tabs, torch.float64, cuda_device)
+    with pytest.raises(ValueError, match="symmetric"):
+        gk.general_apply(torch.zeros(4, 64, dtype=torch.float64, device=cuda_device), k)
+
+
+def test_bench_k4_needs_a_card_and_known_shapes(monkeypatch):
+    from deal_and_ceed_on_gpu_torch.scripts import bench_k4
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        bench_k4.main(["--shapes", "bp3-const"])
+    with pytest.raises(ValueError, match="unknown shape"):
+        next(bench_k4.k4_shapes(["bp7"], device="cpu"))
