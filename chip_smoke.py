@@ -73,7 +73,8 @@ anything does not build, launch, agree or converge. Phases:
     the plain ``separable`` comparator in turns; a ``torch.profiler`` trace
     of 20 BP3 f64 pcg-merged iterations on K2 (as phase 11);
 22. K4 (``csrc/general.cu``) against ``general_apply_reference``: the
-    ptxas registers and spills of each of its instantiations; every grad x
+    ptxas registers of each of its 96 instantiations (fails if one is
+    missing from the report, spills or keeps a stack frame); every grad x
     val mode, f64 and f32, p = 1..8 with Gauss q = p+1, p+2, p+3 and GLL,
     E = 37 (not a multiple of the block), from a NaN-filled output; two
     table sets of one (p, q) (Gauss and GLL at q = p+1) launched alternately
@@ -273,17 +274,9 @@ def _compare(mesh, p, label, dtype, stream, value=None):
 
 
 def _time_ms(fn, n=20):
-    import torch
+    from deal_and_ceed_on_gpu_torch.utils.timer import cuda_time_ms
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    return cuda_time_ms(fn, n)
 
 
 def phase2_kernel_vs_twin():
@@ -1174,6 +1167,7 @@ MAPPED_TPU_ITERATIONS = 414  # for information
 MAPPED_VMULT = 52  # 3,869,893 DoFs at p = 3 (scripts/bench_general.py:65-70)
 K4_TOL = {"f64": 1e-12, "f32": 1e-5}  # of max|want|, as K3
 K4_CASE_CELLS = 37  # not a multiple of any block's element count
+K4_INSTANTIATIONS = 2 * 8 * 3 * 2  # general_kernel<T, P, Q, FULL6>: f64/f32, p = 1..8, q = p+1..p+3, full6 or not
 
 
 def _k4_bound_ms(k, label):
@@ -1258,7 +1252,8 @@ def _k4_ptxas():
     """K4's ptxas report (``-Xptxas -v`` in the build log): one line per
     precision and kernel (full6, or the other modes), ``p/q:registers`` per
     instantiation, and every instantiation with a stack frame or spill
-    stores."""
+    stores. Fails unless all K4_INSTANTIATIONS are in the report, none with
+    a stack frame or spill stores."""
     import re
 
     from deal_and_ceed_on_gpu_torch.ops import general
@@ -1282,6 +1277,11 @@ def _k4_ptxas():
     bad = [(k, v) for k, v in sorted(report.items()) if v.get("stack") or v.get("spill")]
     print(f"phase 22: ptxas K4: {len(report)} instantiations, {len(bad)} with a stack frame or spill stores"
           + "".join(f"; {k}: {v}" for k, v in bad))
+    if len(report) != K4_INSTANTIATIONS or any("regs" not in v for v in report.values()):
+        raise AssertionError(f"K4's ptxas report names {len(report)} instantiations with registers, "
+                             f"want {K4_INSTANTIATIONS}: the build log no longer matches general_kernel<T, P, Q, FULL6>")
+    if bad:
+        raise AssertionError(f"K4 spills or keeps a stack frame in {len(bad)} instantiations")
 
 
 def _k4_alternating():
@@ -1340,12 +1340,10 @@ def _k4_group_edges():
 def _k4_time(k, label, tag, library=None):
     """K4 on ``k`` against its plain version, timed beside both and the
     bound; returns its record (and prints it)."""
-    from deal_and_ceed_on_gpu_torch.ops.general import general_apply, general_apply_reference
+    from deal_and_ceed_on_gpu_torch.scripts.bench_k4 import time_k4
 
     err, rel, u = _k4_compare(k, label, seed=7)
-    ms = _time_ms(lambda: general_apply(u, k))
-    plain_ms = _time_ms(lambda: general_apply_reference(u, k), n=5)
-    library_ms = None if library is None else _time_ms(lambda: library(u))
+    ms, plain_ms, library_ms = time_k4(u, k, library)
     bound_ms, bound_by = _k4_bound_ms(k, label)
     print(f"phase 22: K4 {tag} (E={k.n_cells}) {label}: max abs err {err:.3e} (rel {rel:.3e}); K4 {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, " + ("" if library is None else f"torch.matmul(U, A_loc) {library_ms:.4f} ms, ")

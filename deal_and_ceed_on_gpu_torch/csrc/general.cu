@@ -613,9 +613,9 @@ int run(int p, int q, int grad_kind, int val_kind, long long E, const void* u, v
 // dtype_code: 0 = double, 1 = float. grad_kind: 0 none, 1 const, 2 diag3,
 // 3 full6; val_kind: 0 none, 1 const, 2 table. The kernel takes the 1D
 // tables from S_host / D_host ([q][p+1] doubles in host memory, rounded to
-// the compute type) by value with the launch; S and D, their device copies,
-// are not read. Returns the cudaError_t of the launch (0 on success); never
-// synchronises.
+// the compute type) by value with the launch; S and D are reserved: not
+// read, and may be null. Returns the cudaError_t of the launch (0 on
+// success); never synchronises.
 extern "C" int general_apply_launch(int dtype_code, int p, int q, int grad_kind, int val_kind,
                                     long long E, const void* u, void* out, const void* S,
                                     const void* D, const void* cw, const void* C, const void* vw,

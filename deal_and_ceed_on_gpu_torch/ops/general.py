@@ -21,7 +21,7 @@ coefficients (the weights sit in its backward tables), K4 weighted ones.
 
 ``general_apply`` launches the CUDA kernel (``csrc/general.cu``: even-odd
 sum factorization, a thread a 1D line, the 1D ``S``/``D`` tables passed by
-value with each launch from the host copies ``S_host``/``D_host``; symmetric
+value with each launch from host memory, ``S_host``/``D_host``; symmetric
 rules only, ``symmetric``) for a CUDA tensor and calls
 the plain version ``general_apply_reference`` (the JAX kernel body: dense
 ``V``/``G`` tables and ``torch.matmul``) for a CPU tensor; ``LAUNCHES``
@@ -64,7 +64,7 @@ _GRAD_PLANES = {"diag3": 3, "full6": 6}
 LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float64: 0, torch.float32: 1}
-_TABLES = ("S", "D", "cw", "C", "vw", "av")
+_TABLES = ("cw", "C", "vw", "av")  # the coefficient tables, on the device
 
 
 def general_tables_np(basis, n_cells: int, grad=None, val=None, w3d=None) -> dict:
@@ -139,7 +139,7 @@ class GeneralCellKernel:
             a = tabs[name]
             setattr(self, name, None if a is None else torch.as_tensor(
                 np.array(a, dtype=np.float64), dtype=dtype, device=device))
-        # the kernel takes the 1D tables by value with each launch, from host memory
+        # the 1D tables stay in host memory: the kernel takes them by value with each launch
         self.S_host, self.D_host = (np.array(tabs[n], dtype=np.float64, order="C") for n in ("S", "D"))
         # its even-odd sweeps need symmetric rules (Gauss, GLL): S[q-1-a, p-i] = S[a, i], D antisymmetric
         S, D = self.S_host, self.D_host
@@ -155,12 +155,18 @@ class GeneralCellKernel:
         return self.q**3
 
     @property
+    def coefficients(self) -> list[torch.Tensor]:
+        """The coefficient tables the kernel reads (``cw``, ``C``, ``vw``,
+        ``av``; at least one is set)."""
+        return [t for t in (self.cw, self.C, self.vw, self.av) if t is not None]
+
+    @property
     def dtype(self) -> torch.dtype:
-        return self.S.dtype
+        return self.coefficients[0].dtype
 
     @property
     def device(self) -> torch.device:
-        return self.S.device
+        return self.coefficients[0].device
 
     def apply_local(self, ul: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
         """Per-cell apply on local vectors: ``[E, (p+1)^3]`` -> same."""
@@ -168,16 +174,16 @@ class GeneralCellKernel:
 
     def fold_scale(self, s: float) -> None:
         """``A <- s * A``: rescales the coefficients the kernel reads, in place."""
-        for t in (self.cw, self.C, self.vw, self.av):
-            if t is not None:
-                t.mul_(s)
+        for t in self.coefficients:
+            t.mul_(s)
 
     @functools.cached_property
     def dense_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The plain version's dense ``V [N, Q]`` and ``G [3, N, Q]``
-        (``basis.basis_tables_3d`` of the kernel's 1D tables)."""
-        V, G = _dense_np(self.S.cpu().double().numpy().tobytes(), self.D.cpu().double().numpy().tobytes(),
-                         self.q, self.p + 1)
+        (``basis.basis_tables_3d`` of the kernel's 1D tables, rounded to
+        its dtype as the kernel rounds them)."""
+        S, D = (torch.as_tensor(t).to(self.dtype).double().numpy().tobytes() for t in (self.S_host, self.D_host))
+        V, G = _dense_np(S, D, self.q, self.p + 1)
         return (torch.as_tensor(V, dtype=self.dtype, device=self.device),
                 torch.as_tensor(G, dtype=self.dtype, device=self.device))
 
@@ -205,7 +211,6 @@ def _check(ul: torch.Tensor, k: GeneralCellKernel) -> int:
     if ul.device != k.device:
         raise ValueError(f"general: u on {ul.device}, tables on {k.device}")
     want = {
-        "S": (k.q, k.p + 1), "D": (k.q, k.p + 1),
         "cw": (3, Q) if k.grad_kind == 1 else None,
         "C": ({2: 3, 3: 6}[k.grad_kind], E, Q) if k.grad_kind in (2, 3) else None,
         "vw": (Q,) if k.val_kind == 1 else None,
@@ -289,7 +294,7 @@ def general_apply(ul: torch.Tensor, k: GeneralCellKernel, out: torch.Tensor | No
     with torch.cuda.device(ul.device):
         rc = launch(
             code, k.p, k.q, k.grad_kind, k.val_kind, k.n_cells, ul.data_ptr(), out.data_ptr(),
-            k.S.data_ptr(), k.D.data_ptr(), ptr(k.cw), ptr(k.C), ptr(k.vw), ptr(k.av),
+            None, None, ptr(k.cw), ptr(k.C), ptr(k.vw), ptr(k.av),
             torch.cuda.current_stream(ul.device).cuda_stream, k.S_host.ctypes.data, k.D_host.ctypes.data,
         )
     if rc != 0:

@@ -3,7 +3,7 @@
 before the card finishes, so ``stop`` synchronises the device of the fenced
 tensors before it reads the clock. As a context manager (``with Timer() as
 t:``) it synchronises the current CUDA device, when CUDA is initialised,
-on exit."""
+on exit. ``cuda_time_ms`` times a callable on the card with CUDA events."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import time
 
 import torch
 
-__all__ = ["Timer"]
+__all__ = ["Timer", "cuda_time_ms"]
 
 
 class Timer:
@@ -41,3 +41,17 @@ class Timer:
             torch.cuda.synchronize()
         self.stop()
         return False
+
+
+def cuda_time_ms(fn, n: int = 20) -> float:
+    """Mean ms of ``fn`` on the current CUDA stream over ``n`` calls after
+    one warm-up, between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n

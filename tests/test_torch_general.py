@@ -359,6 +359,21 @@ def test_bench_k4_needs_a_card_and_known_shapes(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
-        bench_k4.main(["--shapes", "bp3-const"])
+        bench_k4.main()
     with pytest.raises(ValueError, match="unknown shape"):
         next(bench_k4.k4_shapes(["bp7"], device="cpu"))
+
+
+def test_bench_k4_step64_tables_are_helmholtz_general():
+    from deal_and_ceed_on_gpu_torch.scripts import bench_k4
+
+    k = bench_k4.step64_kernel(1, device="cpu")
+    space = pt.FESpace.create(pt.BrickMesh.hyper_cube().refine_global(1), 3, rule="gauss", dtype=torch.float64,
+                              device="cpu")
+    want = HelmholtzOperator(space, backend="general")._general
+    assert (k.grad_kind, k.val_kind, k.n_cells) == (want.grad_kind, want.val_kind, want.n_cells)
+    for name in ("cw", "C", "vw", "av"):
+        a, b = getattr(k, name), getattr(want, name)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
+    u = torch.as_tensor(np.random.default_rng(3).standard_normal((k.n_cells, k.n_local)))
+    assert torch.equal(gk.general_apply(u, k), want.apply_local(u))
