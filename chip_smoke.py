@@ -22,12 +22,17 @@ anything does not build, launch, agree or converge. Phases:
    1e-12 (L2 norm to 1e-10);
 5. cycle-33 vmult and pcg-merged throughput, K1 against the plain torch
    separable backend, in turns (plain, kernel, kernel, plain);
-6. K3 against its plain torch version on the card, f64 and f32, raw and
-   constrained: the shapes of ``tests/test_pallas_qgrid.py`` (random diag3,
-   full6 and value tables where the JAX test has graded or mapped
-   geometry), BP3's p = 5, q = 7 on 32^3 elements, and the step-64 main
-   shape (refine 6: Q3, Gauss q = 4, const grad + a(x) det table), where
-   K3 and the plain version are timed;
+6. K3 against its plain torch version on the card: the ptxas registers of
+   each of its 96 instantiations (fails if one is missing, spills or keeps a
+   stack frame); every built (p, q) (p = 1..8, Gauss q = p+1..p+3) in every
+   grad x val mode, f64 and f32, raw and constrained, from NaN-filled
+   outputs, on bricks with unequal tiles, mx and my below the tile width
+   and one element; the shapes of ``tests/test_pallas_qgrid.py`` (random
+   diag3, full6 and value tables where the JAX test has graded or mapped
+   geometry) and BP3's p = 5, q = 7 on 32^3 elements; then, timed beside
+   the plain version and the bound, the step-64 main shape (refine 6: Q3,
+   Gauss q = 4, const grad + a(x) det table) and the sine-mapped 52^3 full6
+   shape of phase 26, f64 and f32;
 7. step-64 goldens on K3 in f64: ``drivers/step64.run`` at refine 2 (plain
    and merged CG: 60 iterations) and refine 4 (227 +- 1);
 8. the main path: step-64 at refine 6 (7,189,057 DoFs) on K3, plain and
@@ -52,9 +57,11 @@ anything does not build, launch, agree or converge. Phases:
     agree);
 15. f64 at cycle 10 with pcg-fused against the golden values (as phase 4);
 16. cycle-33 pcg-fused throughput beside pcg-merged on K1, in turns;
-17. K6, the copy probe, against ``2 * src`` and beside ``torch.mul`` at
-    the cycle-33 shape, then the port's ``scripts/exp_solver_budget.py``
-    lines (a)-(i) at cycle 33 with short chains (K6 must have launched);
+17. K6, the copy probe, against ``2 * src`` bitwise from NaN-filled
+    outputs (halo 0..8, several tiles, odd nx, ny below one tile, nz below
+    one z range, one point, three types), then beside ``torch.mul`` at the
+    cycle-33 shape, then the port's ``scripts/exp_solver_budget.py`` lines
+    (a)-(i) at cycle 33 with short chains (K6 must have launched);
 18. K2 (``csrc/banded.cu``) against ``banded_apply_reference``: the cases of
     ``tests/test_pallas_banded.py`` (uniform and graded, stiffness and
     mass, ``value_const``), then BP1 and BP3 at the main shape (32^3
@@ -73,8 +80,7 @@ anything does not build, launch, agree or converge. Phases:
     the plain ``separable`` comparator in turns; a ``torch.profiler`` trace
     of 20 BP3 f64 pcg-merged iterations on K2 (as phase 11);
 22. K4 (``csrc/general.cu``) against ``general_apply_reference``: the
-    ptxas registers of each of its 96 instantiations (fails if one is
-    missing from the report, spills or keeps a stack frame); every grad x
+    ptxas registers of each of its 96 instantiations (as phase 6); every grad x
     val mode, f64 and f32, p = 1..8 with Gauss q = p+1, p+2, p+3 and GLL,
     E = 37 (not a multiple of the block), from a NaN-filled output; two
     table sets of one (p, q) (Gauss and GLL at q = p+1) launched alternately
@@ -98,8 +104,8 @@ anything does not build, launch, agree or converge. Phases:
     the refine 2-6 goldens;
 26. the second main path: ``scripts/bench_general.run``, the sine-mapped
     52^3 vmult (3,869,893 DoFs, Gauss q = 4) in f64 and f32 on ``general``,
-    ``qgrid`` and ``structured``, BP3 on ``general``, and mapped Helmholtz
-    once on ``general`` against ``qgrid``;
+    ``qgrid`` and ``structured`` (K4 and K3 must have launched), BP3 on
+    ``general``, and mapped Helmholtz once on ``general`` against ``qgrid``;
 27. a ``torch.profiler`` trace of 20 iterations of the phase-24 solve.
 
 The last two lines are the kernels' JSON record and the device JSON line.
@@ -179,6 +185,11 @@ K3_CASES = (
     ((32, 32, 32), 5, 7, "const", None),
 )
 K3_TOL = {"f64": 1e-12, "f32": 1e-5}  # of max|want|
+# the sweep's bricks (mx, my, mz): tiles of unequal widths (9 elements in x
+# and 11 in y exceed every tile width), mx and my below the tile width, two
+# or three z ranges, and a 1-element brick
+K3_SWEEP_SHAPES = ((9, 4, 3), (2, 11, 5), (1, 1, 1))
+K3_INSTANTIATIONS = 2 * 8 * 3 * 2  # qgrid_kernel<T, P, Q, FULL6>: f64/f32, p = 1..8, q = p+1..p+3, full6 or not
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; f64 67
 # TFLOP/s (its tensor cores; 34 outside them), f32 67 TFLOP/s outside the
 # tensor cores (what an exact f32 computation can use)
@@ -399,19 +410,10 @@ def phase5_timing():
         print(f"phase 5: cycle {MAIN_CYCLE} {label} {backend:9s} {mode:10s} {tp:.6g} DoF/s")
 
 
-def _k3_tables(elements, p, q, grad, val, dtype, seed):
-    """K3 tables on a uniform brick: const terms from the geometry, random
-    positive diag3/full6/value tables (full6 diagonally dominant)."""
-    import numpy as np
-
-    from deal_and_ceed_on_gpu_torch import Basis1D, BrickMesh, Geometry
-    from deal_and_ceed_on_gpu_torch.ops.qgrid import QGridTables
-
-    rng = np.random.default_rng(seed)
-    mesh = BrickMesh(elements, upper=(1.0, 0.9, 1.2))
-    basis = Basis1D.make(p, q, "gauss")
-    geo = Geometry.from_mesh(mesh, basis)
-    shape = (mesh.n_cells, q**3)
+def _k3_specs(mesh, geo, grad, val, rng):
+    """K3's term specs on a uniform brick: const terms from the geometry,
+    random positive diag3/full6/value tables (full6 diagonally dominant)."""
+    shape = (mesh.n_cells, geo.basis.n_q**3)
     gspec = vspec = None
     if grad == "const":
         gspec = ("const", geo.const_merged_diag)
@@ -425,19 +427,33 @@ def _k3_tables(elements, p, q, grad, val, dtype, seed):
         vspec = ("const", 2.0 * geo.det_j)
     elif val == "table":
         vspec = ("table", (0.5 + rng.random(shape)) * geo.det_q_full())
+    return gspec, vspec
+
+
+def _k3_tables(elements, p, q, grad, val, dtype, seed):
+    """K3 tables on a uniform brick (``_k3_specs``)."""
+    import numpy as np
+
+    from deal_and_ceed_on_gpu_torch import Basis1D, BrickMesh, Geometry
+    from deal_and_ceed_on_gpu_torch.ops.qgrid import QGridTables
+
+    mesh = BrickMesh(elements, upper=(1.0, 0.9, 1.2))
+    basis = Basis1D.make(p, q, "gauss")
+    gspec, vspec = _k3_specs(mesh, Geometry.from_mesh(mesh, basis), grad, val, np.random.default_rng(seed))
     return QGridTables.create(mesh, basis, dtype, grad=gspec, val=vspec, device=DEVICE)
 
 
 def _k3_compare(tables, label, constrained, seed):
-    """K3 against its plain version on one table set; returns (max abs err,
-    relative error, u) and asserts the bound and the identity faces."""
+    """K3 against its plain version on one table set, from a NaN-filled
+    output; returns (max abs err, relative error, u) and asserts the bound,
+    finiteness and the identity faces (bitwise)."""
     import numpy as np
     import torch
 
     from deal_and_ceed_on_gpu_torch.ops.qgrid import qgrid_apply, qgrid_apply_reference
 
     u = torch.as_tensor(np.random.default_rng(seed).standard_normal(tables.shape), dtype=tables.dtype, device=DEVICE)
-    got = qgrid_apply(u, tables, constrained)
+    got = qgrid_apply(u, tables, constrained, out=torch.full_like(u, float("nan")))
     torch.cuda.synchronize()
     want = qgrid_apply_reference(u, tables, constrained)
     err = float((got - want).abs().max())
@@ -447,36 +463,102 @@ def _k3_compare(tables, label, constrained, seed):
         for sl in ((0,), (-1,), (slice(None), 0), (slice(None), -1), (slice(None), slice(None), 0),
                    (slice(None), slice(None), -1)):
             faces_ok = faces_ok and torch.equal(got[sl], u[sl])
-    if not (rel <= K3_TOL[label] and faces_ok):
+    if not (rel <= K3_TOL[label] and faces_ok and bool(torch.isfinite(got).all())):
         raise AssertionError(f"K3 disagrees with its plain version: grid {tables.shape} p={tables.p} "
-                             f"q={tables.q} {label} constrained={constrained}: max abs {err:.3e}, "
-                             f"rel {rel:.3e}, faces equal {faces_ok}")
+                             f"q={tables.q} grad_kind={tables.grad_kind} val_kind={tables.val_kind} {label} "
+                             f"constrained={constrained}: max abs {err:.3e}, rel {rel:.3e}, faces equal {faces_ok}")
     return err, rel, u
 
 
 def _k3_bound_ms(tables, label):
-    """The least time of one K3 apply with const grad and a value table:
-    read u, the table and write out once each, or the operations of the
-    sum factorization (2(2 q P^3 + 3 q^2 P^2 + 4 q^3 P) multiply-adds an
-    element, P = p + 1, and 4 products a q point) at the type's peak."""
+    """The least time of one K3 apply: read u and the q-grid planes the mode
+    streams (3 for diag3, 6 for full6, 1 for a value table) and write out
+    once each, or the operations of the sum factorization (2(2 q P^3 + 3 q^2
+    P^2 + 4 q^3 P) multiply-adds an element, P = p + 1, and 4 products a q
+    point) at the type's peak."""
     import math as m
 
     size = 8 if label == "f64" else 4
     n, nq = m.prod(tables.shape), m.prod(tables.q_shape)
+    planes = {0: 0, 1: 0, 2: 3, 3: 6}[tables.grad_kind] + (1 if tables.val_kind == 2 else 0)
     p1, q = tables.p + 1, tables.q
     n_el = m.prod(tables.n_elements)
     flops = n_el * (4 * (2 * q * p1**3 + 3 * q**2 * p1**2 + 4 * q**3 * p1) + 4 * q**3)
-    t_bytes = (2 * n + nq) * size / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[label]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", (2 * n + nq) * size
+    n_bytes = (2 * n + planes * nq) * size
+    return (*_bound_ms(n_bytes, flops, label), n_bytes)
+
+
+def _k3_time(tables, label, tag):
+    """K3 against its plain version (raw and constrained) at a main shape,
+    timed beside the plain version and the bound; returns its record."""
+    from deal_and_ceed_on_gpu_torch.ops.qgrid import qgrid_apply, qgrid_apply_reference
+
+    for constrained in (False, True):
+        err, rel, u = _k3_compare(tables, label, constrained, seed=7)
+    ms = _time_ms(lambda: qgrid_apply(u, tables, True))
+    plain_ms = _time_ms(lambda: qgrid_apply_reference(u, tables, True), n=5)
+    bound_ms, bound_by, ideal = _k3_bound_ms(tables, label)
+    print(f"phase 6: {tag} grid {tables.shape} q grid {tables.q_shape} {label}: max abs err {err:.3e} (rel "
+          f"{rel:.3e}); K3 {ms:.4f} ms ({ideal / ms / 1e6:.1f} GB/s of ideal traffic), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f} % reached)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def _k3_sweep():
+    """K3 against its plain version on every built (p, q) (p = 1..8, Gauss
+    q = p+1..p+3) in every grad x val mode, f64 and f32, raw and
+    constrained, from NaN-filled outputs, on K3_SWEEP_SHAPES."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D, BrickMesh, Geometry
+    from deal_and_ceed_on_gpu_torch.ops.qgrid import QGridTables, qgrid_tables_np
+
+    modes = [(g, v) for g in (None, "const", "diag3", "full6") for v in (None, "const", "table") if g or v]
+    worst = {"f64": 0.0, "f32": 0.0}
+    n = 0
+    for p in range(1, 9):
+        for q in (p + 1, p + 2, p + 3):
+            basis = Basis1D.make(p, q, "gauss")
+            for elements in K3_SWEEP_SHAPES:
+                mesh = BrickMesh(elements, upper=(1.0, 0.9, 1.2))
+                geo = Geometry.from_mesh(mesh, basis)
+                for i, (grad, val) in enumerate(modes):
+                    gspec, vspec = _k3_specs(mesh, geo, grad, val, np.random.default_rng(100 * p + i))
+                    tabs = qgrid_tables_np(mesh, basis, gspec, vspec)
+                    for label, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+                        tables = QGridTables.from_numpy(tabs, dtype, DEVICE)
+                        for constrained in (False, True):
+                            _, rel, _ = _k3_compare(tables, label, constrained, seed=i)
+                            worst[label] = max(worst[label], rel)
+                            n += 1
+            print(f"phase 6: K3 p={p} q={q}, elements {', '.join(map(str, K3_SWEEP_SHAPES))}, {len(modes)} grad x "
+                  f"val modes, f64 and f32, raw and constrained: agree (worst rel err so far f64 {worst['f64']:.3e}, "
+                  f"f32 {worst['f32']:.3e})")
+    print(f"phase 6: K3 agrees with its plain version on {n} cases, NaN-filled outputs fully written")
+
+
+def _mapped52_qgrid(dtype):
+    """K3's tables in the sine-mapped 52^3 vmult (``scripts/bench_general``:
+    p = 3, Gauss q = 4, full6) at ``dtype``."""
+    from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, PoissonOperator, sine_map
+
+    space = FESpace.create(BrickMesh((MAPPED_VMULT,) * 3).deform(*sine_map(0.05)), 3, n_q=4, rule="gauss",
+                           dtype=dtype, device=DEVICE)
+    return PoissonOperator(space, backend="qgrid")._qgrid
 
 
 def phase6_k3_vs_plain():
+    """K3's ptxas report, the sweep, the test_pallas_qgrid cases; then K3
+    timed at step-64's refine-6 shape and the sine-mapped 52^3 full6 shape;
+    returns their records per precision."""
     import torch
 
     from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, HelmholtzOperator
-    from deal_and_ceed_on_gpu_torch.ops.qgrid import qgrid_apply, qgrid_apply_reference
+    from deal_and_ceed_on_gpu_torch.ops import qgrid
 
+    _ptxas("phase 6", "K3", qgrid.SOURCE, r"qgrid_kernelI([df])Li(\d+)ELi(\d+)ELb([01])E", K3_INSTANTIATIONS)
+    _k3_sweep()
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     for i, (elements, p, q, grad, val) in enumerate(K3_CASES):
         for label, dtype in dtypes.items():
@@ -485,21 +567,16 @@ def phase6_k3_vs_plain():
                 err, rel, _ = _k3_compare(tables, label, constrained, seed=i)
                 print(f"phase 6: elements {elements} p={p} q={q} grad={grad} val={val} {label} "
                       f"constrained={constrained}: max abs err {err:.3e} (rel {rel:.3e})")
-    main = {}
+    main, mapped = {}, {}
     mesh = BrickMesh.hyper_cube().refine_global(STEP64_MAIN)
     for label, dtype in dtypes.items():
         space = FESpace.create(mesh, 3, rule="gauss", dtype=dtype, device=DEVICE)
-        tables = HelmholtzOperator(space, backend="qgrid")._qgrid
-        for constrained in (False, True):
-            err, rel, u = _k3_compare(tables, label, constrained, seed=7)
-        ms = _time_ms(lambda: qgrid_apply(u, tables, True))
-        plain_ms = _time_ms(lambda: qgrid_apply_reference(u, tables, True), n=5)
-        bound_ms, bound_by, ideal = _k3_bound_ms(tables, label)
-        print(f"phase 6: step-64 refine {STEP64_MAIN} grid {tables.shape} q grid {tables.q_shape} {label}: "
-              f"max abs err {err:.3e} (rel {rel:.3e}); K3 {ms:.4f} ms ({ideal / ms / 1e6:.1f} GB/s of ideal "
-              f"traffic), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    return main
+        main[label] = _k3_time(HelmholtzOperator(space, backend="qgrid")._qgrid, label,
+                               f"step-64 refine {STEP64_MAIN}")
+        del space
+    for label, dtype in dtypes.items():
+        mapped[label] = _k3_time(_mapped52_qgrid(dtype), label, f"sine-mapped {MAPPED_VMULT}^3 full6")
+    return main, mapped
 
 
 def _step64(n_refine, **kw):
@@ -870,6 +947,11 @@ def phase16_fused_timing():
         print(f"phase 16: cycle {MAIN_CYCLE} {label} stencil {mode:10s} {tp:.6g} DoF/s ({n * 1e3 / tp:.4f} ms per iteration)")
 
 
+# K6's checks: several tiles, nz below one z range and ny below one tile
+# with an odd nx, an odd nx over several tiles, one point
+K6_SHAPES = ((21, 37, 70), (5, 9, 481), (3, 40, 33), (1, 1, 1))
+
+
 def phase17_k6_and_budget():
     import torch
 
@@ -878,6 +960,31 @@ def phase17_k6_and_budget():
     from deal_and_ceed_on_gpu_torch.ops.copy import copy_probe, copy_reference
     from deal_and_ceed_on_gpu_torch.scripts import exp_solver_budget
 
+    n = 0
+    for shape in K6_SHAPES:
+        for halo in range(copy.MAX_HALO + 1):
+            for label, dtype, stream in PRECISIONS:
+                src = _grid_tensor(shape, getattr(torch, dtype), seed=halo).to(getattr(torch, stream or dtype))
+                got = copy_probe(src, halo, out=torch.full_like(src, float("nan")))
+                torch.cuda.synchronize()
+                if not torch.equal(got, copy_reference(src)):
+                    raise AssertionError(f"K6 disagrees with 2 * src: grid {shape} halo {halo} {label}")
+                n += 1
+    shape, size = K6_SHAPES[0], math.prod(K6_SHAPES[0])
+    for label, dtype, stream in PRECISIONS:
+        base = _grid_tensor((size + 8,), getattr(torch, dtype), seed=1).to(getattr(torch, stream or dtype))
+        for so, do in ((1, 0), (0, 1), (1, 1), (3, 0)):  # views off a 16-byte boundary, alike or not
+            buf = torch.full_like(base, float("nan"))
+            src, dst = base[so : so + size].view(shape), buf[do : do + size].view(shape)
+            copy_probe(src, DEGREE, out=dst)
+            torch.cuda.synchronize()
+            if not (torch.equal(dst, copy_reference(src)) and bool(torch.isnan(buf[:do]).all())
+                    and bool(torch.isnan(buf[do + size :]).all())):
+                raise AssertionError(f"K6 disagrees with 2 * src on views at offsets {so}, {do} ({label})")
+            n += 1
+    print(f"phase 17: K6 equal to 2 src (bitwise, from NaN-filled outputs) on {n} cases: grids "
+          f"{', '.join(map(str, K6_SHAPES))}, halo 0..{copy.MAX_HALO}, f64 / f32 / bf16, and views at offsets "
+          f"off a 16-byte boundary")
     mx, my, mz = BrickMesh.bp5_cycle(MAIN_CYCLE).n_elements
     grid = (mz * DEGREE + 1, my * DEGREE + 1, mx * DEGREE + 1)
     main = {}
@@ -896,8 +1003,10 @@ def phase17_k6_and_budget():
         traffic = 2 * src.numel() * src.element_size()
         bound_ms, bound_by = _bound_ms(traffic, src.numel(), label)
         print(f"phase 17: K6, grid {grid} halo {DEGREE} {label}: equal to 2 src; kernel {ms:.4f} ms "
-              f"({traffic / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, torch.mul {library_ms:.4f} ms "
-              f"({traffic / library_ms / 1e6:.1f} GB/s), bound {bound_ms:.4f} ms ({bound_by})")
+              f"({traffic / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f} % of the bound), plain {plain_ms:.4f} ms, "
+              f"torch.mul {library_ms:.4f} ms ({traffic / library_ms / 1e6:.1f} GB/s), bound {bound_ms:.4f} ms "
+              f"({bound_by}; src + dst {traffic / 1e6:.1f} MB against the 50 MB L2: a time below the bound is "
+              f"L2, not HBM)")
         main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=library_ms)
         del src, dst, want
@@ -1248,40 +1357,40 @@ def _k4_check(k, label, u, got):
     return err, rel
 
 
-def _k4_ptxas():
-    """K4's ptxas report (``-Xptxas -v`` in the build log): one line per
-    precision and kernel (full6, or the other modes), ``p/q:registers`` per
-    instantiation, and every instantiation with a stack frame or spill
-    stores. Fails unless all K4_INSTANTIATIONS are in the report, none with
-    a stack frame or spill stores."""
+def _ptxas(tag, name, source, pattern, want):
+    """A kernel's ptxas report (``-Xptxas -v`` in its build log): one line
+    per precision and instantiation kind (``pattern`` captures the type,
+    p, q and the full6 flag), ``p/q:registers`` per instantiation, and every
+    instantiation with a stack frame or spill stores. Fails unless all
+    ``want`` instantiations are in the report, none with a stack frame or
+    spill stores."""
     import re
 
-    from deal_and_ceed_on_gpu_torch.ops import general
     from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
 
-    report, name = {}, None
-    for line in build_library(general.SOURCE).with_suffix(".log").read_text().splitlines():
-        m = re.search(r"general_kernelI([df])Li(\d+)ELi(\d+)ELb([01])E", line)
+    report, key = {}, None
+    for line in build_library(source).with_suffix(".log").read_text().splitlines():
+        m = re.search(pattern, line)
         if "Compiling entry function" in line or "Function properties for" in line:
-            name = (m.group(1), int(m.group(2)), int(m.group(3)), m.group(4) == "1") if m else None
-        elif name and "bytes stack frame" in line:
+            key = (m.group(1), int(m.group(2)), int(m.group(3)), m.group(4) == "1") if m else None
+        elif key and "bytes stack frame" in line:
             stack, spill = (int(x) for x in re.findall(r"(\d+) bytes (?:stack frame|spill stores)", line))
-            report.setdefault(name, {}).update(stack=stack, spill=spill)
-        elif name and "registers" in line:
-            report.setdefault(name, {})["regs"] = int(line.split("Used ")[1].split()[0])
+            report.setdefault(key, {}).update(stack=stack, spill=spill)
+        elif key and "registers" in line:
+            report.setdefault(key, {})["regs"] = int(line.split("Used ")[1].split()[0])
     for dt, label in (("d", "f64"), ("f", "f32")):
         for full6 in (True, False):
             keys = sorted(k for k in report if k[0] == dt and k[3] == full6)
-            print(f"phase 22: ptxas K4 {label} {'full6' if full6 else 'const/diag3/value'}: " + " ".join(
+            print(f"{tag}: ptxas {name} {label} {'full6' if full6 else 'const/diag3/value'}: " + " ".join(
                 f"{p}/{q}:{report[k].get('regs')}" for k in keys for p, q in [k[1:3]]))
     bad = [(k, v) for k, v in sorted(report.items()) if v.get("stack") or v.get("spill")]
-    print(f"phase 22: ptxas K4: {len(report)} instantiations, {len(bad)} with a stack frame or spill stores"
+    print(f"{tag}: ptxas {name}: {len(report)} instantiations, {len(bad)} with a stack frame or spill stores"
           + "".join(f"; {k}: {v}" for k, v in bad))
-    if len(report) != K4_INSTANTIATIONS or any("regs" not in v for v in report.values()):
-        raise AssertionError(f"K4's ptxas report names {len(report)} instantiations with registers, "
-                             f"want {K4_INSTANTIATIONS}: the build log no longer matches general_kernel<T, P, Q, FULL6>")
+    if len(report) != want or any("regs" not in v for v in report.values()):
+        raise AssertionError(f"{name}'s ptxas report names {len(report)} instantiations with registers, want {want}: "
+                             f"the build log no longer matches {pattern}")
     if bad:
-        raise AssertionError(f"K4 spills or keeps a stack frame in {len(bad)} instantiations")
+        raise AssertionError(f"{name} spills or keeps a stack frame in {len(bad)} instantiations")
 
 
 def _k4_alternating():
@@ -1356,10 +1465,11 @@ def phase22_k4_vs_plain():
     import torch
 
     from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.ops import general
     from deal_and_ceed_on_gpu_torch.ops.general import general_apply_reference
     from deal_and_ceed_on_gpu_torch.scripts.bench_k4 import k4_shapes
 
-    _k4_ptxas()
+    _ptxas("phase 22", "K4", general.SOURCE, r"general_kernelI([df])Li(\d+)ELi(\d+)ELb([01])E", K4_INSTANTIATIONS)
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     modes = [(g, v) for g in (None, "const", "diag3", "full6") for v in (None, "const", "table") if g or v]
     worst = {label: 0.0 for label in dtypes}
@@ -1491,21 +1601,23 @@ def phase25_step64_general():
 
 def phase26_main_path():
     """Path 2: the sine-mapped 52^3 vmult and BP3 on K4, K3, the plain
-    loop; returns K4's launches per precision (f64, f32) and in BP3."""
+    loop; returns K4's launches per precision (f64, f32) and in BP3, and
+    K3's per precision."""
     import torch
 
     from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, sine_map
-    from deal_and_ceed_on_gpu_torch.ops import general
+    from deal_and_ceed_on_gpu_torch.ops import general, qgrid
     from deal_and_ceed_on_gpu_torch.scripts.bench_general import run
 
-    launches = {}
+    launches, k3_launches = {}, {}
     for label, dtype in (("f64", "float64"), ("f32", "float32")):
-        general.LAUNCHES = 0
+        general.LAUNCHES = qgrid.LAUNCHES = 0
         out = run(MAPPED_VMULT, (dtype,), bp3_elements=0, split=True, device=DEVICE)
-        launches[label] = general.LAUNCHES
-        print(f"phase 26: {label}: K4 launches {launches[label]}")
-        if launches[label] == 0 or not all(v > 0 for k, v in out.items() if k[0] != "split"):
-            raise AssertionError(f"phase 26: the {label} main path never launched K4")
+        launches[label], k3_launches[label] = general.LAUNCHES, qgrid.LAUNCHES
+        print(f"phase 26: {label}: K4 launches {launches[label]}, K3 launches {k3_launches[label]}")
+        if launches[label] == 0 or k3_launches[label] == 0 or not all(v > 0 for k, v in out.items()
+                                                                        if k[0] != "split"):
+            raise AssertionError(f"phase 26: the {label} main path never launched K4 or K3")
     bp3 = {}
     for label, dtype in (("f64", "float64"), ("f32", "float32")):
         general.LAUNCHES = 0
@@ -1514,7 +1626,7 @@ def phase26_main_path():
     space = FESpace.create(BrickMesh((MAPPED_VMULT,) * 3).deform(*sine_map(0.05)), 3, n_q=4, rule="gauss",
                            dtype=torch.float64, device=DEVICE)
     _helmholtz_k4_vs_k3("phase 26", space)
-    return launches, bp3
+    return launches, bp3, k3_launches
 
 
 def phase27_profile():
@@ -1541,7 +1653,7 @@ def main():
     launches = phase3_main_path()
     phase4_golden()
     phase5_timing()
-    k3 = phase6_k3_vs_plain()
+    k3, k3_mapped = phase6_k3_vs_plain()
     phase7_step64_golden()
     k3_launches = phase8_main_path()
     phase9_comparator()
@@ -1561,7 +1673,7 @@ def main():
     phase23_mapped_golden()
     k4_launches = {"f64": phase24_main_path()}
     k4_step64_launches = phase25_step64_general()
-    k4_vmult_launches, k4_bp3_launches = phase26_main_path()
+    k4_vmult_launches, k4_bp3_launches, k3_mapped_launches = phase26_main_path()
     k4_launches["f32"] = k4_vmult_launches["f32"]
     phase27_profile()
     import torch
@@ -1585,7 +1697,16 @@ def main():
             "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_qgrid.py:347",
             "launches": k3_launches[label],
             **k3[label],
-            "library_ms": None,
+        }
+        for label in ("f64", "f32")
+    ] + [
+        {
+            "name": f"qgrid_k3_mapped52_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/qgrid.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_qgrid.py:347",
+            "launches": k3_mapped_launches[label],
+            **k3_mapped[label],
         }
         for label in ("f64", "f32")
     ] + [

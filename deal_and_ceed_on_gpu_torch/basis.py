@@ -26,7 +26,17 @@ __all__ = [
     "lagrange_eval",
     "Basis1D",
     "basis_tables_3d",
+    "is_symmetric_rule",
 ]
+
+
+def is_symmetric_rule(S: np.ndarray, D: np.ndarray) -> bool:
+    """Whether 1D tables ``S``, ``D`` ``[q, p+1]`` come from a symmetric
+    rule, ``S[q-1-a, p-i] = S[a, i]`` and ``D[q-1-a, p-i] = -D[a, i]``
+    (Gauss, GLL), to 1e-12 of their largest entry: the even-odd sweeps of
+    the CUDA kernels K3 and K4 need it."""
+    tol = 1e-12 * max(1.0, float(np.abs(S).max()), float(np.abs(D).max()))
+    return bool(np.abs(S[::-1, ::-1] - S).max() <= tol and np.abs(D[::-1, ::-1] + D).max() <= tol)
 
 
 def basis_tables_3d(basis: "Basis1D") -> tuple[np.ndarray, np.ndarray]:

@@ -39,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..basis import is_symmetric_rule
 from . import local_global as lg
 from .sum_factorization import full_f32
 
@@ -141,10 +142,8 @@ class GeneralCellKernel:
                 np.array(a, dtype=np.float64), dtype=dtype, device=device))
         # the 1D tables stay in host memory: the kernel takes them by value with each launch
         self.S_host, self.D_host = (np.array(tabs[n], dtype=np.float64, order="C") for n in ("S", "D"))
-        # its even-odd sweeps need symmetric rules (Gauss, GLL): S[q-1-a, p-i] = S[a, i], D antisymmetric
-        S, D = self.S_host, self.D_host
-        tol = 1e-12 * max(1.0, float(np.abs(S).max()), float(np.abs(D).max()))
-        self.symmetric = bool(np.abs(S[::-1, ::-1] - S).max() <= tol and np.abs(D[::-1, ::-1] + D).max() <= tol)
+        # its even-odd sweeps need symmetric rules (Gauss, GLL)
+        self.symmetric = is_symmetric_rule(self.S_host, self.D_host)
 
     @property
     def n_local(self) -> int:

@@ -25,9 +25,11 @@ element ``(ez, ey, ex)``, q point ``(rz, ry, rx)`` at ``[ez*q+rz, ey*q+ry,
 ex*q+rx]``. That is the TPU's ``[K, ZQ, YQ, MXQ]`` without its block and
 128-lane padding (``utils/convert.qgrid_tables_from_jax`` slices it).
 
-``qgrid_apply`` launches the CUDA kernel (``csrc/qgrid.cu``) for a CUDA
-tensor and calls the plain version ``qgrid_apply_reference`` for a CPU
-tensor; ``LAUNCHES`` counts kernel launches. ``constrained=True`` is the
+``qgrid_apply`` launches the CUDA kernel (``csrc/qgrid.cu``: even-odd
+sweeps in registers, the 1D ``S``/``D``/``w`` tables passed by value with
+each launch from host memory, ``S_host``/``D_host``/``w_host``; symmetric
+rules only, ``QGridTables.symmetric``) for a CUDA tensor and calls the
+plain version ``qgrid_apply_reference`` for a CPU tensor; ``LAUNCHES`` counts kernel launches. ``constrained=True`` is the
 operator's ``vmult``: ``M A M`` plus identity rows on the six boundary
 faces, in the one launch. f32 products in the plain version run in full
 f32 (``sum_factorization.sweep`` scopes ``full_f32`` to each product).
@@ -42,6 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..basis import is_symmetric_rule
 from .sum_factorization import sweep
 
 __all__ = [
@@ -130,21 +133,25 @@ def _block_matrix(m: int, p: int, M: np.ndarray) -> np.ndarray:
 
 @dataclasses.dataclass
 class QGridTables:
-    """K3's device tables. ``fold_scale`` rescales the coefficients the
-    kernel reads, in place."""
+    """K3's tables: the 1D tables in host memory (the only copy: the kernel
+    takes them by value with each launch, the plain version builds its dense
+    matrices from them), the coefficient streams on the device.
+    ``fold_scale`` rescales the coefficients the kernel reads, in place."""
 
     p: int
     q: int
     n_elements: tuple[int, int, int]  # (mx, my, mz)
-    S: torch.Tensor  # [q, p+1]
-    D: torch.Tensor  # [q, p+1]
-    w: torch.Tensor  # [q]
+    S_host: np.ndarray  # [q, p+1] float64
+    D_host: np.ndarray  # [q, p+1] float64
+    w_host: np.ndarray  # [q] float64
     grad_kind: int
     val_kind: int
     c_grad: tuple[float, float, float]
     c_val: float
     C: torch.Tensor | None  # [K, mz*q, my*q, mx*q]
     a_q: torch.Tensor | None  # [mz*q, my*q, mx*q]
+    dtype: torch.dtype
+    device: torch.device
     _dense: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @staticmethod
@@ -152,11 +159,24 @@ class QGridTables:
         def dev(a):
             return None if a is None else torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype, device=device)
 
+        def host(a):
+            return np.array(a, dtype=np.float64, order="C")
+
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:  # as a tensor's device reads
+            device = torch.device("cuda", torch.cuda.current_device())
+
         return QGridTables(
-            tabs["p"], tabs["q"], tuple(tabs["n_elements"]), dev(tabs["S"]), dev(tabs["D"]), dev(tabs["w"]),
+            tabs["p"], tabs["q"], tuple(tabs["n_elements"]), host(tabs["S"]), host(tabs["D"]), host(tabs["w"]),
             int(tabs["grad_kind"]), int(tabs["val_kind"]), tuple(float(c) for c in tabs["c_grad"]),
-            float(tabs["c_val"]), dev(tabs["C"]), dev(tabs["a_q"]),
+            float(tabs["c_val"]), dev(tabs["C"]), dev(tabs["a_q"]), dtype, device,
         )
+
+    @property
+    def symmetric(self) -> bool:
+        """Whether the rule is symmetric (``basis.is_symmetric_rule``): the
+        CUDA kernel's even-odd sweeps need it."""
+        return is_symmetric_rule(self.S_host, self.D_host)
 
     @staticmethod
     def create(mesh, basis, dtype: torch.dtype, grad=None, val=None, device="cuda") -> "QGridTables":
@@ -173,14 +193,6 @@ class QGridTables:
         mx, my, mz = self.n_elements
         return (mz * self.q, my * self.q, mx * self.q)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.S.dtype
-
-    @property
-    def device(self) -> torch.device:
-        return self.S.device
-
     def fold_scale(self, s: float) -> None:
         """``A <- s * A`` (identity rows of the constrained apply unaffected)."""
         self.c_grad = tuple(c * s for c in self.c_grad)
@@ -196,9 +208,12 @@ class QGridTables:
         if key not in self._dense:
             mx, my, mz = self.n_elements
             m = (mz, my, mx)[axis]
-            M = (self.S if kind[0] == "S" else self.D).cpu().double().numpy()
+            def rounded(a):  # to the compute type, as the kernel rounds its tables
+                return torch.as_tensor(a).to(self.dtype).double().numpy()
+
+            M = rounded(self.S_host if kind[0] == "S" else self.D_host)
             if kind.endswith("W"):
-                M = M * self.w.cpu().double().numpy()[:, None]
+                M = M * rounded(self.w_host)[:, None]
             self._dense[key] = torch.as_tensor(_block_matrix(m, self.p, M), dtype=self.dtype, device=self.device)
         return self._dense[key]
 
@@ -213,8 +228,9 @@ def _check(u: torch.Tensor, tables: QGridTables) -> int:
     if u.device != tables.device:
         raise ValueError(f"qgrid: u on {u.device}, tables on {tables.device}")
     p1 = tables.p + 1
-    if tuple(tables.S.shape) != (tables.q, p1) or tuple(tables.D.shape) != (tables.q, p1):
-        raise ValueError(f"qgrid: basis tables are not [{tables.q}, {p1}]")
+    if tables.S_host.shape != (tables.q, p1) or tables.D_host.shape != (tables.q, p1) or tables.w_host.shape != (
+            tables.q,):
+        raise ValueError(f"qgrid: basis tables are not [{tables.q}, {p1}] and [{tables.q}]")
     if tables.grad_kind in _GRAD_PLANES:
         want = (_GRAD_PLANES[tables.grad_kind],) + tables.q_shape
         if tables.C is None or tuple(tables.C.shape) != want:
@@ -222,7 +238,7 @@ def _check(u: torch.Tensor, tables: QGridTables) -> int:
     if tables.val_kind == 2 and (tables.a_q is None or tuple(tables.a_q.shape) != tables.q_shape):
         raise ValueError(f"qgrid: val table is not {list(tables.q_shape)}")
     streams = [t for t in (tables.C, tables.a_q) if t is not None]
-    if not all(t.is_contiguous() and t.dtype == u.dtype for t in [u, tables.S, tables.D, tables.w, *streams]):
+    if not all(t.is_contiguous() and t.dtype == u.dtype for t in [u, *streams]):
         raise ValueError("qgrid: u and the tables must be contiguous and of u's dtype")
     return code
 
@@ -287,7 +303,7 @@ def qgrid_apply_reference(u: torch.Tensor, tables: QGridTables, constrained: boo
 
 
 _ARGTYPES = (
-    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7 + [ctypes.c_double] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_double] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
 )
 
 
@@ -300,19 +316,32 @@ def _launcher():
     return fn
 
 
-def qgrid_apply(u: torch.Tensor, tables: QGridTables, constrained: bool = False) -> torch.Tensor:
+def qgrid_apply(u: torch.Tensor, tables: QGridTables, constrained: bool = False,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """``out = K3(u)`` on a ``[nz, ny, nx]`` tensor (``constrained``: the
     operator's ``M A M`` plus identity rows): the CUDA kernel for a CUDA
-    tensor (raises if it cannot launch), the plain version for a CPU tensor.
-    The output is a new tensor of ``u``'s dtype."""
+    tensor (raises if it cannot launch; it takes symmetric rules only,
+    ``QGridTables.symmetric``), the plain version for a CPU tensor. ``out``
+    (optional, ``u``'s shape, dtype and device, not overlapping ``u``)
+    receives the result; the kernel writes every entry of it."""
     global LAUNCHES
     code = _check(u, tables)
+    if out is not None and (out.shape != u.shape or out.dtype != u.dtype or out.device != u.device
+                            or not out.is_contiguous()):
+        raise ValueError("qgrid: out must be a contiguous tensor of u's shape, dtype and device")
     if u.device.type == "cpu":
-        return qgrid_apply_reference(u, tables, constrained)
+        w = qgrid_apply_reference(u, tables, constrained)
+        return w if out is None else out.copy_(w)
     if u.device.type != "cuda":
         raise ValueError(f"qgrid: unsupported device {u.device}")
+    if not tables.symmetric:
+        raise ValueError("qgrid: the CUDA kernel needs a symmetric 1D rule (Gauss or GLL): S[q-1-a, p-i] = S[a, i], "
+                         "D[q-1-a, p-i] = -D[a, i]")
+    if out is None:
+        out = torch.empty_like(u)
+    elif out.data_ptr() == u.data_ptr():
+        raise ValueError("qgrid: out aliases u (other blocks read the nodes a block writes)")
     launch = _launcher()
-    out = torch.empty_like(u)
     mx, my, mz = tables.n_elements
     cx, cy, cz = tables.c_grad
 
@@ -322,9 +351,9 @@ def qgrid_apply(u: torch.Tensor, tables: QGridTables, constrained: bool = False)
     with torch.cuda.device(u.device):
         rc = launch(
             code, tables.p, tables.q, tables.grad_kind, tables.val_kind, int(constrained),
-            u.data_ptr(), out.data_ptr(), tables.S.data_ptr(), tables.D.data_ptr(), tables.w.data_ptr(),
-            ptr(tables.C), ptr(tables.a_q), cx, cy, cz, tables.c_val, mx, my, mz,
-            torch.cuda.current_stream(u.device).cuda_stream,
+            u.data_ptr(), out.data_ptr(), ptr(tables.C), ptr(tables.a_q), cx, cy, cz, tables.c_val, mx, my, mz,
+            torch.cuda.current_stream(u.device).cuda_stream, tables.S_host.ctypes.data, tables.D_host.ctypes.data,
+            tables.w_host.ctypes.data,
         )
     if rc != 0:
         raise RuntimeError(f"qgrid kernel launch failed: cudaError {rc}")

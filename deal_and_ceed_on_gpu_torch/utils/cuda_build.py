@@ -3,7 +3,8 @@
 The port's kernels are hand-written CUDA C++ under ``csrc/`` with a plain C
 launcher each (no PyTorch headers), compiled by ``nvcc`` for Hopper
 (``sm_90a``) and bound with ``ctypes``. A library is built once per source
-content: its file name carries a hash of the source and the flags, under
+content: its file name carries a hash of the source, the headers beside it
+(``csrc/*.cuh``, which a source may include) and the flags, under
 ``build/torch_kernels/`` at the root of the checkout, so an edited source
 is rebuilt and an unchanged one is reused. Nothing here runs at import:
 importing the port needs neither ``nvcc`` nor a card.
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "load_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "load_library", "source_digest"]
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -43,15 +44,22 @@ def _nvcc() -> str:
     )
 
 
+def source_digest(source: Path) -> str:
+    """The hash a library's file name carries: the source, every header
+    beside it (``*.cuh``, which it may include) and the flags."""
+    source = Path(source)
+    headers = sorted(source.parent.glob("*.cuh"))
+    return hashlib.sha256(
+        b"".join(f.read_bytes() for f in [source, *headers]) + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+
+
 def build_library(source: Path) -> Path:
     """Compile ``source`` (if not built yet) and return the library path.
     The ``nvcc`` output, ``-Xptxas -v`` included, is kept beside it as
     ``<library>.log``."""
     source = Path(source)
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"{source.stem}-{digest}.so"
+    lib = BUILD_DIR / f"{source.stem}-{source_digest(source)}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

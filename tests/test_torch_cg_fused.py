@@ -233,14 +233,17 @@ def test_k5_matches_plain_on_card(cuda_device, p, value, storage, compute, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("halo", [0, 5, 8])
+@pytest.mark.parametrize("halo", range(copy.MAX_HALO + 1))
 def test_k6_matches_plain_on_card(cuda_device, dtype, halo):
-    src = torch.as_tensor(np.random.default_rng(halo).standard_normal((21, 37, 70)), device=cuda_device).to(dtype)
-    before = copy.LAUNCHES
-    got = copy.copy_probe(src, halo, out=torch.full_like(src, float("nan")))
-    torch.cuda.synchronize()
-    assert copy.LAUNCHES == before + 1
-    assert torch.equal(got, copy.copy_reference(src))
+    """Bitwise from a NaN-filled output: several tiles, an odd nx, ny below
+    one tile and nz below one z range, one point."""
+    for shape in ((21, 37, 70), (5, 9, 481), (3, 40, 33), (1, 1, 1)):
+        src = torch.as_tensor(np.random.default_rng(halo).standard_normal(shape), device=cuda_device).to(dtype)
+        before = copy.LAUNCHES
+        got = copy.copy_probe(src, halo, out=torch.full_like(src, float("nan")))
+        torch.cuda.synchronize()
+        assert copy.LAUNCHES == before + 1
+        assert torch.equal(got, copy.copy_reference(src)), shape
 
 
 @pytest.mark.cuda
@@ -253,6 +256,38 @@ def test_fused_solver_matches_merged_on_card(cuda_device):
     xf, i_f = pt.solve_cg_fused(op, b, ctrl)
     assert abs(i_f["n_iterations"] - im["n_iterations"]) <= 1
     assert float(torch.linalg.vector_norm(xf - xm) / torch.linalg.vector_norm(xm)) < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_k6_on_unaligned_views_on_card(cuda_device, dtype):
+    """src and dst views that start off a 16-byte boundary, alike or not:
+    bitwise, and nothing written outside dst."""
+    shape, n = (21, 37, 70), 21 * 37 * 70
+    for so, do in ((1, 0), (0, 1), (1, 1), (3, 0)):
+        base = torch.as_tensor(np.random.default_rng(so).standard_normal(n + 8), device=cuda_device).to(dtype)
+        buf = torch.full((n + 8,), float("nan"), dtype=dtype, device=cuda_device)
+        src, dst = base[so : so + n].view(shape), buf[do : do + n].view(shape)
+        for halo in (0, 5, 8):
+            copy.copy_probe(src, halo, out=dst)
+            torch.cuda.synchronize()
+            assert torch.equal(dst, copy.copy_reference(src)), (so, do, halo)
+            assert bool(torch.isnan(buf[:do]).all() and torch.isnan(buf[do + n :]).all())
+
+
+def test_build_hash_covers_the_headers(tmp_path):
+    """An edited header beside a source gives its library a new name, so a
+    stale build is never reused (K3 and K4 share csrc/sweeps.cuh)."""
+    from deal_and_ceed_on_gpu_torch.utils.cuda_build import source_digest
+
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = source_digest(src)
+    assert source_digest(src) == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert source_digest(src) != first
+    assert (copy.SOURCE.parent / "sweeps.cuh").exists()
 
 
 def test_copy_probe_plain_on_cpu():

@@ -165,23 +165,117 @@ def cuda_device():
     return torch.device("cuda")
 
 
+MODES = [(g, v) for g in (None, "const", "diag3", "full6") for v in (None, "const", "table") if g or v]
+# bricks (mx, my, mz): tiles of unequal widths (9 and 11 exceed every tile
+# width), mx and my below the tile width, and a 1-element brick
+CARD_SHAPES = ((9, 4, 3), (2, 11, 5), (1, 1, 1))
+
+
+def _random_tables(shape, p, q, grad, val, dtype, device, seed):
+    """Tables with random positive diag3/full6/value streams (full6
+    diagonally dominant) and const terms from the geometry."""
+    rng = np.random.default_rng(seed)
+    mesh = pt.BrickMesh(shape, upper=(1.0, 0.9, 1.2))
+    basis = pt.Basis1D.make(p, q, "gauss")
+    geo = pt.Geometry.from_mesh(mesh, basis)
+    cells = (mesh.n_cells, q**3)
+    gspec = vspec = None
+    if grad == "const":
+        gspec = ("const", geo.const_merged_diag)
+    elif grad == "diag3":
+        gspec = ("diag3", 0.5 + rng.random(cells + (3,)))
+    elif grad == "full6":
+        c = 0.2 * rng.random(cells + (6,))
+        c[..., (0, 3, 5)] += 1.0
+        gspec = ("full6", c)
+    if val == "const":
+        vspec = ("const", 2.0 * geo.det_j)
+    elif val == "table":
+        vspec = ("table", (0.5 + rng.random(cells)) * geo.det_q_full())
+    return qg.QGridTables.create(mesh, basis, dtype, grad=gspec, val=vspec, device=device)
+
+
+def test_out_buffer_receives_the_result():
+    t = _tables()
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(t.shape))
+    out = torch.full_like(u, float("nan"))
+    got = qg.qgrid_apply(u, t, constrained=True, out=out)
+    assert got is out
+    assert torch.equal(out, qg.qgrid_apply_reference(u, t, constrained=True))
+    with pytest.raises(ValueError):
+        qg.qgrid_apply(u, t, out=torch.empty(t.shape, dtype=torch.float32))
+    with pytest.raises(ValueError):
+        qg.qgrid_apply(u, t, out=torch.empty(t.shape[::-1], dtype=torch.float64))
+
+
+@pytest.mark.parametrize("p", range(1, qg.MAX_DEGREE + 1))
+def test_every_rule_the_kernel_is_built_for_is_symmetric(p):
+    """The CUDA kernel's even-odd sweeps need S[q-1-a, p-i] = S[a, i] and
+    D[q-1-a, p-i] = -D[a, i]: every Gauss rule it is built for."""
+    for qoff in qg.Q_OFFSETS:
+        t = qg.QGridTables.create(pt.BrickMesh((2, 2, 2)), pt.Basis1D.make(p, p + qoff, "gauss"), torch.float64,
+                                  val=("const", 1.0), device="cpu")
+        assert t.symmetric, qoff
+
+
+def test_asymmetric_tables_are_flagged_and_run_plain_on_cpu():
+    t = _tables()
+    t.D_host = t.D_host.copy()
+    t.D_host[0, 1] += 1e-3
+    assert not t.symmetric
+    u = torch.as_tensor(np.random.default_rng(6).standard_normal(t.shape))
+    assert torch.equal(qg.qgrid_apply(u, t), qg.qgrid_apply_reference(u, t))
+
+
+def test_plain_version_reads_the_host_tables_rounded_to_its_dtype():
+    """The 1D tables live in host memory only; the plain version's dense
+    matrices are built from them, rounded to the compute type as the kernel
+    rounds them."""
+    t = _tables(dtype=torch.float32)
+    assert isinstance(t.S_host, np.ndarray) and t.S_host.dtype == np.float64
+    m = t.axis_matrix(2, "SW")
+    assert m.dtype == torch.float32
+    q, p1 = t.S_host.shape
+    S = torch.as_tensor(t.S_host).float().double().numpy()
+    w = torch.as_tensor(t.w_host).float().double().numpy()
+    np.testing.assert_array_equal(m[:q, :p1].double().numpy(), torch.as_tensor(S * w[:, None]).float().double().numpy())
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K3 is CUDA C++ with no CPU mode")
+    return torch.device("cuda")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("constrained", [False, True])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("shape,p,qoff,grad,val", [
-    ((3, 9, 5), 3, 1, "const", "table"),
-    ((2, 17, 4), 5, 2, "const", None),
-    ((4, 3, 5), 2, 1, None, "const"),
-])
-def test_kernel_matches_reference_on_card(cuda_device, shape, p, qoff, grad, val, dtype, tol, constrained):
-    t = _tables(shape, p, qoff, grad, val, dtype, cuda_device)
-    u = torch.as_tensor(np.random.default_rng(p).standard_normal(t.shape), dtype=dtype, device=cuda_device)
-    before = qg.LAUNCHES
-    got = qg.qgrid_apply(u, t, constrained)
-    torch.cuda.synchronize()
-    assert qg.LAUNCHES == before + 1
-    want = qg.qgrid_apply_reference(u, t, constrained)
-    assert float((got - want).abs().max() / want.abs().max()) <= tol
-    if constrained:
-        face = qg._face_mask(t.shape, u.device)
-        assert torch.equal(got[face], u[face])
+@pytest.mark.parametrize("p,qoff", [(p, qoff) for p in range(1, qg.MAX_DEGREE + 1) for qoff in qg.Q_OFFSETS])
+def test_kernel_matches_reference_on_card(cuda_device, p, qoff, dtype, tol):
+    """Every grad x val mode, raw and constrained, on CARD_SHAPES, from a
+    NaN-filled output: relative error to the plain version, identity faces
+    bitwise, one launch a call."""
+    for shape in CARD_SHAPES:
+        for i, (grad, val) in enumerate(MODES):
+            t = _random_tables(shape, p, p + qoff, grad, val, dtype, cuda_device, seed=i)
+            u = torch.as_tensor(np.random.default_rng(p + i).standard_normal(t.shape), dtype=dtype, device=cuda_device)
+            for constrained in (False, True):
+                before = qg.LAUNCHES
+                got = qg.qgrid_apply(u, t, constrained, out=torch.full_like(u, float("nan")))
+                torch.cuda.synchronize()
+                assert qg.LAUNCHES == before + 1
+                want = qg.qgrid_apply_reference(u, t, constrained)
+                assert bool(torch.isfinite(got).all()), (shape, grad, val, constrained)
+                assert float((got - want).abs().max() / want.abs().max()) <= tol, (shape, grad, val, constrained)
+                if constrained:
+                    face = qg._face_mask(t.shape, u.device)
+                    assert torch.equal(got[face], u[face])
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_asymmetric_tables_on_card(cuda_device):
+    t = _tables(device=cuda_device)
+    t.S_host = t.S_host.copy()
+    t.S_host[1, 0] += 1e-3
+    with pytest.raises(ValueError, match="symmetric"):
+        qg.qgrid_apply(torch.zeros(t.shape, dtype=torch.float64, device=cuda_device), t)
