@@ -62,12 +62,17 @@ anything does not build, launch, agree or converge. Phases:
     one z range, one point, three types), then beside ``torch.mul`` at the
     cycle-33 shape, then the port's ``scripts/exp_solver_budget.py`` lines
     (a)-(i) at cycle 33 with short chains (K6 must have launched);
-18. K2 (``csrc/banded.cu``) against ``banded_apply_reference``: the cases of
-    ``tests/test_pallas_banded.py`` (uniform and graded, stiffness and
-    mass, ``value_const``), then BP1 and BP3 at the main shape (32^3
-    elements, p = 5, q = 7), each with 1 and 3 components, in f64, f32 and
-    bf16 storage, from a NaN-filled output; at the main shape K2 and its
-    plain version are timed beside the bound;
+18. K2 (``csrc/banded.cu``) against ``banded_apply_reference``: the ptxas
+    registers of each of its 48 instantiations (fails if one is missing,
+    spills or keeps a stack frame); the cases of ``tests/test_pallas_banded.py``
+    (uniform and graded, stiffness and mass, ``value_const``), then every p
+    = 1..8, stiffness and mass, on bricks that are not a multiple of K2's
+    tile (several tiles and z ranges), graded with ``value_const``, one
+    element and after ``scale_``, each with 1 and 3 components, in f64, f32
+    and bf16 storage, from a NaN-filled output; then, at the main shapes of
+    ``scripts/bench_k2.py`` (BP1-BP4 and a graded BP3 at 32^3 elements, p =
+    5, q = 7), K2 timed beside its plain version, the bound,
+    ``torch.matmul(U, M_loc / A_loc)`` (BP1, BP3) and K4 (BP3);
 19. K1 with 3 components against three 1-component launches (bitwise) and
     its plain twin, small shapes and the BP6 main shape, three precisions;
 20. the BP1-BP6 goldens of the JAX reference at 4^3 elements, p = 3, f64,
@@ -557,7 +562,8 @@ def phase6_k3_vs_plain():
     from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, HelmholtzOperator
     from deal_and_ceed_on_gpu_torch.ops import qgrid
 
-    _ptxas("phase 6", "K3", qgrid.SOURCE, r"qgrid_kernelI([df])Li(\d+)ELi(\d+)ELb([01])E", K3_INSTANTIATIONS)
+    _ptxas("phase 6", "K3", qgrid.SOURCE, r"qgrid_kernelI([df])Li(\d+)ELi(\d+)ELb([01])E", K3_INSTANTIATIONS,
+           _ptxas_pq)
     _k3_sweep()
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     for i, (elements, p, q, grad, val) in enumerate(K3_CASES):
@@ -678,29 +684,38 @@ def phase11_profile():
              lambda: solve_cg(op.vmult, b, control)[0])
 
 
-def _profile(tag, n_it, solve):
-    """Run ``solve`` once to warm up, then once under ``torch.profiler``;
-    print the wall time, the device's busy time and share, and the device
-    time per iteration of the eight costliest kernels."""
+def _profile(tag, n_it, solve, repeats=1):
+    """Run ``solve`` once to warm up, then ``repeats`` times under
+    ``torch.profiler``; print each run's wall time, the device's busy time
+    and share (and their ranges), and the device time per iteration of the
+    last run's eight costliest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     solve()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solve()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events only (the CPU ops that launched them carry the
-    # same device time again)
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(t for _, t, _ in rows) / 1e6
-    print(f"{tag} under the profiler: wall {wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (busy share "
-          f"{busy / wall:.3f}; the profiler's own host cost makes the idle share an upper bound)")
+    readings = []
+    for _ in range(repeats):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device-side events only (the CPU ops that launched them carry the
+        # same device time again)
+        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(t for _, t, _ in rows) / 1e6
+        readings.append((wall, busy))
+        print(f"{tag} under the profiler: wall {wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (busy share "
+              f"{busy / wall:.3f}; the profiler's own host cost makes the idle share an upper bound)")
     head = tag.split(":")[0]
+    if repeats > 1:
+        shares = [b / w for w, b in readings]
+        print(f"{head}: over {repeats} profiles: wall {min(w for w, _ in readings) * 1e3:.3f}-"
+              f"{max(w for w, _ in readings) * 1e3:.3f} ms, device busy {min(b for _, b in readings) * 1e3:.3f}-"
+              f"{max(b for _, b in readings) * 1e3:.3f} ms, busy share {min(shares):.3f}-{max(shares):.3f}")
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"{head}:   {t / 1e3 / n_it:8.4f} ms/iteration  {n:5d} calls  {key[:90]}")
 
@@ -1032,6 +1047,7 @@ K2_CASES = (
     ((3, 4, 5), 4, 6, False, "mass", 3.0),
 )
 K2_TOL = {"f64": 1e-13, "f32": 1e-5, "bf16": 3e-2}  # of max|out|, as K1
+K2_INSTANTIATIONS = 3 * 8 * 2  # banded_kernel<S, C, P, STIFF>: f64/f32/bf16 storage, p = 1..8, stiffness or mass
 BP_DEGREE = 5
 BP_TARGET_DOFS = 4_000_000  # 32^3 elements at p = 5: 4,173,281 DoFs a component
 BP_ITERATIONS = 100
@@ -1088,50 +1104,127 @@ def _k2_compare(tables, label, stream, nc, seed):
     return err, rel, u
 
 
+def _k2_fma_per_point(p, stiff):
+    """Multiply-adds a point of K2, the fewer of its two forms: the band
+    form's 7(2p+1) (stiffness) or 3(2p+1) (mass), and the element form's that
+    csrc/banded.cu does, (5 mv + 2 (p+1)^2) / p or (2 mv + (p+1)^2) / p with
+    mv the multiply-adds of an even-odd line of p+1 times an element matrix
+    (32.4 and 14.4 at p = 5)."""
+    h = (p + 1) // 2
+    mv = 2 * h * h if p % 2 else 2 * h * h + 2 * h + 1
+    if stiff:
+        return min(7 * (2 * p + 1), (5 * mv + 2 * (p + 1) ** 2) / p)
+    return min(3 * (2 * p + 1), (2 * mv + (p + 1) ** 2) / p)
+
+
 def _k2_bound_ms(tables, u, label):
-    """The least time of one K2 apply: read u and the tables and write out
-    once each, or its multiply-adds (7(2p+1) a point for stiffness, 3(2p+1)
-    for mass) at the compute type's peak."""
-    nt = 2 * tables.p + 1
-    fma = (7 if tables.kind == "stiffness" else 3) * nt
-    n_bytes = 2 * u.numel() * u.element_size() + sum(t.numel() * t.element_size() for t in tables.tables)
+    """The least time of one K2 apply: read u and the per-element factors
+    the kernel reads and write out once each, or its multiply-adds
+    (``_k2_fma_per_point``) at the compute type's peak."""
+    fma = _k2_fma_per_point(tables.p, tables.kind == "stiffness")
+    n_bytes = 2 * u.numel() * u.element_size() + sum(t.numel() * t.element_size()
+                                                     for t in (tables.ex, tables.ey, tables.ez))
     return _bound_ms(n_bytes, 2 * fma * u.numel(), label)
+
+
+def _k2_tables(n_el, graded, basis, dtype, kind, c):
+    """K2's tables (both forms) on the card for one case."""
+    from deal_and_ceed_on_gpu_torch.ops.banded import BandedTables
+
+    return BandedTables.create(_k2_mesh(n_el, graded), basis, dtype, DEVICE, kind, c)
+
+
+def _k2_sweep():
+    """K2 against its plain version on every p = 1..8, stiffness and mass,
+    f64 / f32 / bf16, 1 and 3 components: a uniform brick of te + 1 x 2 te + 1
+    x 3 elements (not a multiple of the tile; several tiles and z ranges), a
+    graded one of te + 2 x 3 x 4 with ``value_const``, a single element, and
+    the uniform brick's tables after ``scale_``; returns the case count and
+    the worst relative error per precision."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.ops.banded import kernel_tile
+
+    worst = {label: 0.0 for label, _, _ in PRECISIONS}
+    n = 0
+    for p in range(1, 9):
+        te = kernel_tile(p)
+        meshes = (((te + 1, 2 * te + 1, 3), False, None, None), ((te + 2, 3, 4), True, 1.5, None),
+                  ((1, 1, 1), False, None, None), ((te + 1, 2 * te + 1, 3), False, None, 0.75))
+        basis = Basis1D.make(p, p + 2, "gauss")
+        for kind in ("stiffness", "mass"):
+            for n_el, graded, c, scale in meshes:
+                for label, dtype, stream in PRECISIONS:
+                    tables = _k2_tables(n_el, graded, basis, getattr(torch, dtype), kind, c)
+                    if scale is not None:
+                        tables.scale_(scale)
+                    for nc in (1, 3):
+                        _, rel, _ = _k2_compare(tables, label, stream, nc, seed=n)
+                        worst[label] = max(worst[label], rel)
+                        n += 1
+        print(f"phase 18: K2 p={p} (tile {te} elements): stiffness and mass, uniform, graded with value_const, one "
+              f"element, after scale_, f64 / f32 / bf16, nc = 1 and 3: agree (worst rel err so far "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + ")")
+    return n, worst
 
 
 def phase18_k2_vs_plain():
     import torch
 
     from deal_and_ceed_on_gpu_torch import Basis1D
-    from deal_and_ceed_on_gpu_torch.drivers.bp import target_mesh
-    from deal_and_ceed_on_gpu_torch.ops.banded import BandedTables, banded_apply, banded_apply_reference
+    from deal_and_ceed_on_gpu_torch.ops import banded
+    from deal_and_ceed_on_gpu_torch.scripts.bench_k2 import k2_shapes, k4_ms, time_k2
 
+    _ptxas("phase 18", "K2", banded.SOURCE, r"banded_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)ELb([01])E",
+           K2_INSTANTIATIONS, _ptxas_k2)
+    # the tile-edge bricks below are sized by kernel_tile: it must be the library's
+    tiles = [banded.library_tile(p) for p in range(1, 9)]
+    if tiles != [banded.kernel_tile(p) for p in range(1, 9)]:
+        raise AssertionError(f"phase 18: K2's tile widths {tiles} differ from kernel_tile's")
+    print(f"phase 18: K2's tile widths at p = 1..8: {tiles} elements (library and kernel_tile agree)")
     for i, (n_el, p, q, graded, kind, c) in enumerate(K2_CASES):
         basis = Basis1D.make(p, q, "gauss")
         for label, dtype, stream in PRECISIONS:
-            tables = BandedTables.create(_k2_mesh(n_el, graded), basis, getattr(torch, dtype), DEVICE, kind, c)
+            tables = _k2_tables(n_el, graded, basis, getattr(torch, dtype), kind, c)
             for nc in (1, 3):
                 err, rel, _ = _k2_compare(tables, label, stream, nc, seed=i)
                 print(f"phase 18: K2 elements {n_el} p={p} q={q} graded={graded} {kind} c={c} nc={nc} {label}: "
                       f"max abs err {err:.3e} (rel {rel:.3e})")
+    n, worst = _k2_sweep()
+    print(f"phase 18: K2 agrees with its plain version on {n + 6 * len(K2_CASES)} cases, NaN-filled outputs fully "
+          f"written, faces bitwise")
+
+    # K2 alone at its main path's shapes (scripts/bench_k2.py): BP1-BP4 and a
+    # graded BP3 at 32^3 elements, p = 5, q = 7, beside the plain version,
+    # the bound, torch.matmul(U, M_loc / A_loc) (BP1, BP3) and K4 (BP3)
     main = {}
-    mesh = target_mesh(BP_DEGREE, BP_TARGET_DOFS)
-    basis = Basis1D.make(BP_DEGREE, BP_DEGREE + 2, "gauss")
-    for names, kind in ((("bp1", "bp2"), "mass"), (("bp3", "bp4"), "stiffness")):
-        for label, dtype, stream in PRECISIONS:
-            tables = BandedTables.create(mesh, basis, getattr(torch, dtype), DEVICE, kind)
-            for bp, nc in zip(names, (1, 3)):
-                err, rel, u = _k2_compare(tables, label, stream, nc, seed=nc)
-                ms = _time_ms(lambda: banded_apply(u, tables))
-                plain_ms = _time_ms(lambda: banded_apply_reference(u, tables), n=3)
-                bound_ms, bound_by = _k2_bound_ms(tables, u, label)
-                print(f"phase 18: K2 {bp} shape {tuple(u.shape)} "
-                      f"p={BP_DEGREE} q={BP_DEGREE + 2} {kind} {label}: max abs err {err:.3e} (rel {rel:.3e}); "
-                      f"kernel {ms:.4f} ms ({2 * u.numel() * u.element_size() / ms / 1e6:.1f} GB/s of ideal traffic), "
-                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-                if bp == "bp3" and nc == 1:
-                    main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-                del u
+    for name, label, tables, nc, library in k2_shapes(device=DEVICE):
+        stream = None if label != "bf16" else "bfloat16"
+        err, rel, u = _k2_compare(tables, label, stream, nc, seed=nc)
+        ms, plain_ms, library_ms = time_k2(u, tables, library)
+        bound_ms, bound_by = _k2_bound_ms(tables, u, label)
+        line = (f"phase 18: K2 {name} shape {tuple(u.shape)} {tables.kind} {label}: max abs err {err:.3e} "
+                f"(rel {rel:.3e}); K2 {ms:.4f} ms ({2 * u.numel() * u.element_size() / ms / 1e6:.1f} GB/s of ideal "
+                f"traffic), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{100 * bound_ms / ms:.1f} % reached)")
+        if library_ms is not None:
+            line += f", torch.matmul(U, {'M' if name == 'bp1' else 'A'}_loc) {library_ms:.4f} ms"
+        if name == "bp3" and label != "bf16":
+            line += f", K4 {k4_ms(label, u, tables):.4f} ms"
+        print(line)
+        if name == "bp3":
+            main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=library_ms)
+        del u, tables
     return main
+
+
+def _ptxas_k2(args):
+    """The report line and entry of a K2 instantiation (S, C, P, STIFF)."""
+    storage, _, p, stiff = args
+    label = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}[storage]
+    return f"{label} {'stiffness' if stiff == '1' else 'mass'}", p
 
 
 def phase19_k1_components():
@@ -1247,7 +1340,7 @@ def phase21_main_path():
     b = assemble_rhs(space, 1.0)
     control = IterationNumberControl(20, 0.0)
     _profile("phase 21: 20 pcg-merged iterations, BP3 p=5 f64 on K2", 20,
-             lambda: solve_cg_merged(op.vmult, b, control)[0])
+             lambda: solve_cg_merged(op.vmult, b, control)[0], repeats=5)
     return k2, k1nc
 
 
@@ -1357,13 +1450,13 @@ def _k4_check(k, label, u, got):
     return err, rel
 
 
-def _ptxas(tag, name, source, pattern, want):
-    """A kernel's ptxas report (``-Xptxas -v`` in its build log): one line
-    per precision and instantiation kind (``pattern`` captures the type,
-    p, q and the full6 flag), ``p/q:registers`` per instantiation, and every
-    instantiation with a stack frame or spill stores. Fails unless all
-    ``want`` instantiations are in the report, none with a stack frame or
-    spill stores."""
+def _ptxas(tag, name, source, pattern, want, group):
+    """A kernel's ptxas report (``-Xptxas -v`` in its build log): ``pattern``
+    captures an instantiation's template arguments and ``group(args)`` names
+    its report line and its entry there; one line per group with
+    ``entry:registers`` per instantiation, and every instantiation with a
+    stack frame or spill stores. Fails unless all ``want`` instantiations are
+    in the report, none with a stack frame or spill stores."""
     import re
 
     from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
@@ -1372,17 +1465,18 @@ def _ptxas(tag, name, source, pattern, want):
     for line in build_library(source).with_suffix(".log").read_text().splitlines():
         m = re.search(pattern, line)
         if "Compiling entry function" in line or "Function properties for" in line:
-            key = (m.group(1), int(m.group(2)), int(m.group(3)), m.group(4) == "1") if m else None
+            key = m.groups() if m else None
         elif key and "bytes stack frame" in line:
             stack, spill = (int(x) for x in re.findall(r"(\d+) bytes (?:stack frame|spill stores)", line))
             report.setdefault(key, {}).update(stack=stack, spill=spill)
         elif key and "registers" in line:
             report.setdefault(key, {})["regs"] = int(line.split("Used ")[1].split()[0])
-    for dt, label in (("d", "f64"), ("f", "f32")):
-        for full6 in (True, False):
-            keys = sorted(k for k in report if k[0] == dt and k[3] == full6)
-            print(f"{tag}: ptxas {name} {label} {'full6' if full6 else 'const/diag3/value'}: " + " ".join(
-                f"{p}/{q}:{report[k].get('regs')}" for k in keys for p, q in [k[1:3]]))
+    lines = {}
+    for k in sorted(report, key=lambda k: tuple((0, int(x), "") if x.isdigit() else (1, 0, x) for x in k)):
+        line, entry = group(k)
+        lines.setdefault(line, []).append(f"{entry}:{report[k].get('regs')}")
+    for line, entries in sorted(lines.items()):
+        print(f"{tag}: ptxas {name} {line}: " + " ".join(entries))
     bad = [(k, v) for k, v in sorted(report.items()) if v.get("stack") or v.get("spill")]
     print(f"{tag}: ptxas {name}: {len(report)} instantiations, {len(bad)} with a stack frame or spill stores"
           + "".join(f"; {k}: {v}" for k, v in bad))
@@ -1391,6 +1485,12 @@ def _ptxas(tag, name, source, pattern, want):
                              f"the build log no longer matches {pattern}")
     if bad:
         raise AssertionError(f"{name} spills or keeps a stack frame in {len(bad)} instantiations")
+
+
+def _ptxas_pq(args):
+    """The report line and entry of a K3 or K4 instantiation (T, P, Q, FULL6)."""
+    dt, p, q, full6 = args
+    return f"{'f64' if dt == 'd' else 'f32'} {'full6' if full6 == '1' else 'const/diag3/value'}", f"{p}/{q}"
 
 
 def _k4_alternating():
@@ -1469,7 +1569,8 @@ def phase22_k4_vs_plain():
     from deal_and_ceed_on_gpu_torch.ops.general import general_apply_reference
     from deal_and_ceed_on_gpu_torch.scripts.bench_k4 import k4_shapes
 
-    _ptxas("phase 22", "K4", general.SOURCE, r"general_kernelI([df])Li(\d+)ELi(\d+)ELb([01])E", K4_INSTANTIATIONS)
+    _ptxas("phase 22", "K4", general.SOURCE, r"general_kernelI([df])Li(\d+)ELi(\d+)ELb([01])E", K4_INSTANTIATIONS,
+           _ptxas_pq)
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     modes = [(g, v) for g in (None, "const", "diag3", "full6") for v in (None, "const", "table") if g or v]
     worst = {label: 0.0 for label in dtypes}
@@ -1749,7 +1850,6 @@ def main():
             "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_banded.py:253",
             "launches": k2_launches[label],
             **k2[label],
-            "library_ms": None,
         }
         for label, _, _ in PRECISIONS
     ] + [

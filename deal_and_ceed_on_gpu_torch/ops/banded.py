@@ -15,28 +15,46 @@ constant value coefficient c folded into the z factor, 0 without one) and
 ``Gz = c Mz`` for mass (c = 1 without one). The Dirichlet rows and columns
 of every factor are zero, so the apply is the constrained ``M A M``; the
 kernel also writes the identity rows (``out = u`` on the six faces), so one
-``vmult`` is one launch. The apply runs z -> y -> x, as the TPU kernel:
+``vmult`` is one launch. The plain version runs z -> y -> x, as the TPU
+kernel (the CUDA kernel runs x -> y -> z, element by element):
 
     w1 = Mz u,  w2 = Gz u                         (z; w1 stiffness only)
     q1 = My w1, q2 = My w2 + Ay w1                (y; mass: q2 = My w2)
     out = Mx q2 + Ax q1                           (x; mass: Mx q2)
 
-Tables, in the compute dtype, per axis ``[n_d, 2p+1]`` with
-``table[i, t] = A[i, i - p + t]`` (the transpose of the band layout of
-``ops/separable.py``): ``mx, my, gz`` for mass, plus ``ax, ay, mz`` for
-stiffness. The port works on the unpadded ``[nz, ny, nx]`` grid, with an
-optional leading component count ``nc`` (the vector BPs: one launch for all
+Two forms of the same tables, in the compute dtype:
+
+- the band form, per axis ``[n_d, 2p+1]`` with ``table[i, t] = A[i, i - p +
+  t]`` (the transpose of the band layout of ``ops/separable.py``): ``mx, my,
+  gz`` for mass, plus ``ax, ay, mz`` for stiffness, Dirichlet rows and
+  columns zero. The plain version reads it (``banded_tables_np``; the JAX
+  layout's, ``utils/convert.banded_tables_from_jax``);
+- the element form the CUDA kernel reads: the element matrices ``B = S^T W
+  S`` and ``K = D^T W D`` (``[p+1, p+1]``, float64 in host memory: the kernel
+  takes them by value with each launch) and per axis the factors of each
+  element, ``ex [4, mx]`` (``s h``, ``s / h``, ``s`` the fold factor of
+  ``scale_``, then the ratios of those two rows to element e-1's, 0 for
+  e = 0), ``ey [2, my]`` (``h``, ``1 / h``) and ``ez [3, mz]`` (Mz's ``h``,
+  then Gz's K and B factors: ``1 / h`` and ``c h`` for stiffness, ``0``
+  and ``c h`` for mass), on the device (``element_tables_np``). The
+  kernel applies the Dirichlet rows and columns as masks; its even-odd
+  sweeps need centrosymmetric ``B`` and ``K`` (symmetric rules: Gauss, GLL).
+
+The port works on the unpadded ``[nz, ny, nx]`` grid, with an optional
+leading component count ``nc`` (the vector BPs: one launch for all
 components, shared tables), the port's form of ``StackedBandedOperator``.
 
 ``banded_apply`` launches the CUDA kernel (``csrc/banded.cu``) for a CUDA
-tensor and calls the plain version ``banded_apply_reference`` for a CPU
-tensor; ``LAUNCHES`` counts kernel launches.
+tensor (tables without the element form, or from an asymmetric rule, raise)
+and calls the plain version ``banded_apply_reference`` for a CPU tensor;
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +72,10 @@ __all__ = [
     "banded_apply",
     "banded_apply_reference",
     "banded_tables_np",
+    "element_tables_np",
+    "kernel_args",
+    "kernel_tile",
+    "library_tile",
 ]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "banded.cu"
@@ -72,22 +94,30 @@ _DTYPE_CODES = {
 }
 
 
+def _validate(mesh, basis, kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"banded kernel: kind {kind!r} is not one of {sorted(KINDS)}")
+    if not 1 <= basis.degree <= MAX_DEGREE:
+        raise ValueError(f"banded kernel: degree {basis.degree} outside 1..{MAX_DEGREE}")
+    if mesh.is_mapped:
+        raise ValueError("banded kernel: uniform or graded bricks only (mapped meshes: use general or qgrid)")
+
+
+def _element_matrices(basis) -> tuple[np.ndarray, np.ndarray]:
+    """``B = S^T W S`` and ``K = D^T W D``, ``[p+1, p+1]`` float64."""
+    w, S, D = basis.q_weights, basis.S, basis.D
+    return np.einsum("q,qa,qb->ab", w, S, S), np.einsum("q,qa,qb->ab", w, D, D)
+
+
 def banded_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | None = None) -> dict[str, np.ndarray]:
     """Host tables of K2 in float64, built as ``pallas_banded.BandedLayout``
     builds them (on the real rows only): per axis the mass and stiffness
     factors assembled with the per-element widths, Dirichlet rows and
     columns zeroed, as ``[n_d, 2p+1]`` band tables; the z table is
     ``gz = Az + c Mz`` (stiffness) or ``c Mz`` (mass)."""
-    if kind not in KINDS:
-        raise ValueError(f"banded kernel: kind {kind!r} is not one of {sorted(KINDS)}")
+    _validate(mesh, basis, kind)
     p = basis.degree
-    if not 1 <= p <= MAX_DEGREE:
-        raise ValueError(f"banded kernel: degree {p} outside 1..{MAX_DEGREE}")
-    if mesh.is_mapped:
-        raise ValueError("banded kernel: uniform or graded bricks only (mapped meshes: use general or qgrid)")
-    w, S, D = basis.q_weights, basis.S, basis.D
-    K_e = np.einsum("q,qa,qb->ab", w, D, D)
-    B_e = np.einsum("q,qa,qb->ab", w, S, S)
+    B_e, K_e = _element_matrices(basis)
     hx, hy, hz = mesh.h_axes()
     mx, my, mz = mesh.n_elements
 
@@ -113,10 +143,61 @@ def banded_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | 
     return {"mx": tabs["mx"], "my": tabs["my"], "gz": (1.0 if value_const is None else c) * tabs["mz"]}
 
 
+def element_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | None = None) -> dict[str, np.ndarray]:
+    """The element form of K2's tables in float64 (the same operator as
+    ``banded_tables_np``): ``B``, ``K`` and the per-element factors ``ex [4,
+    mx]``, ``ey [2, my]``, ``ez [3, mz]`` of the module docstring, fold
+    factor 1."""
+    _validate(mesh, basis, kind)
+    B, K = _element_matrices(basis)
+    hx, hy, hz = (np.broadcast_to(np.asarray(h, float).reshape(-1), (m,))
+                  for h, m in zip(mesh.h_axes(), mesh.n_elements))
+    if kind == "stiffness":
+        c = 0.0 if value_const is None else float(value_const)
+        gk = 1.0 / hz
+    else:
+        c = 1.0 if value_const is None else float(value_const)
+        gk = np.zeros_like(hz)
+    below = np.concatenate([[0.0], hx[:-1] / hx[1:]])  # h_{e-1} / h_e: the ratios of ex rows 0 and 1 to element e-1
+    return {"B": B, "K": K, "ex": np.stack([hx, 1.0 / hx, below, np.concatenate([[0.0], 1.0 / below[1:]])]),
+            "ey": np.stack([hy, 1.0 / hy]), "ez": np.stack([hz, gk, c * hz])}
+
+
+def kernel_tile(p: int) -> int:
+    """The CUDA kernel's tile width in elements at degree p (``Tile::TE`` of
+    ``csrc/banded.cu``): the largest te with (te p)^2 owned columns within
+    two a thread of a 256-thread block. A restatement for hosts without the
+    library (the tests' brick sizes); ``library_tile`` asks the library."""
+    te = 32
+    while te > 1 and (te * p) ** 2 > 2 * 256:
+        te -= 1
+    return te
+
+
+def library_tile(p: int) -> int:
+    """The tile width the built library uses at degree p (``banded_tile`` of
+    ``csrc/banded.cu``; builds it on first use), 0 outside 1..MAX_DEGREE."""
+    from ..utils.cuda_build import load_library
+
+    fn = load_library(SOURCE).banded_tile
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(p)
+
+
+def _centrosymmetric(M: np.ndarray) -> bool:
+    """``M[p-i, p-j] = M[i, j]`` to 1e-12 of its largest entry (the kernel's
+    own test)."""
+    return bool(np.abs(M[::-1, ::-1] - M).max() <= 1e-12 * np.abs(M).max())
+
+
 @dataclasses.dataclass
 class BandedTables:
-    """K2's device tables; ``ax, ay, mz`` are None for the mass kind.
-    ``scale_`` rescales the tables the kernel reads, in place."""
+    """K2's tables: the band form the plain version reads (``ax, ay, mz``
+    None for the mass kind) and the element form the CUDA kernel reads
+    (``B_host``, ``K_host``, ``ex``, ``ey``, ``ez``; None for tables built
+    from band tables alone, which run the plain version only). Both forms
+    are checked once, when the tables are made; ``symmetric`` is set then.
+    ``scale_`` rescales both, in place."""
 
     p: int
     mx: torch.Tensor
@@ -125,16 +206,54 @@ class BandedTables:
     ax: torch.Tensor | None = None
     ay: torch.Tensor | None = None
     mz: torch.Tensor | None = None
+    B_host: np.ndarray | None = None
+    K_host: np.ndarray | None = None
+    ex: torch.Tensor | None = None
+    ey: torch.Tensor | None = None
+    ez: torch.Tensor | None = None
+    symmetric: bool = dataclasses.field(init=False, repr=False)
+    """Whether the element form exists and its ``B`` and ``K`` are
+    centrosymmetric (symmetric rules): what the CUDA kernel needs."""
+
+    def __post_init__(self):
+        _check_bands(self)
+        element = (self.B_host, self.K_host, self.ex, self.ey, self.ez)
+        if all(t is None for t in element):
+            self.symmetric = False
+            return
+        if any(t is None for t in element):
+            raise ValueError("banded: the element form needs all of B_host, K_host, ex, ey and ez")
+        p1 = self.p + 1
+        if self.B_host.shape != (p1, p1) or self.K_host.shape != (p1, p1):
+            raise ValueError(f"banded: element matrices B and K are not [{p1}, {p1}]")
+        m = [(n - 1) // self.p for n in self.shape]  # (mz, my, mx)
+        for name, shape in {"ex": (4, m[2]), "ey": (2, m[1]), "ez": (3, m[0])}.items():
+            t = getattr(self, name)
+            if tuple(t.shape) != shape or t.dtype != self.dtype or t.device != self.device or not t.is_contiguous():
+                raise ValueError(f"banded: element factors {name} are not a contiguous {list(shape)} {self.dtype} "
+                                 f"tensor on {self.device}")
+        self.symmetric = _centrosymmetric(self.B_host) and _centrosymmetric(self.K_host)
 
     @staticmethod
-    def from_numpy(tabs: dict, p: int, dtype: torch.dtype, device="cuda") -> "BandedTables":
-        """Tables from ``banded_tables_np`` keys (the kind follows from them),
-        copied: ``scale_`` never reaches the caller's arrays."""
-        return BandedTables(p, **{k: torch.tensor(np.asarray(v), dtype=dtype, device=device) for k, v in tabs.items()})
+    def from_numpy(tabs: dict, p: int, dtype: torch.dtype, device="cuda", element: dict | None = None
+                   ) -> "BandedTables":
+        """Tables from ``banded_tables_np`` keys (the kind follows from them)
+        and, for the CUDA kernel, ``element_tables_np``'s ``element``; copied:
+        ``scale_`` never reaches the caller's arrays."""
+        bands = {k: torch.tensor(np.asarray(v), dtype=dtype, device=device) for k, v in tabs.items()}
+        if element is None:
+            return BandedTables(p, **bands)
+        return BandedTables(
+            p, **bands,
+            **{f"{k}_host": np.array(element[k], dtype=np.float64, order="C") for k in ("B", "K")},
+            **{k: torch.tensor(np.asarray(element[k]), dtype=dtype, device=device) for k in ("ex", "ey", "ez")},
+        )
 
     @staticmethod
     def create(mesh, basis, dtype: torch.dtype, device="cuda", kind="stiffness", value_const=None) -> "BandedTables":
-        return BandedTables.from_numpy(banded_tables_np(mesh, basis, kind, value_const), basis.degree, dtype, device)
+        """Both forms, from the mesh."""
+        return BandedTables.from_numpy(banded_tables_np(mesh, basis, kind, value_const), basis.degree, dtype, device,
+                                       element=element_tables_np(mesh, basis, kind, value_const))
 
     @property
     def kind(self) -> str:
@@ -142,7 +261,7 @@ class BandedTables:
 
     @property
     def tables(self) -> tuple[torch.Tensor, ...]:
-        """The tables of the kind, in the launcher's order (``KINDS``)."""
+        """The band tables of the kind, in ``KINDS`` order."""
         return tuple(getattr(self, k) for k in KINDS[self.kind])
 
     @property
@@ -160,15 +279,29 @@ class BandedTables:
     def scale_(self, s: float) -> None:
         """``A <- s A``: every Kronecker term carries exactly one x factor,
         so scaling the x tables scales the apply (identity faces unaffected),
-        as ``BandedLayout.fold_bands`` does."""
+        as ``BandedLayout.fold_bands`` does: ``mx``, ``ax`` and the factor
+        rows of ``ex`` (not their ratios)."""
         self.mx.mul_(s)
         if self.ax is not None:
             self.ax.mul_(s)
+        if self.ex is not None:
+            self.ex[:2].mul_(s)
+
+
+def _check_bands(tables: BandedTables) -> None:
+    """The band tables' shapes, type, device and layout."""
+    nt = 2 * tables.p + 1
+    for name, t in zip(KINDS[tables.kind], tables.tables):
+        n = {"x": tables.shape[2], "y": tables.shape[1], "z": tables.shape[0]}[name[1]]
+        if tuple(t.shape) != (n, nt) or t.dtype != tables.dtype or t.device != tables.device:
+            raise ValueError(f"banded: table {name} is not [{n}, {nt}] {tables.dtype} on {tables.device}")
+        if not t.is_contiguous():
+            raise ValueError("banded: the tables must be contiguous")
 
 
 def _check(u: torch.Tensor, tables: BandedTables, out: torch.Tensor | None = None) -> int:
-    """Validate ``u`` (and ``out``) against the tables; return the
-    launcher's dtype code."""
+    """Validate ``u`` (and ``out``) against the tables (checked when they
+    were made); return the launcher's dtype code."""
     code = _DTYPE_CODES.get((u.dtype, tables.dtype))
     if code is None:
         raise TypeError(
@@ -179,13 +312,8 @@ def _check(u: torch.Tensor, tables: BandedTables, out: torch.Tensor | None = Non
         raise ValueError(f"banded: u has shape {tuple(u.shape)}, tables {tables.shape} (or [nc, ...])")
     if u.device != tables.device:
         raise ValueError(f"banded: u on {u.device}, tables on {tables.device}")
-    nt = 2 * tables.p + 1
-    for name, t in zip(KINDS[tables.kind], tables.tables):
-        n = {"x": tables.shape[2], "y": tables.shape[1], "z": tables.shape[0]}[name[1]]
-        if tuple(t.shape) != (n, nt) or t.dtype != tables.dtype or t.device != tables.device:
-            raise ValueError(f"banded: table {name} is not [{n}, {nt}] {tables.dtype} on {tables.device}")
-    if not u.is_contiguous() or not all(t.is_contiguous() for t in tables.tables):
-        raise ValueError("banded: u and the tables must be contiguous")
+    if not u.is_contiguous():
+        raise ValueError("banded: u must be contiguous")
     if out is not None:
         if out.shape != u.shape or out.dtype != u.dtype or out.device != u.device or not out.is_contiguous():
             raise ValueError("banded: out must be a contiguous tensor of u's shape, dtype and device")
@@ -229,14 +357,31 @@ def apply_plain(uc: torch.Tensor, tables: BandedTables) -> torch.Tensor:
 
 
 def banded_apply_reference(u: torch.Tensor, tables: BandedTables) -> torch.Tensor:
-    """The plain torch version of K2: the same formula in torch ops."""
+    """The plain torch version of K2: the same formula in torch ops on the
+    band tables (checked again here: the plain version reads them)."""
     _check(u, tables)
+    _check_bands(tables)
     return apply_plain(u.to(tables.dtype), tables).to(u.dtype)
 
 
-_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def kernel_args(tables: BandedTables) -> tuple[int, int, int, int, int]:
+    """The addresses of what the CUDA kernel reads, ``(ex, ey, ez)`` on the
+    device and ``(B_host, K_host)`` in host memory: raises ``ValueError`` for
+    band tables alone (no element form) or an asymmetric rule."""
+    if tables.B_host is None:
+        raise ValueError("banded: these tables hold the band form only (BandedTables.from_numpy without element=): "
+                         "the CUDA kernel reads the element form; build the tables with BandedTables.create")
+    if not tables.symmetric:
+        raise ValueError("banded: the CUDA kernel needs a symmetric rule (Gauss or GLL): centrosymmetric element "
+                         "matrices B and K, M[p-i, p-j] = M[i, j]")
+    return (tables.ex.data_ptr(), tables.ey.data_ptr(), tables.ez.data_ptr(),
+            tables.B_host.ctypes.data, tables.K_host.ctypes.data)
 
 
+_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+
+
+@functools.cache
 def _launcher():
     from ..utils.cuda_build import load_library
 
@@ -259,17 +404,15 @@ def banded_apply(u: torch.Tensor, tables: BandedTables, out: torch.Tensor | None
         return want if out is None else out.copy_(want)
     if u.device.type != "cuda":
         raise ValueError(f"banded: unsupported device {u.device}")
+    ex, ey, ez, b_host, k_host = kernel_args(tables)
     launch = _launcher()
     out = torch.empty_like(u) if out is None else out
     nc = 1 if u.dim() == 3 else u.shape[0]
     nz, ny, nx = tables.shape
-    ptrs = [t.data_ptr() for t in tables.tables]
-    if tables.kind == "mass":  # launcher order (mx, ax, my, ay, mz, gz)
-        ptrs = [ptrs[0], None, ptrs[1], None, None, ptrs[2]]
     with torch.cuda.device(u.device):
         rc = launch(
-            code, tables.p, int(tables.kind == "stiffness"), u.data_ptr(), out.data_ptr(), *ptrs,
-            nc, nz, ny, nx, torch.cuda.current_stream(u.device).cuda_stream,
+            code, tables.p, int(tables.kind == "stiffness"), u.data_ptr(), out.data_ptr(), ex, ey, ez,
+            nc, nz, ny, nx, torch.cuda.current_stream(u.device).cuda_stream, b_host, k_host,
         )
     if rc != 0:
         raise RuntimeError(f"banded kernel launch failed: cudaError {rc}")
