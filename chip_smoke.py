@@ -11,8 +11,15 @@ anything does not build, launch, agree or converge. Phases:
    (``csrc/qgrid.cu``), K4 (``csrc/general.cu``), K5 (``csrc/cg.cu``) and K6
    (``csrc/copy.cu``), one ``nvcc`` each, started together; print the build
    times and ptxas usage;
-2. K1 against its plain torch twin on the card, at small shapes (p = 2, 3,
-   5, 8) and at the main path's shape, in f64, f32 and bf16 storage;
+2. K1 (``csrc/stencil.cu`` on ``csrc/stencil_tile.cuh``) against its plain
+   torch twin: the ptxas registers of each of its 96 instantiations (fails
+   if one is missing, spills or keeps a stack frame); every p = 1..8 on the
+   small shapes, a brick whose grid is not a multiple of the tile in x, y or
+   z, one element and tables after ``scale_``, with and without the value
+   term, 1 and 3 components, f64 / f32 / bf16 storage, from NaN-filled
+   outputs (576 cases); then the cycle-33 shape of
+   ``scripts/bench_k1_k5.py``, timed beside the twin, the bound and
+   ``torch.matmul(U, A_loc)``;
 3. the main path: ``drivers/bp5.run_cycle`` at cycle 33 (12,468,001 DoFs,
    p = 5) with the stencil backend, pcg-standard + pcg-merged + vmult, in
    f64, f32 and f32 with bf16 vectors; K1 must have launched, no result
@@ -43,13 +50,15 @@ anything does not build, launch, agree or converge. Phases:
 10. refine-6 vmult throughput, K3 against ``structured``, in turns;
 11. a ``torch.profiler`` trace of 20 plain-CG iterations of the refine-6
     f64 solve on K3: device time by kernel and the device's busy share;
-12. K1 with its value term against its plain version, at the phase-2 shapes
-    (random value tables) and at the cycle-33 shape (the step-64
-    coefficient at the GLL nodes), in f64, f32 and bf16 storage;
-13. K5, the fused CG iteration, against ``cg_step_reference`` at the
-    phase-2 shapes and at cycle 33, for Poisson and with a value table, in
-    the three precisions, from a NaN-filled write buffer: the four vectors
-    and the four dots;
+12. K1 with its value term at the cycle-33 shape (the step-64 coefficient
+    at the GLL nodes), checked and timed as in phase 2;
+13. K5, the fused CG iteration, against ``cg_step_reference``: the ptxas
+    registers of each of its 48 instantiations (as phase 2); phase 2's
+    bricks at every p = 1..8, Poisson and with a value table, in the three
+    precisions, from a NaN-filled write buffer: the four vectors (d', g',
+    x' bitwise), the four dots and the next scalars (288 cases); then
+    cycle 33 with and without the value table, timed with its finishing
+    pass beside the plain version and the bound;
 14. the main paths: ``drivers/bp5.run_cycle`` pcg-fused at cycle 33 in the
     three precisions (K5 must have launched, no NaN), and collocated
     Helmholtz at the cycle-33 shape solved by pcg-merged on K1 with its
@@ -75,6 +84,7 @@ anything does not build, launch, agree or converge. Phases:
     ``torch.matmul(U, M_loc / A_loc)`` (BP1, BP3) and K4 (BP3);
 19. K1 with 3 components against three 1-component launches (bitwise) and
     its plain twin, small shapes and the BP6 main shape, three precisions;
+    BP6's shape timed as in phase 2 and beside three 1-component launches;
 20. the BP1-BP6 goldens of the JAX reference at 4^3 elements, p = 3, f64,
     on the kernel backends, solved by pcg-merged to 1e-12 |b| (K2 must have
     launched for BP1-BP4, K1 with 3 components for BP6);
@@ -154,9 +164,8 @@ PRECISIONS = (
     ("f32", "float32", None),
     ("bf16", "float32", "bfloat16"),
 )
-# small-shape checks: element counts (mx, my, mz) and degrees
+# small-shape checks: element counts (mx, my, mz)
 SMALL_SHAPES = ((2, 2, 2), (4, 3, 6), (8, 4, 10))
-SMALL_DEGREES = (2, 3, 5, 8)
 DEVICE = "cuda"
 
 # step-64 goldens of the JAX reference (f64, CPU, default structured
@@ -248,45 +257,76 @@ def _grid_tensor(shape, dtype, seed):
     return torch.as_tensor(a, dtype=dtype, device=DEVICE)
 
 
-def _compare(mesh, p, label, dtype, stream, value=None):
-    """K1 against its twin on one (mesh, degree, precision), with the value
-    table ``value`` if given; returns (max_abs_err, relative error, tables,
-    u) and asserts the bound and the faces."""
+K1_TOL = {"f64": 1e-13, "f32": 1e-5, "bf16": 3e-2}  # of max|out| (f64: of each point's |out|, plus 1e-13)
+K1_INSTANTIATIONS = 3 * 8 * 2 * 2  # stencil_kernel<S, C, P, V, NC>: f64/f32/bf16 storage, p = 1..8, value term, components
+K5_INSTANTIATIONS = 3 * 8 * 2  # cg_kernel<S, C, P, V>: f64/f32/bf16 storage, p = 1..8, value term
+
+
+def _sweep_bricks(p):
+    """The bricks (elements, scale) K1 and K5 are checked on at degree p:
+    SMALL_SHAPES; one whose grid is not a multiple of their tiles (nx of
+    41-43 points against 32 columns, ny of 37-41 against 16-32 rows, nz =
+    3p + 1 cut into several z ranges); one element; and the first again with
+    its tables after ``scale_``."""
+    edge = (math.ceil(40 / p), math.ceil(36 / p), 3)
+    return [(shape, None) for shape in SMALL_SHAPES] + [(edge, None), ((1, 1, 1), None), (edge, 0.75)]
+
+
+def _sweep_tables(p, n_el, scale, value, dtype):
+    """K1's tables on one sweep brick (upper corner (1, 0.8, 1.3)), with a
+    random value table if ``value``, after ``scale_(scale)`` if given."""
+    import numpy as np
     import torch
 
-    from deal_and_ceed_on_gpu_torch.basis import Basis1D
-    from deal_and_ceed_on_gpu_torch.ops.stencil import (
-        StencilTables,
-        stencil_apply,
-        stencil_apply_reference,
-    )
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.ops.stencil import StencilTables
 
-    cd = getattr(torch, dtype)
-    sd = getattr(torch, stream) if stream else cd
-    tables = StencilTables.create(mesh, Basis1D.make(p), cd, DEVICE, value=value)
-    u = _grid_tensor(tables.shape, cd, seed=p).to(sd)
-    got = stencil_apply(u, tables)
+    grid = tuple(m * p + 1 for m in reversed(n_el))
+    a = 0.5 + np.random.default_rng(p).random(grid) if value else None
+    tables = StencilTables.create(BrickMesh(n_el, upper=(1.0, 0.8, 1.3)), Basis1D.make(p), getattr(torch, dtype),
+                                  DEVICE, value=a)
+    if scale is not None:
+        tables.scale_(scale)
+    return tables
+
+
+def _k1_input(tables, stream, nc, seed):
+    import numpy as np
+    import torch
+
+    sd = getattr(torch, stream) if stream else tables.dtype
+    shape = tables.shape if nc == 1 else (nc, *tables.shape)
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(shape), dtype=tables.dtype,
+                           device=DEVICE).to(sd)
+
+
+def _k1_check(u, tables, label):
+    """K1 against its twin on ``u`` ([nz, ny, nx] or [nc, ...]), from a
+    NaN-filled output; returns (max_abs_err, relative error) and asserts the
+    tolerance, finiteness and the identity faces (bitwise)."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.stencil import face_mask, stencil_apply, stencil_apply_reference
+
+    got = stencil_apply(u, tables, out=torch.full_like(u, float("nan")))
     torch.cuda.synchronize()
     want = stencil_apply_reference(u, tables)
     diff = (got.double() - want.double()).abs()
-    scale = max(float(want.double().abs().max()), 1e-300)
-    err, rel = float(diff.max()), float(diff.max()) / scale
+    err = float(diff.max())
+    rel = err / max(float(want.double().abs().max()), 1e-300)
     if label == "f64":
-        bound = 1e-13 + 1e-13 * want.abs()
-        ok = bool((diff <= bound).all())
+        ok = bool((diff <= K1_TOL[label] + K1_TOL[label] * want.double().abs()).all())
     else:
-        ok = rel <= (1e-5 if label == "f32" else 3e-2)
-    faces = torch.zeros(tables.shape, dtype=torch.bool, device=DEVICE)
-    for axis, n in enumerate(tables.shape):
-        faces.narrow(axis, 0, 1).fill_(True)
-        faces.narrow(axis, n - 1, 1).fill_(True)
-    faces_ok = bool(torch.equal(got[faces], u[faces]))
-    if not (ok and faces_ok):
+        ok = rel <= K1_TOL[label]
+    face = face_mask(tables.shape, DEVICE).expand(u.shape)
+    faces_ok = bool(torch.equal(got[face], u[face]))
+    if not (ok and faces_ok and bool(torch.isfinite(got).all())):
         raise AssertionError(
-            f"K1 disagrees with its twin: shape {tables.shape} p={p} {label}: "
-            f"max abs {err:.3e}, rel {rel:.3e}, faces equal {faces_ok}"
+            f"K1 disagrees with its twin: shape {tuple(u.shape)} p={tables.p} {label} value={tables.a is not None}: "
+            f"max abs {err:.3e}, rel {rel:.3e}, faces equal {faces_ok}, finite {bool(torch.isfinite(got).all())}"
         )
-    return err, rel, tables, u
+    return err, rel
 
 
 def _time_ms(fn, n=20):
@@ -295,30 +335,71 @@ def _time_ms(fn, n=20):
     return cuda_time_ms(fn, n)
 
 
-def phase2_kernel_vs_twin():
-    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
-    from deal_and_ceed_on_gpu_torch.ops.stencil import stencil_apply, stencil_apply_reference
+def _k1_sweep():
+    """K1 against its twin on every p = 1..8 x ``_sweep_bricks`` x value
+    term or not x f64 / f32 / bf16 x 1 and 3 components; returns the case
+    count and the worst relative error per precision."""
+    worst = {label: 0.0 for label, _, _ in PRECISIONS}
+    n = 0
+    for p in range(1, 9):
+        for n_el, scale in _sweep_bricks(p):
+            for value in (False, True):
+                for label, dtype, stream in PRECISIONS:
+                    tables = _sweep_tables(p, n_el, scale, value, dtype)
+                    for nc in (1, 3):
+                        _, rel = _k1_check(_k1_input(tables, stream, nc, seed=n), tables, label)
+                        worst[label] = max(worst[label], rel)
+                        n += 1
+        print(f"phase 2: K1 p={p}: bricks {[b for b, _ in _sweep_bricks(p)]} (the last after scale_), value term or "
+              f"not, f64 / f32 / bf16, nc = 1 and 3: agree (worst rel err so far "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + ")")
+    return n, worst
 
-    for shape in SMALL_SHAPES:
-        mesh = BrickMesh(shape, upper=(1.0, 0.8, 1.3))
-        for p in SMALL_DEGREES:
-            for label, dtype, stream in PRECISIONS:
-                err, rel, _, _ = _compare(mesh, p, label, dtype, stream)
-                print(f"phase 2: elements {shape} p={p} {label}: max abs err {err:.3e} (rel {rel:.3e})")
+
+def _ptxas_k1(args):
+    """The report line and entry of a K1 instantiation (S, C, P, V, NC)."""
+    storage, _, p, value, nc = args
+    label = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}[storage]
+    return f"{label} value={value} nc>1={nc}", p
+
+
+def _k1_main(tag, name):
+    """K1 at one of ``scripts/bench_k1_k5.py``'s shapes, per precision:
+    checked against its twin from a NaN-filled output, then timed beside
+    the twin, the bound and the library call; returns the records."""
+    from deal_and_ceed_on_gpu_torch.scripts.bench_k1_k5 import k1_shapes, time_k1
+
     main = {}
-    mesh = BrickMesh.bp5_cycle(MAIN_CYCLE)
-    for label, dtype, stream in PRECISIONS:
-        err, rel, tables, u = _compare(mesh, DEGREE, label, dtype, stream)
-        ms = _time_ms(lambda: stencil_apply(u, tables))
-        plain_ms = _time_ms(lambda: stencil_apply_reference(u, tables), n=5)
-        bytes_moved = 2 * u.numel() * u.element_size()
-        bound_ms, bound_by = _k1_bound_ms(u.numel(), DEGREE, label)
-        print(f"phase 2: cycle {MAIN_CYCLE} grid {tables.shape} p={DEGREE} {label}: "
-              f"max abs err {err:.3e} (rel {rel:.3e}); K1 {ms:.4f} ms "
-              f"({bytes_moved / ms / 1e6:.1f} GB/s of ideal traffic), twin {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
-        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    for _, label, tables, u, library in k1_shapes([name], device=DEVICE):
+        err, rel = _k1_check(u, tables, label)
+        ms, plain_ms, library_ms = time_k1(u, tables, library)
+        n, sd = u.numel(), u.element_size()
+        if tables.a is None:
+            bound_ms, bound_by = _k1_bound_ms(n, tables.p, label)
+            n_bytes = 2 * n * sd
+        else:
+            n_bytes = n * (2 * sd + tables.a.element_size())
+            bound_ms, bound_by = _bound_ms(n_bytes, n * (6 + 6 * (2 * tables.p + 1)), label)
+        line = (f"{tag}: K1 {name} shape {tuple(u.shape)} {label}: max abs err {err:.3e} (rel {rel:.3e}); kernel "
+                f"{ms:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s of ideal traffic, {100 * bound_ms / ms:.1f} % of the "
+                f"bound), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if library_ms is not None:
+            line += f", torch.matmul(U, A_loc) {library_ms:.4f} ms (element-local part)"
+        print(line)
+        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms)
+        del u, tables
     return main
+
+
+def phase2_kernel_vs_twin():
+    from deal_and_ceed_on_gpu_torch.ops import stencil
+
+    _ptxas("phase 2", "K1", stencil.SOURCE, r"stencil_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)ELb([01])ELb([01])E",
+           K1_INSTANTIATIONS, _ptxas_k1)
+    n, worst = _k1_sweep()
+    print(f"phase 2: K1 agrees with its twin on {n} cases, NaN-filled outputs fully written, faces bitwise")
+    return _k1_main("phase 2", "bp5")
 
 
 def phase3_main_path():
@@ -727,45 +808,10 @@ def _bound_ms(n_bytes, flops, label):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _helmholtz_nodal(mesh, p):
-    """The step-64 coefficient at the GLL nodes times the cell volume, as
-    ``HelmholtzOperator(backend="stencil")`` builds its value table."""
-    from deal_and_ceed_on_gpu_torch import Basis1D, FESpace
-    from deal_and_ceed_on_gpu_torch.models import default_coefficient
-
-    space = FESpace(mesh, Basis1D.make(p), device="cpu")
-    hx, hy, hz = mesh.h
-    return default_coefficient(space.node_coords().reshape(space.grid_shape + (3,))) * (hx * hy * hz)
-
-
 def phase12_k1_value():
-    import numpy as np
-
-    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
-    from deal_and_ceed_on_gpu_torch.ops.stencil import stencil_apply, stencil_apply_reference
-
-    for shape in SMALL_SHAPES:
-        mesh = BrickMesh(shape, upper=(1.0, 0.8, 1.3))
-        for p in SMALL_DEGREES:
-            grid = tuple(m * p + 1 for m in reversed(shape))
-            value = 0.5 + np.random.default_rng(p).random(grid)
-            for label, dtype, stream in PRECISIONS:
-                err, rel, _, _ = _compare(mesh, p, label, dtype, stream, value=value)
-                print(f"phase 12: K1 + value, elements {shape} p={p} {label}: max abs err {err:.3e} (rel {rel:.3e})")
-    main = {}
-    mesh = BrickMesh.bp5_cycle(MAIN_CYCLE)
-    value = _helmholtz_nodal(mesh, DEGREE)
-    for label, dtype, stream in PRECISIONS:
-        err, rel, tables, u = _compare(mesh, DEGREE, label, dtype, stream, value=value)
-        ms = _time_ms(lambda: stencil_apply(u, tables))
-        plain_ms = _time_ms(lambda: stencil_apply_reference(u, tables), n=5)
-        n, sd, cd = u.numel(), u.element_size(), tables.a.element_size()
-        bound_ms, bound_by = _bound_ms(n * (2 * sd + cd), n * (6 + 6 * (2 * DEGREE + 1)), label)
-        print(f"phase 12: K1 + value, cycle {MAIN_CYCLE} grid {tables.shape} {label}: max abs err {err:.3e} "
-              f"(rel {rel:.3e}); kernel {ms:.4f} ms ({n * (2 * sd + cd) / ms / 1e6:.1f} GB/s of ideal traffic), "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    return main
+    """K1 with the value term at the cycle-33 shape (the step-64 coefficient
+    at the GLL nodes): the small shapes are phase 2's sweep."""
+    return _k1_main("phase 12", "bp5-value")
 
 
 K5_TOL = {"f64": 1e-13, "f32": 1e-5, "bf16": 3e-2}  # the vectors, of max|want| per vector
@@ -774,20 +820,27 @@ K5_TOL = {"f64": 1e-13, "f32": 1e-5, "bf16": 3e-2}  # the vectors, of max|want| 
 K5_DOT_TOL = {"f64": 1e-12, "f32": 1e-5, "bf16": 1e-5}
 
 
-def _k5_compare(tables, label, stream, seed):
-    """K5 against cg_step_reference on one table set, from a random state
-    and a NaN-filled write buffer; returns (max abs err, the state, the
-    scalars) and asserts the bounds."""
+def _k5_state(tables, stream, seed):
     import numpy as np
     import torch
 
-    from deal_and_ceed_on_gpu_torch.ops.cg import CGFusedStep, cg_next_scalars, cg_step_reference
-
     sd = getattr(torch, stream) if stream else tables.dtype
-    rng = np.random.default_rng(seed)
-    s = torch.as_tensor(rng.standard_normal((4, *tables.shape)), dtype=tables.dtype, device=DEVICE).to(sd)
-    scal = torch.as_tensor([0.7, 0.4, 0.7 / 0.4], dtype=tables.dtype, device=DEVICE)
-    got, summary = CGFusedStep(tables).iterate(s, torch.full_like(s, float("nan")), scal)
+    s = torch.as_tensor(np.random.default_rng(seed).standard_normal((4, *tables.shape)), dtype=tables.dtype,
+                        device=DEVICE).to(sd)
+    return s, torch.as_tensor([0.7, 0.4, 0.7 / 0.4], dtype=tables.dtype, device=DEVICE)
+
+
+def _k5_compare(step, s, scal, label):
+    """K5 against cg_step_reference on one state, into a NaN-filled write
+    buffer; returns (max abs err, relative errors per vector, relative
+    errors of the dots and scalars) and asserts the bounds and that d', g'
+    and x' are bitwise equal."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.cg import cg_next_scalars, cg_step_reference
+
+    tables = step.tables
+    got, summary = step.iterate(s, torch.full_like(s, float("nan")), scal)
     torch.cuda.synchronize()
     want, wdots = cg_step_reference(s, scal, tables)
     dots = summary[:4]
@@ -800,57 +853,59 @@ def _k5_compare(tables, label, stream, seed):
     dot_rel = [abs(float(a) - float(b)) / max(sc, 1e-300) for a, b, sc in zip(dots, wdots, scale)]
     bitwise = [bool(torch.equal(got[k], want[k])) for k in (0, 1, 3)]
     ok = (bool(torch.isfinite(got).all()) and max(rel) <= K5_TOL[label] and max(dot_rel) <= K5_DOT_TOL[label]
-          and max(scal_rel) <= 1e3 * K5_DOT_TOL[label])
+          and max(scal_rel) <= 1e3 * K5_DOT_TOL[label] and all(bitwise))
     if not ok:
         raise AssertionError(f"K5 disagrees with its plain version: grid {tables.shape} p={tables.p} {label} "
                              f"value={tables.a is not None}: rel err per vector {rel}, dots {dot_rel}, "
-                             f"scalars {scal_rel}, finite {bool(torch.isfinite(got).all())}")
-    return err, rel, dot_rel + scal_rel, bitwise, s, scal
+                             f"scalars {scal_rel}, d/g/x bitwise {bitwise}, finite {bool(torch.isfinite(got).all())}")
+    return err, rel, dot_rel + scal_rel
+
+
+def _ptxas_k5(args):
+    """The report line and entry of a K5 instantiation (S, C, P, V)."""
+    storage, _, p, value = args
+    return f"{ {'d': 'f64', 'f': 'f32', '13__nv_bfloat16': 'bf16'}[storage]} value={value}", p
 
 
 def phase13_k5_vs_plain():
-    import numpy as np
-    import torch
+    from deal_and_ceed_on_gpu_torch.ops import cg
+    from deal_and_ceed_on_gpu_torch.ops.cg import CGFusedStep
+    from deal_and_ceed_on_gpu_torch.scripts.bench_k1_k5 import k5_shapes, time_k5
 
-    from deal_and_ceed_on_gpu_torch import Basis1D
-    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
-    from deal_and_ceed_on_gpu_torch.ops.cg import CGFusedStep, cg_next_scalars, cg_step_reference
-    from deal_and_ceed_on_gpu_torch.ops.stencil import StencilTables
-
-    for shape in SMALL_SHAPES:
-        mesh = BrickMesh(shape, upper=(1.0, 0.8, 1.3))
-        for p in SMALL_DEGREES:
-            grid = tuple(m * p + 1 for m in reversed(shape))
-            for value in (None, 0.5 + np.random.default_rng(p).random(grid)):
+    _ptxas("phase 13", "K5", cg.SOURCE, r"cg_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)ELb([01])E",
+           K5_INSTANTIATIONS, _ptxas_k5)
+    worst = {label: 0.0 for label, _, _ in PRECISIONS}
+    n = 0
+    for p in range(1, 9):
+        for n_el, scale in _sweep_bricks(p):
+            for value in (False, True):
                 for label, dtype, stream in PRECISIONS:
-                    tables = StencilTables.create(mesh, Basis1D.make(p), getattr(torch, dtype), DEVICE, value=value)
-                    err, rel, dot_rel, bitwise, _, _ = _k5_compare(tables, label, stream, seed=p)
-                    print(f"phase 13: K5, elements {shape} p={p} value={value is not None} {label}: max abs err "
-                          f"{err:.3e}, rel per vector {max(rel):.2e}, dots and scalars {max(dot_rel):.2e}, d/g/x bitwise {bitwise}")
+                    tables = _sweep_tables(p, n_el, scale, value, dtype)
+                    _, rel, dot_rel = _k5_compare(CGFusedStep(tables), *_k5_state(tables, stream, seed=n), label)
+                    worst[label] = max(worst[label], max(rel))
+                    n += 1
+        print(f"phase 13: K5 p={p}: bricks {[b for b, _ in _sweep_bricks(p)]} (the last after scale_), value table "
+              f"or not, f64 / f32 / bf16: agree, d/g/x bitwise (worst rel err per vector so far "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + ")")
+    print(f"phase 13: K5 agrees with its plain version on {n} cases, NaN-filled write buffers fully written")
     main = {}
-    mesh = BrickMesh.bp5_cycle(MAIN_CYCLE)
-    helm = _helmholtz_nodal(mesh, DEGREE)
-    for value in (None, helm):
-        for label, dtype, stream in PRECISIONS:
-            tables = StencilTables.create(mesh, Basis1D.make(DEGREE), getattr(torch, dtype), DEVICE, value=value)
-            err, rel, dot_rel, bitwise, s, scal = _k5_compare(tables, label, stream, seed=5)
-            step = CGFusedStep(tables)
-            sw = torch.empty_like(s)
-            # K5 and its one-block finishing pass, as the solver calls them
-            ms = _time_ms(lambda: step.iterate(s, sw, scal))
-            plain_ms = _time_ms(lambda: cg_next_scalars(cg_step_reference(s, scal, tables)[1]), n=5)
-            n, sd, cd = s[0].numel(), s.element_size(), tables.dtype.itemsize
-            traffic = 8 * n * sd + (n * cd if value is not None else 0)
-            # K1's operations, the value term, 4 for the updates, 3 for x, 8 for the dots
-            flops = n * (4 + 6 * (2 * DEGREE + 1) + (2 if value is not None else 0) + 15)
-            bound_ms, bound_by = _bound_ms(traffic, flops, label)
-            print(f"phase 13: K5, cycle {MAIN_CYCLE} grid {tables.shape} value={value is not None} {label}: max abs "
-                  f"err {err:.3e}, rel per vector {max(rel):.2e}, dots and scalars {max(dot_rel):.2e}, d/g/x bitwise {bitwise}; "
-                  f"kernel {ms:.4f} ms ({traffic / ms / 1e6:.1f} GB/s of ideal traffic), plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by})")
-            if value is None:
-                main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-            del s, sw, step, tables
+    for name, label, step, s, scal in k5_shapes(device=DEVICE):
+        tables = step.tables
+        err, rel, dot_rel = _k5_compare(step, s, scal, label)
+        # K5 and its one-block finishing pass, as the solver calls them
+        ms, plain_ms = time_k5(step, s, scal)
+        n, sd, cd = s[0].numel(), s.element_size(), tables.dtype.itemsize
+        traffic = 8 * n * sd + (n * cd if tables.a is not None else 0)
+        # K1's operations, the value term, 4 for the updates, 3 for x, 8 for the dots
+        flops = n * (4 + 6 * (2 * DEGREE + 1) + (2 if tables.a is not None else 0) + 15)
+        bound_ms, bound_by = _bound_ms(traffic, flops, label)
+        print(f"phase 13: K5 {name} grid {tables.shape} {label}: max abs err {err:.3e}, rel per vector "
+              f"{max(rel):.2e}, dots and scalars {max(dot_rel):.2e}, d/g/x bitwise; kernel + finish {ms:.4f} ms "
+              f"({traffic / ms / 1e6:.1f} GB/s of ideal traffic, {100 * bound_ms / ms:.1f} % of the bound), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if tables.a is None:
+            main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del s, step, tables
     return main
 
 
@@ -1228,45 +1283,35 @@ def _ptxas_k2(args):
 
 
 def phase19_k1_components():
-    import numpy as np
+    """K1 with 3 components in one launch against three 1-component launches
+    (bitwise) and its twin, at small shapes and BP6's main shape; then
+    BP6's shape timed (``_k1_main``) beside three 1-component launches."""
     import torch
 
-    from deal_and_ceed_on_gpu_torch import Basis1D
-    from deal_and_ceed_on_gpu_torch.drivers.bp import target_mesh
-    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
-    from deal_and_ceed_on_gpu_torch.ops.stencil import StencilTables, stencil_apply, stencil_apply_reference
+    from deal_and_ceed_on_gpu_torch.ops.stencil import stencil_apply
+    from deal_and_ceed_on_gpu_torch.scripts.bench_k1_k5 import k1_shapes
 
-    cases = [(BrickMesh(shape, upper=(1.0, 0.8, 1.3)), p) for shape in SMALL_SHAPES[1:] for p in (2, 5, 8)]
-    cases.append((target_mesh(BP_DEGREE, BP_TARGET_DOFS), BP_DEGREE))
-    main = {}
-    for k, (mesh, p) in enumerate(cases):
+    cases = [(shape, p) for shape in SMALL_SHAPES[1:] for p in (2, 5, 8)]
+    for k, (n_el, p) in enumerate(cases):
         for label, dtype, stream in PRECISIONS:
-            tables = StencilTables.create(mesh, Basis1D.make(p), getattr(torch, dtype), DEVICE)
-            sd = getattr(torch, stream) if stream else tables.dtype
-            u = torch.as_tensor(np.random.default_rng(k).standard_normal((3, *tables.shape)), dtype=tables.dtype,
-                                device=DEVICE).to(sd)
+            tables = _sweep_tables(p, n_el, None, False, dtype)
+            u = _k1_input(tables, stream, 3, seed=k)
             got = stencil_apply(u, tables)
-            single = torch.stack([stencil_apply(u[c], tables) for c in range(3)])
-            torch.cuda.synchronize()
-            want = stencil_apply_reference(u, tables)
-            err = float((got.double() - want.double()).abs().max())
-            rel = err / float(want.double().abs().max())
-            same = bool(torch.equal(got, single))
-            if not (same and rel <= K2_TOL[label]):
-                raise AssertionError(f"K1 with 3 components: grid {tables.shape} p={p} {label}: equal to three "
-                                     f"launches {same}, rel err to the twin {rel:.3e}")
-            line = f"phase 19: K1 nc=3 grid {tables.shape} p={p} {label}: equal to 3 launches, rel err {rel:.3e}"
-            if k == len(cases) - 1:
-                ms = _time_ms(lambda: stencil_apply(u, tables))
-                ms3 = _time_ms(lambda: [stencil_apply(u[c], tables) for c in range(3)])
-                plain_ms = _time_ms(lambda: stencil_apply_reference(u, tables), n=3)
-                bound_ms, bound_by = _k1_bound_ms(u.numel(), p, label)
-                line += (f"; kernel {ms:.4f} ms, three 1-component launches {ms3:.4f} ms, plain {plain_ms:.4f} ms, "
-                         f"bound {bound_ms:.4f} ms ({bound_by})")
-                main[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-            print(line)
-            del u, got, single, want
-    return main
+            same = bool(torch.equal(got, torch.stack([stencil_apply(u[c], tables) for c in range(3)])))
+            _, rel = _k1_check(u, tables, label)
+            if not same:
+                raise AssertionError(f"K1 with 3 components: grid {tables.shape} p={p} {label}: not equal to three "
+                                     f"1-component launches")
+            print(f"phase 19: K1 nc=3 grid {tables.shape} p={p} {label}: equal to 3 launches, rel err {rel:.3e}")
+    for _, label, tables, u, _ in k1_shapes(["bp6"], device=DEVICE):
+        got = stencil_apply(u, tables)
+        if not bool(torch.equal(got, torch.stack([stencil_apply(u[c], tables) for c in range(3)]))):
+            raise AssertionError(f"K1 with 3 components at BP6's shape ({label}): not equal to three launches")
+        ms3 = _time_ms(lambda: [stencil_apply(u[c], tables) for c in range(3)])
+        print(f"phase 19: K1 nc=3 BP6 shape {tuple(u.shape)} {label}: equal to 3 launches; three 1-component "
+              f"launches {ms3:.4f} ms")
+        del u, got, tables
+    return _k1_main("phase 19", "bp6")
 
 
 def phase20_bp_golden():
@@ -1787,7 +1832,6 @@ def main():
             "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py:443",
             "launches": launches[label],
             **kernel[label],
-            "library_ms": None,
         }
         for label, _, _ in PRECISIONS
     ] + [
@@ -1818,7 +1862,6 @@ def main():
             "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py:443",
             "launches": k1_value_launches[label],
             **k1_value[label],
-            "library_ms": None,
         }
         for label, _, _ in PRECISIONS
     ] + [
@@ -1860,7 +1903,6 @@ def main():
             "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py:443",
             "launches": k1_nc_launches[label],
             **k1_nc[label],
-            "library_ms": None,
         }
         for label, _, _ in PRECISIONS
     ] + [

@@ -19,237 +19,254 @@
 // diag(d3 a) u = S diag(a) S u): one more stream and one multiply-add a
 // point, in the same launch.
 //
-// What bounds it: memory traffic. Per point it does 3(2p+1) multiply-adds
-// (33 at p=5) against one read of u and one write of out in the ideal case
-// (16 bytes in f64, 8 in f32, 4 with bf16 storage), far below the card's
-// FLOP/byte balance. This first version reaches a fifth to a third of the
-// HBM bandwidth at the BP5 main shape (PERF.md): the load latency across
-// the two barriers a plane needs, not the bytes, holds it back. The design
-// keeps the re-reads a 3D stencil would make out of device memory:
-//   - a block of BX x BY threads owns a (y, x) tile and marches over a range
-//     of z planes, one thread per (y, x) column;
-//   - each thread keeps its column's 2p+1 S-scaled z neighbours in a register
-//     queue, so every z tap comes from registers and each plane of the
-//     column is read once (plus 2p planes to prime each z range);
-//   - the current plane's S-scaled tile with its cross-shaped halo
-//     ((BY+2p) x (BX+2p) without corners) sits in shared memory; the centre
-//     comes from the queue, only the halo ring is loaded again (mostly from
-//     L2, since the neighbouring tiles read the same points as their own).
-// The x/y band rows of a thread and its in-plane scaling factors are
-// constant over z and stay in registers. The loads of plane z+1 are issued
-// before the barrier and the taps of plane z (a two-stage software
-// pipeline), so their latency overlaps the arithmetic.
-// Taps outside [0, n) are skipped by index guards on the loads (the bands
-// are zero there anyway, but the addresses would be out of range).
+// What bounds it: memory traffic in principle. Per point it does 3(2p+1)
+// multiply-adds (33 at p=5) against one read of u and one write of out (16
+// bytes in f64, 8 in f32, 4 with bf16 storage), far below the card's
+// FLOP/byte balance. In practice the instructions a point and the latency a
+// plane bound it (PERF.md): the first version kept ~4 KB of loads in flight
+// an SM across two barriers a plane and reached a fifth of the bound. The
+// design (csrc/stencil_tile.cuh, shared with K5): the window of each plane by
+// cp.async into a ring of raw stages NS - 1 planes ahead, a branch-free pass
+// into a zero-padded window, double-buffered so that the pass of plane z + 1
+// and the taps of plane z share one barrier, the z taps pushed into a
+// register queue of running sums, the y taps from a register line of R rows,
+// the x taps from shared memory once; the block shape, ring depth and register budget per
+// (type, p) are Cfg's, chosen on an H100 so that no instantiation spills, and
+// the z ranges are cut for whole waves of resident blocks.
 //
 // Storage/compute pairs: (double, double), (float, float) and
 // (__nv_bfloat16, float), the bf16-streaming mode: vectors move at 2 bytes,
 // every tap accumulates in f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "stencil_tile.cuh"
 
 namespace {
 
-constexpr int BX = 32;  // tile width in x (one warp)
-constexpr int BY = 16;  // tile height in y; BX, BY >= p (halo loaded by the first p rows/cols)
-constexpr int MAX_DEGREE = 8;
+// The block per (storage type, p), chosen on an H100 (PERF.md): NW warps of
+// R rows each, NS raw stages in the ring (NS - 1 planes in flight), MINB
+// resident blocks an SM for the register budget.
+template <typename S, int P>
+struct Cfg {
+  static constexpr int NW = P <= 6 ? 6 : 4, R = P <= 5 ? 2 : 1, NS = 4, MINB = 2;
+};
+template <int P>
+struct Cfg<float, P> {
+  static constexpr int NW = 8, R = 2, NS = 4, MINB = 2;
+};
+template <int P>
+struct Cfg<__nv_bfloat16, P> {
+  static constexpr int NW = 8, R = 2, NS = 6, MINB = 2;
+};
 
 template <typename S, typename C>
-struct Convert {
-  __device__ __forceinline__ static C up(S v) { return v; }
-  __device__ __forceinline__ static S down(C v) { return v; }
-  __device__ __forceinline__ static S zero() { return S(0); }
+struct Params {
+  const S* u;
+  S* out;
+  const C *bz, *by, *bx, *sz, *sy, *sx, *a;
+  int nz, ny, nx, zchunk, nchunks;
 };
 
-template <>
-struct Convert<__nv_bfloat16, float> {
-  __device__ __forceinline__ static float up(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ __forceinline__ static __nv_bfloat16 down(float v) { return __float2bfloat16(v); }
-  __device__ __forceinline__ static __nv_bfloat16 zero() { return __float2bfloat16(0.0f); }
+// The shared memory of one instantiation: the ring of raw stages of u (and
+// of the value table), the window at the compute type, the y coefficients
+// and the per-plane ones.
+template <typename S, typename C, int P, bool V>
+struct Smem {
+  using G = Cfg<S, P>;
+  using Sh = Shape<S, P, G::NW, G::R>;
+  using WU = Window<S, P, G::NW, G::R>;
+  using WA = Window<C, P, G::NW, G::R, true>;
+  static constexpr size_t RING = (size_t)G::NS * WU::STAGE * 16, ARING = V ? (size_t)G::NS * WA::STAGE * 16 : 0;
+  static constexpr int WINP = padded<C>(WU::KW * Sh::NT);  // a window, every slot's place
+  static constexpr size_t BYTES =
+      RING + ARING + (2 * WINP + Sh::TH * padded<C>(Sh::NTAP) + G::NS * PlaneCoef<C, P>::CP) * sizeof(C);
 };
 
-// Resident blocks per SM the register budget is cut for: two with f32
-// compute (64 registers a thread, measured 1.4x faster than one block of
-// ~85 registers at the main shape), one with f64 (the f64 queue and bands
-// need ~127 registers; capping at 64 made it 1.6x slower).
-template <typename C>
-struct MinBlocks {
-  static constexpr int value = sizeof(C) == 4 ? 2 : 1;
-};
-
-// V: with the value term (a is read); the instantiation without it is the
-// plain Poisson stencil, unchanged by the extra operand. NC: a stack of
-// components (blockIdx.z = component * nchunks + z range); the scalar
-// instantiation is the one-component kernel unchanged (a runtime component
-// offset cost the f32 kernel its register budget: it spilled at p = 5).
+// V: with the value term (a is read); NC: a stack of components
+// (blockIdx.z = component * nchunks + z range).
 template <typename S, typename C, int P, bool V, bool NC>
-__global__ void __launch_bounds__(BX * BY, MinBlocks<C>::value)
-stencil_kernel(const S* __restrict__ u, S* __restrict__ out,
-               const C* __restrict__ bz, const C* __restrict__ by,
-               const C* __restrict__ bx, const C* __restrict__ sz,
-               const C* __restrict__ sy, const C* __restrict__ sx,
-               const C* __restrict__ a, int nz, int ny, int nx, int zchunk, int nchunks) {
-  constexpr int NT = 2 * P + 1;
-  __shared__ C tile[BY + 2 * P][BX + 2 * P];
+__global__ void __launch_bounds__(32 * Cfg<S, P>::NW, Cfg<S, P>::MINB)
+stencil_kernel(const Params<S, C> pr) {
+  using G = Cfg<S, P>;
+  using Sh = Shape<S, P, G::NW, G::R>;
+  using Cv = Convert<S, C>;
+  using M = Smem<S, C, P, V>;
+  using WU = typename M::WU;
+  using WA = typename M::WA;
+  using PC = PlaneCoef<C, P>;
+  constexpr int R = G::R, NS = G::NS, NTAP = Sh::NTAP, RS = Sh::RS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* const ring = reinterpret_cast<uint4*>(smem);             // [NS][WU::STAGE] raw words of u
+  uint4* const aring = reinterpret_cast<uint4*>(smem + M::RING);  // [NS][WA::STAGE] raw words of a
+  C* const wins = reinterpret_cast<C*>(smem + M::RING + M::ARING);  // [2][WINP] the windows of planes zi, zi + 1
+  C* const bys = wins + 2 * M::WINP;                                 // [TH][padded(NTAP)]
+  C* const czr = bys + Sh::TH * padded<C>(NTAP);                   // [NS][PC::CP] the per-plane coefficients
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int x = blockIdx.x * BX + tx;
-  const int y = blockIdx.y * BY + ty;
-  const int comp = NC ? blockIdx.z / nchunks : 0;
-  const int z0 = (NC ? blockIdx.z % nchunks : blockIdx.z) * zchunk;
-  const int z1 = z0 + zchunk < nz ? z0 + zchunk : nz;
-  const bool inside = x < nx && y < ny;
-  const long plane = (long)ny * nx;
-  // the component's offset is folded into the in-plane offsets below (col,
-  // off_*), which are live anyway
-  const long coff = NC ? (long)comp * nz * plane : 0L;
+  const int nz = pr.nz, ny = pr.ny, nx = pr.nx;
+  const long long plane = (long long)ny * nx;
+  const int comp = NC ? blockIdx.z / pr.nchunks : 0;
+  const int z0 = (NC ? blockIdx.z % pr.nchunks : blockIdx.z) * pr.zchunk;
+  const int z1 = min(z0 + pr.zchunk, nz);
+  const S* const u = pr.u + (NC ? comp * plane * nz : 0LL);
+  const Tile t(nx, ny);
+  const Aligned<S> src(u);
+  const Aligned<C> asrc(V ? pr.a : reinterpret_cast<const C*>(u));
+  const WU wu(t, ny, nx);
+  const WA wa(t, ny, nx);
+  WU::zero_stages(ring, NS);
+  if (V) WA::zero_stages(aring, NS);
 
-  // Raw input (storage type) at plane zz and in-plane offset off, zero
-  // outside the grid (ok: the (y, x) point exists). It is converted and
-  // S-scaled when it enters the queue or the tile: (u sz[zz]) (sy[y] sx[x]),
-  // the in-plane factor being constant over z. Keeping the prefetched
-  // values in the storage type lets the conversion wait for the data
-  // (converting at the load made the bf16 path 1.7x slower).
-  auto raw = [&](bool ok, int zz, long off) -> S {
-    return (ok && zz >= 0 && zz < nz) ? u[zz * plane + off] : Convert<S, C>::zero();
+  fill_by<C, P, Sh::TH>(bys, t, pr.by, pr.sy, ny, Sh::NT);
+  const Column<C, P, R> col(t, pr.bx, pr.sx, pr.sy, ny, nx);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  // per point: in the tile; on a face of y or x (then only z decides)
+  bool in[R], edge[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int y = col.y0 + j;
+    in[j] = col.in(t, j);
+    edge[j] = y == 0 || y == ny - 1 || col.x == 0 || col.x == nx - 1;
+  }
+
+  // the input planes: P on each side of the range feed its z taps; those
+  // below the grid add nothing, those above it only finish sums
+  const int za = max(z0 - P, 0), ze = z1 + P, zb = min(ze, nz);
+  int zn = za, sn = 0;  // the next plane to copy and its stage
+  auto issue = [&]() {
+    if (zn < zb) {
+      wu.issue(ring + sn * WU::STAGE, src.base, src.zoff(zn, plane));
+      if (V && zn >= z0 && zn < z1) wa.issue(aring + sn * WA::STAGE, asrc.base, asrc.zoff(zn, plane));
+    }
+    if (zn < ze) PC::issue(czr + sn * PC::CP, pr.bz, pr.sz, zn, nz);
+    cp_commit();
+    ++zn;
+    sn = sn + 1 == NS ? 0 : sn + 1;
   };
-  auto up = [](S v) -> C { return Convert<S, C>::up(v); };
-  auto zscale = [&](int zz) -> C { return (zz >= 0 && zz < nz) ? sz[zz] : C(0); };
-
-  C bxr[NT], byr[NT];
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    bxr[t] = inside ? bx[(long)x * NT + t] : C(0);
-    byr[t] = inside ? by[(long)y * NT + t] : C(0);
+  for (int k = 0; k < NS - 1; ++k) issue();
+  C acc[R][NTAP];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int k = 0; k < NTAP; ++k) acc[j][k] = C(0);
+  // this plane's points of the thread: out + zi plane + pt + j nx
+  S* op = pr.out + (NC ? comp * plane * nz : 0LL) + za * plane + (long long)col.y0 * nx + col.x;
+  const long long back = P * plane;  // from plane zi to plane zi - P
+
+  // the window of plane z in wins[z & 1], from its landed stage
+  auto form = [&](int z, int sz) {
+    const uint4* const stage = ring + sz * WU::STAGE;
+    const int zl = (int)(src.zoff(z, plane) & (Word<S>::W - 1));
+    C* const win = wins + (z & 1) * M::WINP;
+#pragma unroll
+    for (int k = 0; k < WU::KW; ++k) win[threadIdx.x + k * Sh::NT] = Cv::up(wu.at(k, stage, zl));
+  };
+  cp_wait<NS - 2>();  // plane za has landed (this thread's copies)
+  __syncthreads();
+  form(za, 0);
+
+  // one barrier a plane: the window of plane zi + 1 is formed while plane
+  // zi's taps are taken (double-buffered), both from what the barrier
+  // ordered
+  int st = 0;  // the stage of plane zi
+  for (int zi = za; zi < ze; ++zi, op += plane, st = st + 1 == NS ? 0 : st + 1) {
+    const bool live = zi < nz;
+    cp_wait<NS - 3>();  // this thread's copies of plane zi + 1 have landed
+    __syncthreads();    // everyone's have, plane zi's window is formed and plane zi - 1's taps are done
+    issue();
+    if (zi + 1 < zb) form(zi + 1, st + 1 == NS ? 0 : st + 1);
+    const C* const win = wins + (zi & 1) * M::WINP;
+    const C* const cz = czr + st * PC::CP;
+
+    if (live) {
+      const C* wc = win + (w * R + P) * RS + lane + P;  // the thread's centre, row 0
+      C uc[R], v[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        uc[j] = wc[j * RS];
+        v[j] = col.sxy(j) * uc[j] * cz[NTAP];
+      }
+      push(acc, cz, v);
+      if (zi >= z0 && zi < z1) {
+        C xy[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) xy[j] = C(0);
+        add_xy<C, P, R, RS>(xy, win, bys, col, cz[NTAP]);
+        const bool zface = zi == 0 || zi == nz - 1;
+        const int azl = (int)(asrc.zoff(zi, plane) & (Word<C>::W - 1));
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          C add = xy[j];
+          if (V) add += wa.at(j, aring + st * WA::STAGE, azl) * cz[NTAP] * col.sxy(j) * uc[j];
+          acc[j][P] += add;
+          if (in[j] && (zface || edge[j])) op[(long long)j * nx] = Cv::down(uc[j]);
+        }
+      }
+    }
+    // output plane zo = zi - P has all its taps
+    const int zo = zi - P;
+    if (zo >= z0 && zo > 0 && zo < nz - 1) {
+      const C so = cz[NTAP + 1];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (in[j] && !edge[j]) op[(long long)j * nx - back] = Cv::down(so * col.sxy(j) * acc[j][0]);
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+#pragma unroll
+      for (int k = 0; k < NTAP - 1; ++k) acc[j][k] = acc[j][k + 1];
+      acc[j][NTAP - 1] = C(0);
+    }
   }
-  const long acol = (long)y * nx + x;  // the value table's, shared by the components
-  const long col = coff + acol;
-  const C sxy = inside ? sy[y] * sx[x] : C(0);
-
-  // the halo points this thread loads (the first P rows load the y halo
-  // above and below the tile, the first P columns the x halo left and right)
-  const bool hy = ty < P, hx = tx < P;
-  const int yt = y - P, yb = y + BY, xl = x - P, xr = x + BX;
-  const bool ok_t = hy && x < nx && yt >= 0 && yt < ny;
-  const bool ok_b = hy && x < nx && yb < ny;
-  const bool ok_l = hx && y < ny && xl >= 0 && xl < nx;
-  const bool ok_r = hx && y < ny && xr < nx;
-  const long off_t = coff + (long)yt * nx + x, off_b = coff + (long)yb * nx + x;
-  const long off_l = coff + (long)y * nx + xl, off_r = coff + (long)y * nx + xr;
-  const C f_t = ok_t ? sy[yt] * sx[x] : C(0), f_b = ok_b ? sy[yb] * sx[x] : C(0);
-  const C f_l = ok_l ? sy[y] * sx[xl] : C(0), f_r = ok_r ? sy[y] * sx[xr] : C(0);
-
-  // q[t] holds v(z - P + t) at this column once plane z is current; prime
-  // the 2P planes below the first output plane's lookahead
-  C q[NT];
-#pragma unroll
-  for (int t = 1; t < NT; ++t) {
-    const int zz = z0 - P - 1 + t;
-    q[t] = up(raw(inside, zz, col)) * zscale(zz) * sxy;
-  }
-
-  // software pipeline: the loads of plane z+1 are issued before the
-  // barrier and the taps of plane z, so their latency overlaps the work
-  S pc = raw(inside, z0 + P, col);
-  S pt = raw(ok_t, z0, off_t), pb = raw(ok_b, z0, off_b);
-  S pl = raw(ok_l, z0, off_l), pr = raw(ok_r, z0, off_r);
-  // the value coefficient at the current plane, loaded one plane ahead too
-  auto aval = [&](int zz) -> C { return (V && inside && zz < nz) ? a[zz * plane + acol] : C(0); };
-  C pa = aval(z0);
-
-  for (int z = z0; z < z1; ++z) {
-#pragma unroll
-    for (int t = 0; t < NT - 1; ++t) q[t] = q[t + 1];
-    q[NT - 1] = up(pc) * zscale(z + P) * sxy;
-
-    const C szz = sz[z];
-    const C az = pa;
-    tile[ty + P][tx + P] = q[P];
-    if (hy) {
-      tile[ty][tx + P] = up(pt) * szz * f_t;
-      tile[ty + BY + P][tx + P] = up(pb) * szz * f_b;
-    }
-    if (hx) {
-      tile[ty + P][tx] = up(pl) * szz * f_l;
-      tile[ty + P][tx + BX + P] = up(pr) * szz * f_r;
-    }
-    pc = raw(inside, z + 1 + P, col);
-    if (hy) {
-      pt = raw(ok_t, z + 1, off_t);
-      pb = raw(ok_b, z + 1, off_b);
-    }
-    if (hx) {
-      pl = raw(ok_l, z + 1, off_l);
-      pr = raw(ok_r, z + 1, off_r);
-    }
-    pa = aval(z + 1);
-    __syncthreads();
-
-    if (inside) {
-      const C* bzr = bz + (long)z * NT;
-      C acc = C(0);
-#pragma unroll
-      for (int t = 0; t < NT; ++t) acc += bzr[t] * q[t];
-#pragma unroll
-      for (int t = 0; t < NT; ++t) acc += byr[t] * tile[ty + t][tx + P];
-#pragma unroll
-      for (int t = 0; t < NT; ++t) acc += bxr[t] * tile[ty + P][tx + t];
-      if (V) acc += az * q[P];
-      const long i = z * plane + col;
-      const bool face = z == 0 || z == nz - 1 || y == 0 || y == ny - 1 || x == 0 || x == nx - 1;
-      out[i] = face ? u[i] : Convert<S, C>::down(acc * szz * sxy);
-    }
-    __syncthreads();  // the tile is rewritten for the next plane
-  }
+  cp_wait<0>();  // no copy outlives the block
 }
 
 template <typename S, typename C, int P>
-cudaError_t launch(const void* u, void* out, const void* bz, const void* by, const void* bx,
-                   const void* sz, const void* sy, const void* sx, const void* a, int nc, int nz,
-                   int ny, int nx, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int gx = (nx + BX - 1) / BX, gy = (ny + BY - 1) / BY;
-  // split z into enough ranges for ~4 blocks per SM over all components,
-  // but keep each range at least 4p planes so priming the queue (2p planes)
-  // stays a small share
-  const long cols = (long)gx * gy * nc;
-  const long want = (4L * (sms > 0 ? sms : 132) + cols - 1) / cols;
-  int zchunk = (int)((nz + want - 1) / want);
-  const int min_chunk = nz < 4 * P ? nz : 4 * P;
-  if (zchunk < min_chunk) zchunk = min_chunk;
-  const int nchunks = (nz + zchunk - 1) / zchunk;
-  if ((long)nc * nchunks > 65535) return cudaErrorInvalidConfiguration;
-  auto kernel = a != nullptr ? (nc > 1 ? stencil_kernel<S, C, P, true, true> : stencil_kernel<S, C, P, true, false>)
-                              : (nc > 1 ? stencil_kernel<S, C, P, false, true> : stencil_kernel<S, C, P, false, false>);
-  kernel<<<dim3(gx, gy, nc * nchunks), dim3(BX, BY), 0, stream>>>(
-      static_cast<const S*>(u), static_cast<S*>(out), static_cast<const C*>(bz),
-      static_cast<const C*>(by), static_cast<const C*>(bx), static_cast<const C*>(sz),
-      static_cast<const C*>(sy), static_cast<const C*>(sx), static_cast<const C*>(a), nz, ny, nx,
-      zchunk, nchunks);
+cudaError_t launch(const Params<S, C>& a0, int nc, cudaStream_t stream) {
+  using G = Cfg<S, P>;
+  using Sh = Shape<S, P, G::NW, G::R>;
+  Params<S, C> a = a0;
+  const bool v = a.a != nullptr;
+  auto kernel = v ? (nc > 1 ? stencil_kernel<S, C, P, true, true> : stencil_kernel<S, C, P, true, false>)
+                  : (nc > 1 ? stencil_kernel<S, C, P, false, true> : stencil_kernel<S, C, P, false, false>);
+  const size_t smem = v ? Smem<S, C, P, true>::BYTES : Smem<S, C, P, false>::BYTES;
+  // always: above 48 KB a launch needs the attribute
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Sh::NT, smem);
+  if (err != cudaSuccess) return err;
+  const int gx = (a.nx + Sh::TW - 1) / Sh::TW, gy = (a.ny + Sh::TH - 1) / Sh::TH;
+  a.zchunk = pick_zchunk(a.nz, (long long)gx * gy * nc, (long long)per_sm * sm_count(), 2 * P, &a.nchunks);
+  if ((long long)nc * a.nchunks > 65535) return cudaErrorInvalidConfiguration;
+  kernel<<<dim3(gx, gy, nc * a.nchunks), Sh::NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename S, typename C>
-cudaError_t launch_degree(int p, const void* u, void* out, const void* bz, const void* by,
-                          const void* bx, const void* sz, const void* sy, const void* sx,
-                          const void* a, int nc, int nz, int ny, int nx, cudaStream_t s) {
+cudaError_t launch_degree(int p, const Params<S, C>& a, int nc, cudaStream_t s) {
   switch (p) {
-    case 1: return launch<S, C, 1>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 2: return launch<S, C, 2>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 3: return launch<S, C, 3>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 4: return launch<S, C, 4>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 5: return launch<S, C, 5>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 6: return launch<S, C, 6>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 7: return launch<S, C, 7>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 8: return launch<S, C, 8>(u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 1: return launch<S, C, 1>(a, nc, s);
+    case 2: return launch<S, C, 2>(a, nc, s);
+    case 3: return launch<S, C, 3>(a, nc, s);
+    case 4: return launch<S, C, 4>(a, nc, s);
+    case 5: return launch<S, C, 5>(a, nc, s);
+    case 6: return launch<S, C, 6>(a, nc, s);
+    case 7: return launch<S, C, 7>(a, nc, s);
+    case 8: return launch<S, C, 8>(a, nc, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-static_assert(BX >= MAX_DEGREE && BY >= MAX_DEGREE, "halo rows/cols are loaded by the first p threads");
+template <typename S, typename C>
+cudaError_t launch_type(int p, const void* u, void* out, const void* bz, const void* by, const void* bx,
+                        const void* sz, const void* sy, const void* sx, const void* a, int nc, int nz, int ny,
+                        int nx, cudaStream_t s) {
+  const Params<S, C> pr{static_cast<const S*>(u), static_cast<S*>(out), static_cast<const C*>(bz),
+                        static_cast<const C*>(by), static_cast<const C*>(bx), static_cast<const C*>(sz),
+                        static_cast<const C*>(sy), static_cast<const C*>(sx), static_cast<const C*>(a),
+                        nz, ny, nx, nz, 1};
+  return launch_degree<S, C>(p, pr, nc, s);
+}
 
 }  // namespace
 
@@ -264,9 +281,9 @@ extern "C" int stencil_apply_launch(int dtype_code, int p, const void* u, void* 
   if (nc < 1 || nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
-    case 0: return (int)launch_degree<double, double>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 1: return (int)launch_degree<float, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 2: return (int)launch_degree<__nv_bfloat16, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 0: return (int)launch_type<double, double>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 1: return (int)launch_type<float, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 2: return (int)launch_type<__nv_bfloat16, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

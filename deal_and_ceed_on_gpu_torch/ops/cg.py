@@ -88,7 +88,7 @@ def _library():
     lib = load_library(SOURCE)
     lib.cg_step_launch.argtypes = _ARGTYPES
     lib.cg_step_launch.restype = ctypes.c_int
-    lib.cg_step_blocks.argtypes = [ctypes.c_int] * 5
+    lib.cg_step_blocks.argtypes = [ctypes.c_int] * 6
     lib.cg_step_blocks.restype = ctypes.c_int
     lib.cg_finish_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.cg_finish_launch.restype = ctypes.c_int
@@ -156,7 +156,7 @@ class CGFusedStep:
         lib = _library()
         with torch.cuda.device(s.device):
             stream = torch.cuda.current_stream(s.device).cuda_stream
-            n_blocks = lib.cg_step_blocks(code, t.p, nz, ny, nx)
+            n_blocks = lib.cg_step_blocks(code, t.p, int(t.a is not None), nz, ny, nx)
             if n_blocks < 1:
                 raise ValueError(f"cg step: no launch grid for degree {t.p}")
             partials = torch.empty((n_blocks, 4), dtype=self.dtype, device=s.device)

@@ -161,8 +161,9 @@ class StencilTables:
                 t.mul_(s)
 
 
-def _check(u: torch.Tensor, tables: StencilTables) -> int:
-    """Validate ``u`` against the tables; return the launcher's dtype code."""
+def _check(u: torch.Tensor, tables: StencilTables, out: torch.Tensor | None = None) -> int:
+    """Validate ``u`` (and ``out``) against the tables; return the
+    launcher's dtype code."""
     code = _DTYPE_CODES.get((u.dtype, tables.dtype))
     if code is None:
         raise TypeError(
@@ -185,6 +186,13 @@ def _check(u: torch.Tensor, tables: StencilTables) -> int:
         if t is not None
     ):
         raise ValueError("stencil: u and the tables must be contiguous")
+    if out is not None:
+        if out.shape != u.shape or out.dtype != u.dtype or out.device != u.device or not out.is_contiguous():
+            raise ValueError("stencil: out must be a contiguous tensor of u's shape, dtype and device")
+        lo, hi = u.data_ptr(), u.data_ptr() + u.numel() * u.element_size()
+        olo = out.data_ptr()
+        if olo < hi and lo < olo + out.numel() * out.element_size():
+            raise ValueError("stencil: out must not overlap u")
     return code
 
 
@@ -239,19 +247,21 @@ def _launcher():
     return fn
 
 
-def stencil_apply(u: torch.Tensor, tables: StencilTables) -> torch.Tensor:
+def stencil_apply(u: torch.Tensor, tables: StencilTables, out: torch.Tensor | None = None) -> torch.Tensor:
     """``out = K1(u)`` on a ``[nz, ny, nx]`` or ``[nc, nz, ny, nx]`` tensor
     (one launch for all components): the CUDA kernel for a CUDA tensor
-    (raises if it cannot launch), the plain twin for a CPU tensor. The
-    output is a new tensor of ``u``'s dtype."""
+    (raises if it cannot launch), the plain twin for a CPU tensor.
+    ``out``: a buffer of u's shape and dtype, not overlapping u, to write
+    (every entry is written), else a new tensor."""
     global LAUNCHES, VALUE_LAUNCHES, NC_LAUNCHES
-    code = _check(u, tables)
+    code = _check(u, tables, out)
     if u.device.type == "cpu":
-        return stencil_apply_reference(u, tables)
+        want = stencil_apply_reference(u, tables)
+        return want if out is None else out.copy_(want)
     if u.device.type != "cuda":
         raise ValueError(f"stencil: unsupported device {u.device}")
     launch = _launcher()
-    out = torch.empty_like(u)
+    out = torch.empty_like(u) if out is None else out
     nz, ny, nx = tables.shape
     nc = 1 if u.dim() == 3 else u.shape[0]
     with torch.cuda.device(u.device):

@@ -49,14 +49,20 @@ def _x_err(x_t, jop, x_j):
     return np.linalg.norm(x_t.double().numpy() - want) / np.linalg.norm(want)
 
 
+# degree -> brick of test_step_matches_jax: p = 3 is tests/test_cg_fused.py's
+# case, the others reach the lowest, the main and the highest degree
+STEP_BRICKS = {1: (5, 4, 6), 3: (6, 5, 7), 5: (3, 2, 3), 8: (2, 2, 2)}
+MID = (0.7, 0.4, 1.75)  # a mid-solve step from a random state
+
+
 @pytest.mark.parametrize("kind", ["poisson", "helmholtz"])
-@pytest.mark.parametrize("stream,scal", [
-    (None, (0.0, 0.0, 0.0)),       # the alpha = beta = 0 step of test_step_matches_constrained_vmult
-    (None, (0.7, 0.4, 1.75)),      # a mid-solve step from a random state
-    ("bfloat16", (0.7, 0.4, 1.75)),  # bf16 storage: the rounding order of pallas_cg.py
-])
-def test_step_matches_jax(kind, stream, scal):
-    jop, jb, top, tb = _setup(kind, stream=stream)
+@pytest.mark.parametrize("stream,scal,p", [
+    pytest.param(None, (0.0, 0.0, 0.0), 3, id="None-scal0"),  # the alpha = beta = 0 step of test_step_matches_constrained_vmult
+    pytest.param(None, MID, 3, id="None-scal1"),
+    pytest.param("bfloat16", MID, 3, id="bfloat16-scal2"),  # bf16 storage: the rounding order of pallas_cg.py
+] + [pytest.param(stream, MID, p, id=f"{stream}-p{p}") for p in (1, 5, 8) for stream in (None, "bfloat16")])
+def test_step_matches_jax(kind, stream, scal, p):
+    jop, jb, top, tb = _setup(kind, STEP_BRICKS[p], p, stream=stream)
     jstep, tstep = jop.fused_cg_step, top.fused_cg_step
     L = jop.layout
     rng = np.random.default_rng(1)
@@ -202,33 +208,39 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,value", [(2, False), (5, False), (5, True), (8, True)])
+@pytest.mark.parametrize("value", [False, True])
+@pytest.mark.parametrize("p", range(1, 9))
 @pytest.mark.parametrize("storage,compute,tol", [
     (torch.float64, torch.float64, 1e-13),
     (torch.float32, torch.float32, 1e-5),
     (torch.bfloat16, torch.float32, 3e-2),
 ])
 def test_k5_matches_plain_on_card(cuda_device, p, value, storage, compute, tol):
-    mesh = pt.BrickMesh((4, 3, 6), upper=(1.0, 0.8, 1.3))
-    grid = tuple(m * p + 1 for m in reversed(mesh.n_elements))
-    rng = np.random.default_rng(p)
-    tables = StencilTables.create(
-        mesh, pt.Basis1D.make(p), compute, cuda_device, value=0.5 + rng.random(grid) if value else None
-    )
-    step = cg.CGFusedStep(tables)
-    s = torch.as_tensor(rng.standard_normal((4, *grid)), dtype=compute, device=cuda_device).to(storage)
-    scal = torch.tensor([0.7, 0.4, 1.75], dtype=compute, device=cuda_device)
-    before = cg.LAUNCHES
-    got, summary = step.iterate(s, torch.full_like(s, float("nan")), scal)
-    torch.cuda.synchronize()
-    assert cg.LAUNCHES == before + 1
-    want, wdots = cg.cg_step_reference(s, scal, tables)
-    assert torch.isfinite(got).all()
-    for k in range(4):
-        err = (got[k].double() - want[k].double()).abs().max() / want[k].double().abs().max()
-        assert float(err) <= tol
-    np.testing.assert_allclose(summary.cpu().double().numpy(), cg.cg_next_scalars(wdots).cpu().double().numpy(),
-                               rtol=1e-10 if compute == torch.float64 else 1e-3)
+    """From a NaN-filled write buffer (every entry written), on bricks whose
+    grids are not a multiple of K5's tile in x, y or z and on one element:
+    d', g', x' bitwise, h' and the next scalars within the tolerance."""
+    for n_el in ((-(-40 // p), -(-36 // p), 3), (1, 1, 1), (4, 3, 6)):
+        mesh = pt.BrickMesh(n_el, upper=(1.0, 0.8, 1.3))
+        grid = tuple(m * p + 1 for m in reversed(mesh.n_elements))
+        rng = np.random.default_rng(p)
+        tables = StencilTables.create(
+            mesh, pt.Basis1D.make(p), compute, cuda_device, value=0.5 + rng.random(grid) if value else None
+        )
+        step = cg.CGFusedStep(tables)
+        s = torch.as_tensor(rng.standard_normal((4, *grid)), dtype=compute, device=cuda_device).to(storage)
+        scal = torch.tensor([0.7, 0.4, 1.75], dtype=compute, device=cuda_device)
+        before = cg.LAUNCHES
+        got, summary = step.iterate(s, torch.full_like(s, float("nan")), scal)
+        torch.cuda.synchronize()
+        assert cg.LAUNCHES == before + 1
+        want, wdots = cg.cg_step_reference(s, scal, tables)
+        assert torch.isfinite(got).all(), n_el
+        for k in (cg.D, cg.G, cg.X):
+            assert torch.equal(got[k], want[k]), (n_el, k)
+        err = (got[cg.H].double() - want[cg.H].double()).abs().max() / want[cg.H].double().abs().max()
+        assert float(err) <= tol, n_el
+        np.testing.assert_allclose(summary.cpu().double().numpy(), cg.cg_next_scalars(wdots).cpu().double().numpy(),
+                                   rtol=1e-10 if compute == torch.float64 else 1e-3)
 
 
 @pytest.mark.cuda

@@ -22,6 +22,13 @@ except ImportError:  # the card's machine has no jax: only the cuda-marked tests
 
 UPPER = (1.0, 0.8, 1.3)
 CASES = [((2, 3, 4), 2), ((2, 2, 2), 5), ((8, 4, 10), 3), ((2, 2, 2), 8)]
+# with CASES, every degree the kernels take (1..8), on small bricks
+EVERY_DEGREE = CASES + [((3, 2, 2), 1), ((2, 3, 2), 4), ((2, 2, 2), 6), ((2, 2, 2), 7)]
+# the card's checks: a brick whose grid is not a multiple of K1's tile (nx of
+# 41-43 points against 32 columns, ny of 37-41 against 16-32 rows, nz = 3p+1
+# cut into several z ranges), one element, and (4, 3, 6)
+def _tile_edge_bricks(p):
+    return [(-(-40 // p), -(-36 // p), 3), (1, 1, 1), (4, 3, 6)]
 
 
 def _spaces(shape, p, jdtype=None, tdtype=torch.float64):
@@ -74,7 +81,7 @@ def test_vector_order_matches_jax_layout(shape, p):
     np.testing.assert_array_equal(up[p : p + nz, 8 : 8 + ny, :nx], u.reshape(ts.grid_shape))
 
 
-@pytest.mark.parametrize("shape,p", CASES)
+@pytest.mark.parametrize("shape,p", EVERY_DEGREE)
 def test_twin_matches_jax_pallas_interpret(shape, p):
     js, ts = _spaces(shape, p)
     u = _random(js.n_dofs)
@@ -87,7 +94,7 @@ def test_twin_matches_jax_pallas_interpret(shape, p):
     np.testing.assert_allclose(op.vmult(torch.as_tensor(u)).numpy(), want, rtol=1e-13, atol=1e-13)
 
 
-@pytest.mark.parametrize("shape,p", CASES)
+@pytest.mark.parametrize("shape,p", EVERY_DEGREE)
 def test_value_twin_matches_jax_pallas_interpret(shape, p):
     """K1's value term: the twin on the JAX Helmholtz kernel's tables (value
     table carried across) against the JAX pallas backend in interpret mode,
@@ -165,6 +172,41 @@ def test_cpu_apply_uses_the_twin_and_counts_no_launch():
     assert st.LAUNCHES == before
 
 
+@pytest.mark.parametrize("nc", [1, 3])
+def test_cpu_apply_writes_out(nc):
+    """``out=``: the twin's result written into the given CPU buffer (every
+    entry, from NaN) and returned; no launch counted."""
+    _, ts = _spaces((3, 2, 4), 3)
+    tables = st.StencilTables.create(ts.mesh, ts.basis, torch.float64, device="cpu")
+    shape = ts.grid_shape if nc == 1 else (nc, *ts.grid_shape)
+    u = torch.as_tensor(_random(shape, seed=8))
+    out = torch.full_like(u, float("nan"))
+    before = st.LAUNCHES
+    got = st.stencil_apply(u, tables, out=out)
+    assert got is out and st.LAUNCHES == before
+    assert torch.equal(out, st.stencil_apply_reference(u, tables))
+
+
+def test_wrapper_rejects_bad_out():
+    """``out`` of another shape, dtype or device, strided, or overlapping u
+    is refused before anything is written."""
+    _, ts = _spaces((2, 3, 4), 2)
+    tables = st.StencilTables.create(ts.mesh, ts.basis, torch.float64, device="cpu")
+    u = torch.as_tensor(_random(ts.grid_shape))
+    bad = [
+        torch.empty(ts.grid_shape[::-1], dtype=torch.float64),  # shape
+        torch.empty((1, *ts.grid_shape), dtype=torch.float64),  # a component axis u lacks
+        torch.empty(ts.grid_shape, dtype=torch.float32),  # dtype
+        torch.empty(ts.grid_shape, dtype=torch.float64, device="meta"),  # device
+        torch.empty((*ts.grid_shape[:2], 2 * ts.grid_shape[2]), dtype=torch.float64)[..., ::2],  # strided
+        u,  # u itself
+    ]
+    for out in bad:
+        with pytest.raises(ValueError, match="out"):
+            st.stencil_apply(u, tables, out=out)
+    assert torch.equal(u, torch.as_tensor(_random(ts.grid_shape)))
+
+
 def test_wrapper_rejects_bad_inputs():
     _, ts = _spaces((2, 2, 2), 2)
     t64 = st.StencilTables.create(ts.mesh, ts.basis, torch.float64, device="cpu")
@@ -192,6 +234,35 @@ def test_tables_reject_unsupported_configurations():
         st.stencil_tables_np(pt.BrickMesh((2, 2, 2)), pt.Basis1D.make(9))
 
 
+def test_library_call_is_the_same_operator():
+    """bench_k1_k5's yardstick, torch.matmul(U, A_loc) on the gathered
+    element vectors, overlap-added, is the plain K1 on the free rows."""
+    from deal_and_ceed_on_gpu_torch.ops.local_global import gather_elements, scatter_elements
+    from deal_and_ceed_on_gpu_torch.scripts import bench_k1_k5
+
+    _, ts = _spaces((3, 2, 4), 5)
+    library = bench_k1_k5._library(ts.mesh, ts.basis, torch.float64, "cpu")
+    tables = st.StencilTables.create(ts.mesh, ts.basis, torch.float64, device="cpu")
+    u = torch.as_tensor(_random(tables.shape, seed=5))
+    face = st.face_mask(tables.shape, "cpu")
+    U = gather_elements(torch.where(face, torch.zeros_like(u), u), ts.mesh.n_elements, 5)
+    got = scatter_elements(library(U), ts.mesh.n_elements, 5).reshape(tables.shape)
+    want = st.stencil_apply_reference(u, tables)
+    assert float((got[~face] - want[~face]).abs().max()) <= 1e-13 * float(want.abs().max())
+
+
+def test_bench_k1_k5_needs_a_card_and_known_shapes(monkeypatch):
+    from deal_and_ceed_on_gpu_torch.scripts import bench_k1_k5
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        bench_k1_k5.main()
+    with pytest.raises(ValueError, match="unknown K1 shape"):
+        next(bench_k1_k5.k1_shapes(["bp7"], device="cpu"))
+    with pytest.raises(ValueError, match="unknown K5 shape"):
+        next(bench_k1_k5.k5_shapes(["bp6"], device="cpu"))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -200,26 +271,29 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [1, 2, 5, 8])
+@pytest.mark.parametrize("p", range(1, 9))
 @pytest.mark.parametrize("storage,compute,tol", [
     (torch.float64, torch.float64, 1e-13),
     (torch.float32, torch.float32, 1e-5),
     (torch.bfloat16, torch.float32, 3e-2),
 ])
 def test_kernel_matches_twin_on_card(cuda_device, p, storage, compute, tol):
-    mesh = pt.BrickMesh((4, 3, 6), upper=UPPER)
-    tables = st.StencilTables.create(mesh, pt.Basis1D.make(p), compute, cuda_device)
-    u = torch.as_tensor(_random(tables.shape, seed=p), device=cuda_device).to(storage)
-    before = st.LAUNCHES
-    got = st.stencil_apply(u, tables)
-    torch.cuda.synchronize()
-    assert st.LAUNCHES == before + 1
-    want = st.stencil_apply_reference(u, tables)
-    err = (got.double() - want.double()).abs().max() / want.double().abs().max()
-    assert float(err) <= tol
-    nz, ny, nx = tables.shape
-    for sl in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0], np.s_[:, :, -1]):
-        assert torch.equal(got[sl], u[sl])
+    """From a NaN-filled output (every entry written), on bricks whose grids
+    are not a multiple of K1's tile in x, y or z and on one element."""
+    for n_el in _tile_edge_bricks(p):
+        mesh = pt.BrickMesh(n_el, upper=UPPER)
+        tables = st.StencilTables.create(mesh, pt.Basis1D.make(p), compute, cuda_device)
+        u = torch.as_tensor(_random(tables.shape, seed=p), device=cuda_device).to(storage)
+        before = st.LAUNCHES
+        got = st.stencil_apply(u, tables, out=torch.full_like(u, float("nan")))
+        torch.cuda.synchronize()
+        assert st.LAUNCHES == before + 1
+        want = st.stencil_apply_reference(u, tables)
+        assert bool(torch.isfinite(got).all()), n_el
+        err = (got.double() - want.double()).abs().max() / want.double().abs().max()
+        assert float(err) <= tol, n_el
+        for sl in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0], np.s_[:, :, -1]):
+            assert torch.equal(got[sl], u[sl])
 
 
 @pytest.mark.cuda
