@@ -121,7 +121,29 @@ anything does not build, launch, agree or converge. Phases:
     52^3 vmult (3,869,893 DoFs, Gauss q = 4) in f64 and f32 on ``general``,
     ``qgrid`` and ``structured`` (K4 and K3 must have launched), BP3 on
     ``general``, and mapped Helmholtz once on ``general`` against ``qgrid``;
-27. a ``torch.profiler`` trace of 20 iterations of the phase-24 solve.
+27. a ``torch.profiler`` trace of 20 iterations of the phase-24 solve;
+28. the kernels at the multigrid levels' shapes: K1 against its twin on
+    every level grid of the cycle-26 cube (81×81×161 down to 11×11×21, f64
+    and f32; the smaller levels are below one tile in y and z) and K4
+    against its plain version at every level's element count of the
+    sine-mapped 32³ mesh (E = 32768, 4096, 512, 64; GLL full6, f64 and
+    f32), from NaN-filled outputs; K1 at 81×81×161 and K4 at E = 4096 timed
+    beside their plain versions and bounds;
+29. the time-to-1e-10 rows of ``scripts/bench_solvers_r3.run_uniform`` on
+    the cycle-26 cube (1,056,321 DoFs, p = 5, f64) on K1: Jacobi merged CG,
+    MG-CG, IR, IR+MG and FDM against the JAX package's CPU goldens
+    (iterations +-1, IR+MG inner +-2, L2 norm 1e-8, true relative residual
+    <= 1.2e-10); K1 must have launched in every row, and every multigrid
+    level must be on ``stencil``;
+30. the same four rows (no FDM) on the sine-mapped 32³ mesh on K4;
+31. step-64 with ``--precond fdm`` and ``--precond mg`` on K3 in f64 at
+    refine 2 against the JAX goldens (iterations equal, L2 norm 1e-10),
+    then ``--precond mg`` at refine 6 (7,189,057 DoFs, every level on K3),
+    timed;
+32. ``drivers/bp5.run_cycle`` at cycle 33 (12,468,001 DoFs) with
+    ``fdm-direct`` and ``pcg-mg`` on K1 in f64, with their true residuals;
+33. ``torch.profiler`` traces of the MG-CG solves of phases 29 (K1) and 30
+    (K4): the device's busy share and its costliest kernels.
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -1591,7 +1613,7 @@ def _k4_group_edges():
     print(f"phase 22: K4 at element counts on and past the element group and E = 1: {n} cases agree")
 
 
-def _k4_time(k, label, tag, library=None):
+def _k4_time(k, label, tag, library=None, phase="phase 22"):
     """K4 on ``k`` against its plain version, timed beside both and the
     bound; returns its record (and prints it)."""
     from deal_and_ceed_on_gpu_torch.scripts.bench_k4 import time_k4
@@ -1599,7 +1621,7 @@ def _k4_time(k, label, tag, library=None):
     err, rel, u = _k4_compare(k, label, seed=7)
     ms, plain_ms, library_ms = time_k4(u, k, library)
     bound_ms, bound_by = _k4_bound_ms(k, label)
-    print(f"phase 22: K4 {tag} (E={k.n_cells}) {label}: max abs err {err:.3e} (rel {rel:.3e}); K4 {ms:.4f} ms, "
+    print(f"{phase}: K4 {tag} (E={k.n_cells}) {label}: max abs err {err:.3e} (rel {rel:.3e}); K4 {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, " + ("" if library is None else f"torch.matmul(U, A_loc) {library_ms:.4f} ms, ")
           + f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f} % reached)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1792,8 +1814,207 @@ def phase27_profile():
              lambda: solve_cg_merged(op.vmult, b, control, diag=diag)[0])
 
 
+# the time-to-1e-10 goldens of the JAX package (scripts/bench_solvers_r3.py's
+# rows at its default backends, f64 / f32 IR on the CPU under x64), printed by
+# ``PYTHONPATH=. python tests/test_torch_solvers_r3.py goldens``: per row
+# (iterations, solution L2 norm); the IR rows' iterations are (n_outer,
+# n_inner). The TPU's records (RESULTS.md:418-436) are not goldens.
+R3_UNIFORM_CYCLE = 26  # 32×16×16 elements, p = 5: 1,056,321 DoFs
+R3_MAPPED = 32  # sine-mapped 32^3, p = 3: 912,673 DoFs
+R3_GOLDEN = {
+    "uniform": {
+        "jacobi": (501, 0.04756983989398996),
+        "mg": (9, 0.04756983989399649),
+        "ir": ((3, 857), 0.04756983989398838),
+        "ir-mg": ((3, 12), 0.047569839893988976),
+        "fdm": (1, 0.047569839893977804),
+    },
+    "mapped": {
+        "jacobi": (426, 0.02454002973587898),
+        "mg": (10, 0.024540029735878488),
+        "ir": ((3, 705), 0.024540029735878734),
+        "ir-mg": ((3, 13), 0.02454002973587875),
+    },
+}
+# step-64 refine 2 with the fdm / mg preconditioners (JAX drivers/step64.run,
+# f64, plain CG): (iterations, solution L2 norm)
+STEP64_PRECOND_GOLDEN = {"fdm": (9, 0.02052685135688799), "mg": (1, 0.020526851356887865)}
+CARD = ""  # nvidia-smi's name and power limit, beside every time printed
+
+
+def _r3_levels(mesh, p):
+    """The multigrid hierarchy's meshes of ``mesh`` at degree ``p``
+    (solvers/multigrid.py: halve while every count is even and the level has
+    more than 4000 DoFs)."""
+    from deal_and_ceed_on_gpu_torch.solvers.multigrid import coarsen_mesh
+
+    meshes = [mesh]
+    while all(m % 2 == 0 for m in meshes[-1].n_elements) and meshes[-1].n_dofs(p) > 4000:
+        meshes.append(coarsen_mesh(meshes[-1]))
+    return meshes
+
+
+def phase28_level_kernels():
+    """K1 and K4 at the multigrid levels' shapes; returns the timed records
+    of K1 at the cycle-26 grid and K4 at E = 4096, per precision."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D, BrickMesh, sine_map
+    from deal_and_ceed_on_gpu_torch.ops.stencil import StencilTables
+    from deal_and_ceed_on_gpu_torch.scripts.bench_k1_k5 import time_k1
+
+    k1, k4 = {}, {}
+    for mesh in _r3_levels(BrickMesh.bp5_cycle(R3_UNIFORM_CYCLE), DEGREE):
+        for label, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            tables = StencilTables.create(mesh, Basis1D.make(DEGREE), dtype, DEVICE)
+            u = _grid_tensor(tables.shape, dtype, seed=28)
+            err, rel = _k1_check(u, tables, label)
+            print(f"phase 28: K1 at the level grid {tables.shape} ({mesh.n_elements} elements) {label}: agrees, max "
+                  f"abs err {err:.3e} (rel {rel:.3e})")
+            if mesh.n_elements == BrickMesh.bp5_cycle(R3_UNIFORM_CYCLE).n_elements:
+                ms, plain_ms, _ = time_k1(u, tables, None)
+                bound_ms, bound_by = _k1_bound_ms(u.numel(), DEGREE, label)
+                print(f"phase 28: K1 {tables.shape} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f} % reached) [{CARD}]")
+                k1[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=None)
+    basis = Basis1D.make(3, 4, "gauss_lobatto")
+    for mesh in _r3_levels(BrickMesh((R3_MAPPED,) * 3).deform(*sine_map(0.05)), 3):
+        for label, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            k = _k4_case(basis, mesh.n_cells, "full6", None, dtype, seed=mesh.n_cells)
+            err, rel, _ = _k4_compare(k, label, seed=28)
+            print(f"phase 28: K4 at the level's E = {mesh.n_cells} (GLL p = 3 full6) {label}: agrees, max abs err "
+                  f"{err:.3e} (rel {rel:.3e})")
+            if mesh.n_cells == 4096:
+                k4[label] = _k4_time(k, label, f"at the mapped level [{CARD}]", phase="phase 28")
+    return k1, k4
+
+
+def _check_r3(tag, case, r, kernel, backend):
+    """Hold the rows of one bench_solvers_r3 case to the JAX goldens; returns
+    the kernel's launches over the rows."""
+    total = 0
+    for row, (it_g, l2_g) in R3_GOLDEN[case].items():
+        got = r["rows"][row]
+        its, l2, res = got["n_iterations"], got["l2_norm"], got["true_rel_res"]
+        rel = abs(l2 - l2_g) / l2_g
+        launches = got["launches"].get(kernel, 0)
+        total += launches
+        levels = got.get("level_backends")
+        print(f"{tag}: {row}: iterations {its} (golden {it_g}), true rel res {res:.3e}, L2 norm {l2:.17g} (golden "
+              f"{l2_g:.17g}, rel {rel:.2e}), warm solve {got['solve_s'][1]:.4f} s (first {got['solve_s'][0]:.4f} s), "
+              "set-up " + ", ".join(f"{k} {v:.3f} s" for k, v in got["setup_s"].items())
+              + f", {kernel} launches {launches}" + (f", levels {levels}" if levels else "") + f" [{CARD}]")
+        if row.startswith("ir"):
+            ok = abs(its[0] - it_g[0]) <= 1 and (row == "ir" or abs(its[1] - it_g[1]) <= 2)
+        else:
+            ok = abs(its - it_g) <= (0 if row == "fdm" else 1)
+        if not (ok and res <= 1.2e-10 and rel <= 1e-8 and launches > 0):
+            raise AssertionError(f"{tag}: the {row} row missed its golden, its residual or never launched {kernel}")
+        if levels and set(levels) != {backend}:
+            raise AssertionError(f"{tag}: a multigrid level of the {row} row is not on {backend}: {levels}")
+    return total
+
+
+def phase29_uniform_rows():
+    """Path 3: time to 1e-10 on the cycle-26 cube, all five rows on K1;
+    returns K1's launches over them."""
+    from deal_and_ceed_on_gpu_torch.ops import stencil
+    from deal_and_ceed_on_gpu_torch.scripts.bench_solvers_r3 import ROWS, run_uniform
+
+    stencil.LAUNCHES = 0
+    r = run_uniform(R3_UNIFORM_CYCLE, "stencil", DEVICE, ROWS)
+    launches = stencil.LAUNCHES
+    print(f"phase 29: uniform cycle {R3_UNIFORM_CYCLE} ({r['space'].n_dofs} DoFs, p = {DEGREE}) on K1, f64: K1 "
+          f"launches {launches}")
+    if r["space"].n_dofs != 1_056_321 or launches == 0:
+        raise AssertionError("phase 29: wrong size or K1 never launched")
+    _check_r3("phase 29", "uniform", r, "K1", "stencil")
+    return launches
+
+
+def phase30_mapped_rows():
+    """Path 4: time to 1e-10 on the sine-mapped 32^3 mesh, four rows on K4;
+    returns K4's launches over them."""
+    from deal_and_ceed_on_gpu_torch.ops import general
+    from deal_and_ceed_on_gpu_torch.scripts.bench_solvers_r3 import run_case
+
+    general.LAUNCHES = 0
+    r = run_case(R3_MAPPED, "general", "gauss_lobatto", DEVICE, rows=tuple(R3_GOLDEN["mapped"]))
+    launches = general.LAUNCHES
+    print(f"phase 30: sine-mapped {R3_MAPPED}^3 ({r['space'].n_dofs} DoFs, p = 3) on K4, f64: K4 launches {launches}")
+    if r["space"].n_dofs != 912_673 or launches == 0:
+        raise AssertionError("phase 30: wrong size or K4 never launched")
+    _check_r3("phase 30", "mapped", r, "K4", "general")
+    return launches
+
+
+def phase31_step64_precond():
+    """step-64 with the fdm and mg preconditioners on K3; returns K3's
+    launches in the refine-6 multigrid solve."""
+    for precond, (it_g, l2_g) in STEP64_PRECOND_GOLDEN.items():
+        r, launches = _step64(2, precond=precond)
+        rel = abs(r["l2_norm"] - l2_g) / l2_g
+        print(f"phase 31: step-64 refine 2 --precond {precond} on K3 f64: {r['n_iterations']} iterations (golden "
+              f"{it_g}), L2 norm {r['l2_norm']:.17g} (rel {rel:.2e}), K3 launches {launches}")
+        if r["n_iterations"] != it_g or not rel <= 1e-10 or launches == 0:
+            raise AssertionError(f"phase 31: step-64 --precond {precond} missed the JAX golden or never launched K3")
+    r, launches = _step64(STEP64_MAIN, precond="mg")
+    dofs, _, l2_g = STEP64_GOLDEN[STEP64_MAIN]
+    rel = abs(r["l2_norm"] - l2_g) / l2_g
+    print(f"phase 31: step-64 refine {STEP64_MAIN} ({r['space'].n_dofs} DoFs) --precond mg on K3 f64: "
+          f"{r['n_iterations']} iterations, L2 norm {r['l2_norm']:.17g} (the plain-CG golden {l2_g:.17g}, rel "
+          f"{rel:.2e}), solve {r['seconds']:.4f} s, set-up " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                                                         r["setup_s"].items())
+          + f", K3 launches {launches} [{CARD}]")
+    if r["space"].n_dofs != dofs or launches == 0 or not rel <= 1e-9:
+        raise AssertionError("phase 31: the refine-6 multigrid solve failed")
+    return launches
+
+
+def phase32_bp5_solvers():
+    """``drivers/bp5`` fdm-direct and pcg-mg at cycle 33 on K1 in f64."""
+    from deal_and_ceed_on_gpu_torch.drivers.bp5 import run_cycle
+    from deal_and_ceed_on_gpu_torch.ops import stencil
+
+    stencil.LAUNCHES = 0
+    r = run_cycle(MAIN_CYCLE, backend="stencil", device=DEVICE, dtype="float64", modes=("fdm-direct", "pcg-mg"),
+                  n_iterations=200, n_repetitions=2)
+    print(f"phase 32: bp5 cycle {MAIN_CYCLE} fdm-direct {r['fdm-direct']:.6g} DoF/s, pcg-mg {r['pcg-mg']:.6g} DoF/s "
+          f"({r['n_iterations']['pcg-mg']} iterations), true rel res {r['true_rel_res']}, K1 launches "
+          f"{stencil.LAUNCHES} [{CARD}]")
+    if stencil.LAUNCHES == 0 or not all(r["finite"].values()) or not r["true_rel_res"]["fdm-direct"] <= 1e-10:
+        raise AssertionError("phase 32: the cycle-33 fdm-direct / pcg-mg run failed")
+    return stencil.LAUNCHES
+
+
+def phase33_profile_mg():
+    """The MG-CG solves of the cycle-26 cube on K1 and of the sine-mapped
+    32^3 mesh on K4 under the profiler."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, Multigrid, PoissonOperator, ReductionControl, sine_map
+    from deal_and_ceed_on_gpu_torch import solve_cg
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+
+    for name, mesh, p, backend in ((f"uniform cycle {R3_UNIFORM_CYCLE}", BrickMesh.bp5_cycle(R3_UNIFORM_CYCLE), DEGREE,
+                                    "stencil"),
+                                   (f"sine-mapped {R3_MAPPED}^3", BrickMesh((R3_MAPPED,) * 3).deform(*sine_map(0.05)),
+                                    3, "general")):
+        space = FESpace.create(mesh, p, dtype=torch.float64, device=DEVICE)
+        op = PoissonOperator(space, backend=backend)
+        mg = Multigrid(space, make_op=lambda s: PoissonOperator(s, backend=backend), fine_op=op)
+        b = assemble_rhs(space, 1.0)
+        control = ReductionControl(2000, tolerance=0.0, reduction=1e-10)
+        n_it = solve_cg(op.vmult, b, control, diag=mg.vcycle)[1]["n_iterations"]
+        _profile(f"phase 33: MG-CG, {name} on {backend}, f64, {n_it} iterations [{CARD}]", n_it,
+                 lambda: solve_cg(op.vmult, b, control, diag=mg.vcycle)[0], repeats=2)
+
+
 def main():
+    global CARD
     smi = phase0_device()
+    CARD = smi
     phase1_build()
     kernel = phase2_kernel_vs_twin()
     launches = phase3_main_path()
@@ -1822,6 +2043,12 @@ def main():
     k4_vmult_launches, k4_bp3_launches, k3_mapped_launches = phase26_main_path()
     k4_launches["f32"] = k4_vmult_launches["f32"]
     phase27_profile()
+    k1_levels, k4_levels = phase28_level_kernels()
+    k1_r3_launches = phase29_uniform_rows()
+    k4_r3_launches = phase30_mapped_rows()
+    phase31_step64_precond()
+    phase32_bp5_solvers()
+    phase33_profile_mg()
     import torch
 
     records = [
@@ -1936,6 +2163,26 @@ def main():
         }
         for name, launches, record in (("general_k4_gll32_f64", k4_launches["f64"], k4_gll32),
                                        ("general_k4_step64_f64", k4_step64_launches, k4_step64))
+    ] + [
+        {
+            "name": f"stencil_k1_cube26_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/stencil.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py:443",
+            "launches": k1_r3_launches,  # f64 and f32, over phase 29's five rows
+            **k1_levels[label],
+        }
+        for label in ("f64", "f32")
+    ] + [
+        {
+            "name": f"general_k4_mg_level4096_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/general.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_general.py:59",
+            "launches": k4_r3_launches,  # f64 and f32, over phase 30's four rows
+            **k4_levels[label],
+        }
+        for label in ("f64", "f32")
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

@@ -17,7 +17,8 @@ Layer map:
                                (K5, the fused CG iteration), copy +
                                csrc/copy.cu (K6, the bandwidth probe))
   L3  operators + solvers   -> models/ (poisson, helmholtz, mass, vector,
-                               bp), solvers/
+                               bp; assemble_dense), solvers/ (cg, cg_merged,
+                               cg_fused, fdm, ir, multigrid)
   L4  drivers               -> drivers/bp5.py, drivers/bp.py, drivers/step64.py,
                                scripts/exp_solver_budget.py, scripts/bench_general.py,
                                scripts/bench_solvers_r3.py
@@ -31,14 +32,18 @@ from .geometry import Geometry
 from .mesh import BrickMesh, MappedMesh, shear_map, sine_map
 from .models.helmholtz import HelmholtzOperator
 from .models.mass import MassOperator
+from .models.operator_base import assemble_dense
 from .models.poisson import PoissonOperator
 from .solvers import (
+    FDMSolver,
     IterationNumberControl,
+    Multigrid,
     NoConvergence,
     ReductionControl,
     SolverControl,
     solve_cg,
     solve_cg_fused,
+    solve_cg_ir,
     solve_cg_merged,
 )
 
@@ -48,9 +53,11 @@ __all__ = [
     "MappedMesh",
     "Geometry",
     "FESpace",
+    "FDMSolver",
     "HelmholtzOperator",
     "MassOperator",
     "PoissonOperator",
+    "Multigrid",
     "SolverControl",
     "IterationNumberControl",
     "ReductionControl",
@@ -58,6 +65,8 @@ __all__ = [
     "solve_cg",
     "solve_cg_fused",
     "solve_cg_merged",
+    "solve_cg_ir",
+    "assemble_dense",
     "gauss_lobatto_points",
     "gauss_points",
     "shear_map",

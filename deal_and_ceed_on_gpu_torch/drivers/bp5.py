@@ -8,6 +8,9 @@ lines match the reference format so result tables are comparable:
     pcg-merged   <dofs/rank> <max_throughput>
     vmult        <dofs/rank> <max_throughput>
     pcg-fused    <dofs/rank> <max_throughput>   (K5, --backend stencil only)
+    fdm-direct   <dofs/rank> <dofs / best solve time>
+    pcg-ir       <dofs/rank> <max_throughput over inner iterations>
+    pcg-mg       <dofs/rank> <max_throughput>
 
 Throughput = DoFs * iterations / wall_time, max over repetitions
 (``bp5/step-64.cu:458-463``); timing fences with ``torch.cuda.synchronize``.
@@ -16,12 +19,22 @@ The vmult mode chains ``v <- A v`` with ``1/lambda_est`` folded into the
 operator tables (``fold_scale``), so every step is one pure apply and f32
 cannot overflow across the chain.
 
+Beyond the reference: ``fdm-direct`` is the fast-diagonalization direct
+solve (``solvers/fdm.py``, one apply), ``pcg-ir`` mixed-precision iterative
+refinement to a true f64 relative residual of 1e-10 (``solvers/ir.py``,
+``--dtype float64``: f32 inner merged CG on the same backend, with
+``--stream-dtype bfloat16`` passed to the f32 operator; the f64 operator
+runs on the same backend, the card's kernels being native f64), and
+``pcg-mg`` plain CG with the geometric multigrid V-cycle
+(``solvers/multigrid.py``) whose levels are built on the driver's backend.
+
 ``--device`` defaults to ``cuda`` and raises when no card is present: the
 driver never drops to the CPU silently. ``--device cpu`` runs the plain
 torch versions of the kernels (the test path).
 
 Run: ``python -m deal_and_ceed_on_gpu_torch.drivers.bp5 --cycle-min 10
---cycle-max 12 --dtype float32 --backend stencil``.
+--cycle-max 12 --dtype float32 --backend stencil``; ``--modes
+fdm-direct,pcg-ir,pcg-mg --dtype float64`` for the extra solvers.
 """
 
 from __future__ import annotations
@@ -35,17 +48,27 @@ import torch
 from ..fe_space import FESpace
 from ..mesh import BrickMesh
 from ..models import PoissonOperator, assemble_rhs, l2_norm_function
-from ..solvers import IterationNumberControl, solve_cg, solve_cg_fused, solve_cg_merged
+from ..solvers import (
+    FDMSolver,
+    IterationNumberControl,
+    Multigrid,
+    solve_cg,
+    solve_cg_fused,
+    solve_cg_ir,
+    solve_cg_merged,
+)
 from ..utils.logging import rank0_print as pcout
 from ..utils.timer import Timer
 
-__all__ = ["BP5Config", "run_cycle", "run", "main", "DEFAULT_MODES", "PORTED_MODES", "resolve_device"]
+__all__ = ["BP5Config", "run_cycle", "run", "main", "DEFAULT_MODES", "PORTED_MODES", "BACKENDS", "resolve_device"]
 
 # the JAX driver's default modes (drivers/bp5.py BP5Config.modes)
 DEFAULT_MODES = ("pcg-standard", "pcg-merged", "vmult")
-PORTED_MODES = DEFAULT_MODES + ("pcg-fused",)
-# modes of the JAX driver whose solvers or kernels the port does not have yet
-NOT_PORTED_MODES = ("fdm-direct", "pcg-ir", "pcg-mg")
+# every mode of the JAX driver
+PORTED_MODES = DEFAULT_MODES + ("pcg-fused", "fdm-direct", "pcg-ir", "pcg-mg")
+# stencil: K1; banded: K2; qgrid: K3; general: K4; separable / structured:
+# plain torch
+BACKENDS = ("stencil", "banded", "qgrid", "general", "separable", "structured")
 DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
 
@@ -55,7 +78,7 @@ class BP5Config:
     n_iterations: int = 200
     n_repetitions: int = 10
     dtype: str = "float32"
-    backend: str = "stencil"  # stencil | separable | structured
+    backend: str = "stencil"  # one of BACKENDS
     rule: str = "gauss_lobatto"  # BP5 collocation
     n_q: int | None = None
     modes: tuple = DEFAULT_MODES
@@ -106,6 +129,13 @@ def estimate_lambda_max(op, n_dofs, iters=12, seed=0):
     return float(lam)
 
 
+def _true_rel_res(op, b, x) -> float:
+    """``|b - A x| / |b|`` at the compute dtype."""
+    dt = op.space.dtype
+    b = b.to(dt)
+    return float(torch.linalg.vector_norm(b - op.vmult(x).to(dt)) / torch.linalg.vector_norm(b))
+
+
 def _repeat(label, solve, cfg, n_dofs, results):
     """Warm up, then time ``cfg.n_repetitions`` solves; record the
     throughput, the last iteration count and whether x stayed finite."""
@@ -128,12 +158,17 @@ def run_cycle(cycle: int, cfg: BP5Config | None = None, **overrides):
     per-mode throughputs plus ``n_iterations``, ``finite`` (per mode) and
     ``l2_norm`` (when validating)."""
     cfg = dataclasses.replace(cfg or BP5Config(), **overrides)
-    unknown = set(cfg.modes) - set(PORTED_MODES) - set(NOT_PORTED_MODES)
+    unknown = set(cfg.modes) - set(PORTED_MODES)
     if unknown:
         raise ValueError(f"unknown modes {sorted(unknown)}")
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"unknown backend {cfg.backend!r}: expected one of {BACKENDS}")
     device = resolve_device(cfg.device)
     dtype = DTYPES[cfg.dtype]
-    stream = dtype if cfg.stream_dtype is None else DTYPES[cfg.stream_dtype]
+    stream32 = None if cfg.stream_dtype is None else DTYPES[cfg.stream_dtype]
+    # bf16 vectors pair with f32 compute; with --dtype float64 the streaming
+    # dtype goes to pcg-ir's f32 inner operator only
+    stream = stream32 if stream32 is not None and dtype == torch.float32 else dtype
     mesh = BrickMesh.bp5_cycle(cycle)
     space = FESpace.create(
         mesh, cfg.degree, n_q=cfg.n_q, rule=cfg.rule, dtype=dtype, device=device
@@ -155,11 +190,8 @@ def run_cycle(cycle: int, cfg: BP5Config | None = None, **overrides):
     dot_dtype = dtype if stream != dtype else None
     vm = op.vmult
 
-    results = {"n_iterations": {}, "finite": {}}
+    results = {"n_iterations": {}, "finite": {}, "true_rel_res": {}}
     solution = None
-    for mode in cfg.modes:
-        if mode in NOT_PORTED_MODES:
-            pcout(f"{mode}: not ported yet — skipping")
 
     if "pcg-standard" in cfg.modes:
         solution = _repeat(
@@ -184,6 +216,73 @@ def run_cycle(cycle: int, cfg: BP5Config | None = None, **overrides):
             solution = _repeat(
                 "pcg-fused", lambda: solve_cg_fused(op, b_solve, control), cfg, space.n_dofs, results
             )
+
+    if "fdm-direct" in cfg.modes:
+        # the Kronecker fast-diagonalization direct solve: one apply replaces
+        # the CG loop; the throughput line counts it as one iteration
+        fdm = FDMSolver(space)
+        x = fdm.solve(b)
+        times = []
+        for _ in range(cfg.n_repetitions):
+            t = Timer().start()
+            x = fdm.solve(b)
+            t.stop(fence=x)
+            times.append(t.elapsed)
+        rel = _true_rel_res(op, b, x)
+        for t in times:
+            pcout(f"   FDM direct solve in time {t:.6f} (rel res {rel:.2e})")
+        best = min(times)
+        pcout(f"fdm-direct {space.n_dofs} {space.n_dofs / best:.6g}")
+        pcout("")
+        results["fdm-direct"] = space.n_dofs / best
+        results["true_rel_res"]["fdm-direct"] = rel
+        results["finite"]["fdm-direct"] = bool(torch.isfinite(x).all())
+        solution = x
+
+    if "pcg-ir" in cfg.modes:
+        # mixed-precision iterative refinement to a true f64 relative
+        # residual of 1e-10: f32 (or bf16-streaming) merged-CG inner solves
+        # on the same backend, f64 residuals
+        if dtype != torch.float64:
+            pcout("pcg-ir requires --dtype float64 — skipping")
+        else:
+            space32 = FESpace.create(
+                mesh, cfg.degree, n_q=cfg.n_q, rule=cfg.rule, dtype=torch.float32, device=device
+            )
+            op32 = PoissonOperator(space32, backend=cfg.backend, stream_dtype=stream32)
+            x, info = solve_cg_ir(op32, op, b, rtol=1e-10)
+            times, its = [], []
+            for _ in range(cfg.n_repetitions):
+                t = Timer().start()
+                x, info = solve_cg_ir(op32, op, b, rtol=1e-10)
+                t.stop(fence=x)
+                times.append(t.elapsed)
+                its.append(int(info["n_inner"]))
+            for t, it in zip(times, its):
+                pcout(
+                    f"   IR solved to true rel. res {info['res_rel']:.2e} "
+                    f"({info['n_outer']} outer / {it} inner) in {t:.6f}"
+                )
+            tp = [space.n_dofs * it / t for t, it in zip(times, its)]
+            pcout(f"pcg-ir {space.n_dofs} {max(tp):.6g}")
+            pcout("")
+            results["pcg-ir"] = max(tp)
+            results["n_iterations"]["pcg-ir"] = (info["n_outer"], its[-1])
+            results["true_rel_res"]["pcg-ir"] = info["res_rel"]
+            results["finite"]["pcg-ir"] = bool(torch.isfinite(x).all())
+            solution = x
+
+    if "pcg-mg" in cfg.modes:
+        # plain CG with the geometric multigrid V-cycle, every level on the
+        # driver's backend (a level the kernel cannot take raises)
+        fine = op if op.stream_dtype == dtype else PoissonOperator(space, backend=cfg.backend)
+        mg = Multigrid(space, make_op=lambda s: PoissonOperator(s, backend=cfg.backend), fine_op=fine)
+        solution = _repeat(
+            "pcg-mg",
+            lambda: solve_cg(vm, b_solve, control, diag=mg.vcycle, dot_dtype=dot_dtype),
+            cfg, space.n_dofs, results,
+        )
+        results["true_rel_res"]["pcg-mg"] = _true_rel_res(op, b, solution)
 
     if "vmult" in cfg.modes:
         op.fold_scale(1.0 / estimate_lambda_max(op, space.n_dofs))
@@ -233,14 +332,14 @@ def main(argv=None):
     ap.add_argument("--repetitions", type=int, default=10)
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     ap.add_argument(
-        "--backend", default="stencil", choices=["stencil", "separable", "structured"],
-        help="stencil: the K1 CUDA kernel (GLL collocation, uniform brick); "
-        "separable / structured: plain torch",
+        "--backend", default="stencil", choices=BACKENDS,
+        help="stencil: the K1 CUDA kernel (GLL collocation, uniform brick); banded: K2; "
+        "qgrid: K3 (--rule gauss); general: K4; separable / structured: plain torch",
     )
+    ap.add_argument("--rule", default="gauss_lobatto", choices=["gauss_lobatto", "gauss"])
     ap.add_argument(
         "--modes", default=",".join(DEFAULT_MODES),
-        help=f"comma list of {', '.join(PORTED_MODES + NOT_PORTED_MODES)} "
-        f"({', '.join(NOT_PORTED_MODES)} are not ported yet and print a skip line)",
+        help=f"comma list of {', '.join(PORTED_MODES)} (pcg-ir needs --dtype float64)",
     )
     ap.add_argument(
         "--stream-dtype", default=None, choices=["bfloat16"],
@@ -255,6 +354,7 @@ def main(argv=None):
         n_repetitions=args.repetitions,
         dtype=args.dtype,
         backend=args.backend,
+        rule=args.rule,
         modes=tuple(args.modes.split(",")),
         stream_dtype=args.stream_dtype,
         device=args.device,

@@ -12,9 +12,14 @@ The default backend is ``qgrid``: K3 on the card, its plain torch version on
 the CPU. ``general`` is K4 (the element-major cell apply between the torch
 gather and scatter). ``structured`` is the plain torch cell loop, the
 comparator.
+``--precond``: ``none`` (the reference's identity), ``jacobi`` (the true
+diagonal), ``fdm`` (the Poisson fast-diagonalization solve,
+``solvers/fdm.py``) or ``mg`` (the geometric multigrid V-cycle,
+``solvers/multigrid.py``, every level a ``HelmholtzOperator`` on the
+driver's backend: K3 on every level with ``qgrid``); ``fdm`` and ``mg`` run
+plain CG only (merged CG takes a diagonal), as in the JAX driver.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
-cpu`` runs the plain versions. Not ported yet: the ``fdm``/``mg``
-preconditioners (ROADMAP slice E) and the ``.vtr`` output (slice H).
+cpu`` runs the plain versions. Not ported yet: the ``.vtr`` output (slice H).
 
 Run: ``python -m deal_and_ceed_on_gpu_torch.drivers.step64 --refine 4``.
 """
@@ -36,7 +41,7 @@ from .bp5 import DTYPES, resolve_device
 __all__ = ["run", "main"]
 
 BACKENDS = ("qgrid", "general", "structured")
-PRECONDITIONERS = ("none", "jacobi")
+PRECONDITIONERS = ("none", "jacobi", "fdm", "mg")
 
 
 def run(
@@ -51,12 +56,14 @@ def run(
     device: str = "cuda",
 ):
     """One solve. Returns ``n_iterations``, ``l2_norm``, the solution ``x``,
-    the ``space`` and ``seconds``, the solve's wall time (fenced with
-    ``torch.cuda.synchronize`` on the card)."""
+    the ``space``, ``seconds``, the solve's wall time (fenced with
+    ``torch.cuda.synchronize`` on the card), and ``setup_s``, the
+    preconditioner's set-up seconds (host ``eigh`` for fdm; levels, coarse
+    assembly and inverse, smoother for mg)."""
     if precond not in PRECONDITIONERS:
-        raise ValueError(
-            f"precond {precond!r}: the port has {PRECONDITIONERS}; fdm and mg wait for ROADMAP slice E"
-        )
+        raise ValueError(f"precond {precond!r}: expected one of {PRECONDITIONERS}")
+    if use_merged and precond in ("fdm", "mg"):
+        raise ValueError(f"{precond} preconditioning requires the plain solver")
     dev = resolve_device(device)
     mesh = BrickMesh.hyper_cube().refine_global(n_refine)
     space = FESpace.create(mesh, degree, rule="gauss", dtype=DTYPES[dtype], device=dev)
@@ -70,7 +77,25 @@ def run(
     # "none" is the reference's DiagonalMatrix filled with 1.0 (the
     # solvers' diag=None), "jacobi" the operator's true diagonal
     control = ReductionControl(max_steps, tolerance=0.0, reduction=rtol)
-    diag = op.jacobi_preconditioner() if precond == "jacobi" else None
+    t_setup = Timer().start()
+    setup_s = {}
+    diag = None
+    if precond == "jacobi":
+        diag = op.jacobi_preconditioner()
+    elif precond == "fdm":
+        from ..solvers import FDMSolver
+
+        fdm = FDMSolver(space)
+        diag = fdm.apply
+        setup_s = dict(fdm.setup_s)
+    elif precond == "mg":
+        from ..solvers import Multigrid
+
+        mg = Multigrid(space, make_op=lambda s: HelmholtzOperator(s, backend=backend), fine_op=op)
+        diag = mg.vcycle
+        setup_s = dict(mg.setup_s)
+    t_setup.stop(fence=b)
+    setup_s["total"] = t_setup.elapsed
     solver = solve_cg_merged if use_merged else solve_cg
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -82,7 +107,8 @@ def run(
     pcout(f"  Solved in {it} iterations.")
     norm = float(l2_norm_function(space, x))
     pcout(f"  solution norm: {norm:.12g}")
-    return {"n_iterations": it, "l2_norm": norm, "x": x, "space": space, "seconds": timer.elapsed}
+    return {"n_iterations": it, "l2_norm": norm, "x": x, "space": space, "seconds": timer.elapsed,
+            "setup_s": setup_s}
 
 
 def main(argv=None):
@@ -96,11 +122,14 @@ def main(argv=None):
     )
     ap.add_argument(
         "--precond", default="none", choices=PRECONDITIONERS,
-        help="none = the reference's DiagonalMatrix(1.0); jacobi = the true diagonal",
+        help="none = the reference's DiagonalMatrix(1.0); jacobi = the true diagonal; "
+        "fdm / mg = fast diagonalization / multigrid (plain CG only)",
     )
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
     for use_merged in (False, True):
+        if use_merged and args.precond in ("fdm", "mg"):
+            continue  # merged CG takes a diagonal preconditioner only
         pcout(f"--- use_merged = {use_merged} ---")
         run(
             n_refine=args.refine, degree=args.degree, dtype=args.dtype, backend=args.backend,

@@ -78,3 +78,6 @@ class MassOperator(MatrixFreeOperator):
 
     def _compute_diagonal(self) -> torch.Tensor:
         return tensor_product_diagonal(self.space, value_const=1.0)
+
+    def weak_form(self):
+        return False, None, 1.0

@@ -47,7 +47,7 @@ from ..geometry import Geometry
 from ..ops import local_global as lg
 from ..ops import sum_factorization as sf
 
-__all__ = ["MatrixFreeOperator", "assemble_rhs", "l2_norm_function", "tensor_product_diagonal"]
+__all__ = ["MatrixFreeOperator", "assemble_dense", "assemble_rhs", "l2_norm_function", "tensor_product_diagonal"]
 
 _LAYOUT_AXES = {
     "structured": (1, 3, 5),
@@ -274,6 +274,13 @@ class MatrixFreeOperator:
     def _compute_diagonal(self) -> torch.Tensor:
         raise NotImplementedError
 
+    def weak_form(self):
+        """``(gradient, value_q, value_const)`` describing the bilinear form,
+        the parametrization :func:`tensor_product_diagonal` takes; drives the
+        host-side dense assembly (:func:`assemble_dense`, the multigrid
+        coarse solve). Operators without one raise ``NotImplementedError``."""
+        raise NotImplementedError(f"{type(self).__name__} has no weak_form")
+
     def jacobi_preconditioner(self) -> torch.Tensor:
         """1/diag(A) with identity on constrained rows, for the ``diag``
         slot of the CG solvers."""
@@ -359,6 +366,57 @@ def _general_local_diagonal(
             jxw = jxw * value_const
         local_e += np.einsum("aq,aq,eq->ea", V, V, jxw, optimize=True)
     return local_e
+
+
+def assemble_dense(op: MatrixFreeOperator, max_dofs: int = 20000) -> np.ndarray:
+    """Dense matrix of the constrained operator (``vmult`` semantics: zero
+    constrained source columns, cell loop, Dirichlet identity rows),
+    assembled on the host from the geometry tables and the operator's
+    :meth:`~MatrixFreeOperator.weak_form`: one batched host product per
+    coefficient plane, then one scatter-add (copy of the JAX package's
+    ``assemble_dense``). Brick meshes only (no hanging-node constraints);
+    guarded by ``max_dofs``, since it is meant for coarse solves."""
+    space = op.space
+    if space.n_dofs > max_dofs:
+        raise ValueError(
+            f"assemble_dense: {space.n_dofs} DoFs > max_dofs={max_dofs} "
+            "(dense assembly is for coarse solves)"
+        )
+    gradient, value_q, value_const = op.weak_form()
+    geo = space.geometry
+    V, G = basis_tables_3d(space.basis)  # V [nl, n_q], G [3, nl, n_q]
+    n_local = V.shape[0]
+    n_cells = space.mesh.n_cells
+    K = np.zeros((n_cells, n_local, n_local))
+    if gradient:
+        C = geo.merged_coef_full()  # [E, n_q, 6], JxW-weighted
+        planes = [(0, 0, 0), (1, 0, 1), (2, 0, 2), (3, 1, 1), (4, 1, 2), (5, 2, 2)]
+        for plane, r, s in planes:
+            # K_e[a,b] += sum_q C[e,q] G_r[a,q] G_s[b,q]  (+ sym for r!=s)
+            K += (C[:, None, :, plane] * G[r][None]) @ G[s].T
+            if r != s:
+                K += (C[:, None, :, plane] * G[s][None]) @ G[r].T
+    if value_const is not None or value_q is not None:
+        jxw = geo.jxw_full()  # [E, n_q]
+        if value_q is not None:
+            jxw = jxw * np.asarray(value_q, dtype=np.float64).reshape(n_cells, -1)
+        elif value_const != 1.0:
+            jxw = jxw * value_const
+        K += (jxw[:, None, :] * V[None]) @ V.T
+
+    dof_map = space.mesh.element_dof_map(space.degree)  # [E, nl]
+    n = space.n_dofs
+    A = np.zeros((n, n))
+    rows = np.repeat(dof_map, n_local, axis=1).reshape(-1)
+    cols = np.tile(dof_map, (1, n_local)).reshape(-1)
+    np.add.at(A, (rows, cols), K.reshape(-1))
+    mask = space.mesh.boundary_dof_mask(space.degree)
+    if op._fold_factor != 1.0:
+        A[~mask, :] *= op._fold_factor
+    A[mask, :] = 0.0
+    A[:, mask] = 0.0
+    A[mask, mask] = 1.0
+    return A
 
 
 # --------------------------------------------------------------------- #

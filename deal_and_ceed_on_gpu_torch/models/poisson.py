@@ -113,6 +113,9 @@ class PoissonOperator(MatrixFreeOperator):
 
         return tensor_product_diagonal(self.space, gradient=True)
 
+    def weak_form(self):
+        return True, None, None
+
     def quad_point_op(self, vals, grads):
         gx, gy, gz = grads
         if self.coefficient == "merged_const":

@@ -1,6 +1,9 @@
 from .cg import solve_cg
 from .cg_fused import solve_cg_fused
 from .cg_merged import solve_cg_merged
+from .fdm import FDMSolver
+from .ir import solve_cg_ir
+from .multigrid import Multigrid
 from .control import (
     IterationNumberControl,
     NoConvergence,
@@ -9,6 +12,8 @@ from .control import (
 )
 
 __all__ = [
+    "FDMSolver",
+    "Multigrid",
     "SolverControl",
     "IterationNumberControl",
     "ReductionControl",
@@ -16,4 +21,5 @@ __all__ = [
     "solve_cg",
     "solve_cg_fused",
     "solve_cg_merged",
+    "solve_cg_ir",
 ]

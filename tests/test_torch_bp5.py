@@ -187,7 +187,7 @@ def test_cli_on_cpu_prints_reference_lines_and_skips(capsys):
     assert re.search(r"^pcg-merged \d+ \S+$", out, re.M)
     assert re.search(r"^vmult \d+ \S+$", out, re.M)
     assert re.search(r"^pcg-fused \d+ \S+$", out, re.M)  # bf16 state, f32 dots, on K5's plain version
-    assert "pcg-mg: not ported yet" in out
+    assert re.search(r"^pcg-mg \d+ \S+$", out, re.M)  # f32 V-cycle, bf16 vectors, f32 dots
     assert "solution L2 norm" in out
     with pytest.raises(ValueError):
         bp5_t.run_cycle(7, device="cpu", modes=("pcg-bogus",))

@@ -230,8 +230,10 @@ def test_step64_cli_on_cpu_prints_reference_lines(capsys):
     assert out.count("Number of degrees of freedom: 343") == 2
     assert len(re.findall(r"Solved in \d+ iterations\.", out)) == 2
     assert len(re.findall(r"solution norm: \S+", out)) == 2
-    with pytest.raises(ValueError, match="slice E"):
-        step64_t.run(1, precond="fdm", device="cpu")
+    with pytest.raises(ValueError, match="requires the plain solver"):
+        step64_t.run(1, precond="fdm", use_merged=True, device="cpu")
+    with pytest.raises(ValueError, match="expected one of"):
+        step64_t.run(1, precond="ilu", device="cpu")
 
 
 def test_step64_default_device_is_cuda(monkeypatch):
