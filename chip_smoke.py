@@ -143,13 +143,35 @@ anything does not build, launch, agree or converge. Phases:
 32. ``drivers/bp5.run_cycle`` at cycle 33 (12,468,001 DoFs) with
     ``fdm-direct`` and ``pcg-mg`` on K1 in f64, with their true residuals;
 33. ``torch.profiler`` traces of the MG-CG solves of phases 29 (K1) and 30
-    (K4): the device's busy share and its costliest kernels.
+    (K4): the device's busy share and its costliest kernels;
+34. K4 at the adaptive shapes against its plain version, from NaN-filled
+    outputs, f64 and f32: ``diag3`` per cell at p = 2, GLL q = 3 for every
+    multigrid level's element count of the ball-refined rounds-4 mesh
+    (92,520 cells down to the 8^3 base), and the value-table form of
+    ``AdaptiveHelmholtzOperator`` at the fine count; then the fine level's
+    own Poisson tables timed beside the plain version and the bound;
+35. the JAX package's goldens on the adaptive path: ball rounds 2 and 3
+    (cells, DoFs and hanging DoFs exact; |A u|_2 of a seeded vector on K4
+    to 1e-12; MG-CG iterations +-1 and |x|_2 to 1e-8), and
+    ``drivers/amr.run`` at its defaults with ``--precond none``, ``mg`` and
+    ``mg-ir`` (each step's cells and DoFs exact, iterations +-1, estimate to
+    1e-8);
+36. the main path: ball rounds 4 (853,585 DoFs, 222,768 hanging) built
+    once, its set-up seconds apart; f64 MG-CG and IR with the f32
+    adaptive-MG inner solve to a true relative residual <= 1.2e-10, every
+    level on K4 (launches counted), MG-CG iterations within 1 of the
+    rounds-3 golden's; the chained vmult on K4 against the plain loop in
+    turns, f64 and f32; one apply's split (zero + distribute, gather, K4,
+    scatter, condense); two applies and two V-cycles bitwise equal, f64 and
+    f32; ``AdaptiveHelmholtzOperator`` once on K4 against the plain loop;
+37. a ``torch.profiler`` trace of the rounds-4 MG-CG solve.
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -1841,6 +1863,29 @@ R3_GOLDEN = {
 STEP64_PRECOND_GOLDEN = {"fdm": (9, 0.02052685135688799), "mg": (1, 0.020526851356887865)}
 CARD = ""  # nvidia-smi's name and power limit, beside every time printed
 
+# The adaptive path's goldens of the JAX package, computed on the CPU under
+# x64 by ``PYTHONPATH=. python tests/test_torch_amr.py goldens``:
+# ball rounds (scripts/bench_adaptive.ball_mesh, Q2 from an 8^3 base) ->
+# (cells, DoFs, hanging DoFs, |A u|_2 for u = default_rng(0) normals, MG-CG
+# iterations to 1e-10, |x|_2 of that solution)
+ADAPTIVE_GOLDEN = {
+    2: (5216, 49529, 13584, 131.19070801565496, 8, 7.056120540637898),
+    3: (23024, 213041, 54816, 245.92196743252572, 8, 15.6272789725029),
+}
+# drivers.amr at its defaults (base 4, Q2, 3 steps, theta 0.5, source at
+# 0.8, width 0.01, 1e-10) per --precond: per step (cells, DoFs, iterations,
+# estimate); mg-ir's iterations are the inner ones
+AMR_GOLDEN = {
+    "none": [(64, 729, 46, 0.0005935522915247034), (85, 991, 63, 0.0004861311709451864),
+             (106, 1209, 72, 0.000248648748185591), (120, 1333, 66, 0.00011739858406407569)],
+    "mg": [(64, 729, 46, 0.0005935522915247034), (85, 991, 9, 0.0004861311709463903),
+           (106, 1209, 9, 0.00024864874819659433), (120, 1333, 9, 0.00011739858407988555)],
+    "mg-ir": [(64, 729, 46, 0.0005935522915247034), (85, 991, 12, 0.00048613117094525827),
+              (106, 1209, 12, 0.00024864874819715974), (120, 1333, 12, 0.00011739858407651825)],
+}
+ADAPTIVE_MAIN = 4  # ball rounds 4: 92,520 cells, 853,585 DoFs, 222,768 hanging (RESULTS.md:547)
+ADAPTIVE_MAIN_SIZE = (92_520, 853_585, 222_768)
+
 
 def _r3_levels(mesh, p):
     """The multigrid hierarchy's meshes of ``mesh`` at degree ``p``
@@ -2011,6 +2056,197 @@ def phase33_profile_mg():
                  lambda: solve_cg(op.vmult, b, control, diag=mg.vcycle)[0], repeats=2)
 
 
+@functools.cache
+def _adaptive_mesh():
+    """The rounds-4 mesh and its host seconds, built once for phases 34-37."""
+    from deal_and_ceed_on_gpu_torch.scripts.bench_adaptive import ball_mesh
+
+    t0 = time.perf_counter()
+    return ball_mesh(ADAPTIVE_MAIN), time.perf_counter() - t0
+
+
+@functools.cache
+def _adaptive_main(label):
+    """The rounds-4 space, Poisson operator (``auto``: K4) and multigrid at
+    ``label`` ("f64" or "f32"), built once and shared by phases 34-37, with
+    their host set-up seconds; the f32 hierarchy reuses the f64 one's coarse
+    inverse (the Poisson coarse matrix is the same host f64 matrix)."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import AdaptiveMultigrid
+    from deal_and_ceed_on_gpu_torch.scripts.bench_adaptive import build
+
+    mesh, mesh_s = _adaptive_mesh()
+    space, op, space_s = build(mesh, {"f64": torch.float64, "f32": torch.float32}[label], DEVICE)
+    coarse = _adaptive_main("f64")["mg"].coarse_inv_np if label == "f32" else None
+    t0 = time.perf_counter()
+    mg = AdaptiveMultigrid(space, fine_op=op, coarse_inv=coarse)
+    mg_s = time.perf_counter() - t0
+    print(f"adaptive set-up (phases 34-37): ball rounds {ADAPTIVE_MAIN} {label} on the host: mesh {mesh_s:.3f} s, "
+          f"space + operator {space_s:.3f} s, multigrid {mg_s:.3f} s (" + ", ".join(
+              f"{k} {v:.3f} s" for k, v in mg.setup_s.items()) + f"), levels E {[x.mesh.n_cells for x in mg.spaces]}")
+    return dict(space=space, op=op, mg=mg)
+
+
+def phase34_k4_adaptive():
+    """K4 at the adaptive shapes; returns the timed records of the fine
+    level's Poisson tables, per precision."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.scripts.bench_adaptive import DEGREE, ball_mesh
+    from deal_and_ceed_on_gpu_torch.solvers.adaptive_mg import adaptive_hierarchy
+
+    basis = Basis1D.make(DEGREE, rule="gauss_lobatto")
+    counts = [m.n_cells for m in adaptive_hierarchy(ball_mesh(ADAPTIVE_MAIN))[0]]
+    n = 0
+    for E in counts:
+        for label, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            for val in ((None, "table") if E == counts[0] else (None,)):
+                k = _k4_case(basis, E, "diag3", val, dtype, seed=E)
+                err, rel, _ = _k4_compare(k, label, seed=34)
+                n += 1
+                print(f"phase 34: K4 at E = {E} (GLL p = {DEGREE} diag3{' + value table' if val else ''}) {label}: "
+                      f"agrees, max abs err {err:.3e} (rel {rel:.3e})")
+    print(f"phase 34: K4 at every multigrid level of ball rounds {ADAPTIVE_MAIN} (E = {counts}): {n} cases agree")
+    out = {}
+    for label in ("f64", "f32"):
+        k = _adaptive_main(label)["op"]._get_kernel()
+        out[label] = _k4_time(k, label, f"at the rounds-{ADAPTIVE_MAIN} fine level, diag3 [{CARD}]", phase="phase 34")
+    return out
+
+
+def _check_amr(tag, precond, hist):
+    golden = AMR_GOLDEN[precond]
+    if len(hist) != len(golden):
+        raise AssertionError(f"{tag}: {len(hist)} AMR steps, the golden has {len(golden)}")
+    for k, (h, (cells, dofs, its, eta)) in enumerate(zip(hist, golden)):
+        rel = abs(h["eta"] - eta) / eta
+        print(f"{tag}: --precond {precond} step {k}: {h['n_cells']} cells, {h['n_dofs']} DoFs, {h['n_iterations']} "
+              f"iterations (golden {its}), estimate {h['eta']:.17g} (rel {rel:.2e})")
+        if (h["n_cells"], h["n_dofs"]) != (cells, dofs) or abs(h["n_iterations"] - its) > 1 or not rel <= 1e-8:
+            raise AssertionError(f"{tag}: the AMR loop with --precond {precond} missed the JAX golden at step {k}")
+
+
+def phase35_adaptive_golden():
+    """Ball rounds 2 and 3 and drivers.amr against the JAX goldens."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import AdaptiveMultigrid, assemble_rhs_adaptive
+    from deal_and_ceed_on_gpu_torch.drivers import amr
+    from deal_and_ceed_on_gpu_torch.ops import general
+    from deal_and_ceed_on_gpu_torch.scripts.bench_adaptive import ball_mesh, build, solve_mgcg
+
+    for rounds, (cells, dofs, hang, vnorm, its, xnorm) in ADAPTIVE_GOLDEN.items():
+        space, op, _ = build(ball_mesh(rounds), torch.float64, DEVICE)
+        got = (space.mesh.n_cells, space.n_dofs, int(space.hanging_mask_np.sum()))
+        general.LAUNCHES = 0
+        u = space.tensor(np.random.default_rng(0).standard_normal(space.n_dofs))
+        vn = float(torch.linalg.vector_norm(op.vmult(u)))
+        r = solve_mgcg(op, assemble_rhs_adaptive(space, 1.0), AdaptiveMultigrid(space, fine_op=op))
+        rel_v, rel_x = abs(vn - vnorm) / vnorm, abs(r["x_norm"] - xnorm) / xnorm
+        print(f"phase 35: ball rounds {rounds}: {got} (golden {(cells, dofs, hang)}), |A u| rel {rel_v:.2e}, MG-CG "
+              f"{r['n_iterations']} iterations (golden {its}), |x| rel {rel_x:.2e}, true rel res "
+              f"{r['true_rel_res']:.3e}, K4 launches {general.LAUNCHES}")
+        if (got != (cells, dofs, hang) or not rel_v <= 1e-12 or abs(r["n_iterations"] - its) > 1
+                or not rel_x <= 1e-8 or general.LAUNCHES == 0):
+            raise AssertionError(f"phase 35: ball rounds {rounds} missed the JAX golden or never launched K4")
+    for precond in AMR_GOLDEN:
+        general.LAUNCHES = 0
+        hist = amr.run(precond=precond, device=DEVICE)
+        if general.LAUNCHES == 0:
+            raise AssertionError(f"phase 35: drivers.amr --precond {precond} never launched K4")
+        _check_amr("phase 35: drivers.amr", precond, hist)
+
+
+def phase36_adaptive_main():
+    """Path 5: ball rounds 4 on K4; returns K4's launches in the MG-CG (f64)
+    and IR (f32 inner, f64 outer) solves."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import AdaptiveHelmholtzOperator, AdaptivePoissonOperator, assemble_rhs_adaptive
+    from deal_and_ceed_on_gpu_torch.ops import general
+    from deal_and_ceed_on_gpu_torch.scripts.bench_adaptive import apply_split_ms, chained_vmult_ms, solve_ir, solve_mgcg
+
+    m64, m32 = _adaptive_main("f64"), _adaptive_main("f32")
+    space, op, mg = m64["space"], m64["op"], m64["mg"]
+    size = (space.mesh.n_cells, space.n_dofs, int(space.hanging_mask_np.sum()))
+    levels = {o.backend for o in mg.ops} | {o.backend for o in m32["mg"].ops}
+    print(f"phase 36: ball rounds {ADAPTIVE_MAIN}: {size[0]} cells, {size[1]} DoFs, {size[2]} hanging, levels on "
+          f"{sorted(levels)}")
+    if size != ADAPTIVE_MAIN_SIZE or levels != {"general"}:
+        raise AssertionError("phase 36: wrong size, or a multigrid level is not on K4")
+    b = assemble_rhs_adaptive(space, 1.0)
+    launches = {}
+    general.LAUNCHES = 0
+    r = solve_mgcg(op, b, mg)
+    launches["f64"] = general.LAUNCHES
+    its_g = ADAPTIVE_GOLDEN[3][4]
+    print(f"phase 36: f64 MG-CG: {r['n_iterations']} iterations (rounds-3 golden {its_g}), true rel res "
+          f"{r['true_rel_res']:.3e}, |x| {r['x_norm']:.17g}, solve {r['solve_s'][0]:.4f} s (first) / "
+          f"{r['solve_s'][1]:.4f} s (warm), K4 launches {launches['f64']} [{CARD}]")
+    if abs(r["n_iterations"] - its_g) > 1 or not r["true_rel_res"] <= 1.2e-10 or launches["f64"] == 0:
+        raise AssertionError("phase 36: the rounds-4 MG-CG solve missed its iterations or residual, or never ran K4")
+    general.LAUNCHES = 0
+    ri = solve_ir(op, b, m32["op"], m32["mg"])
+    launches["f32"] = general.LAUNCHES
+    print(f"phase 36: IR (f32 adaptive-MG inner): {ri['n_iterations'][0]} outer / {ri['n_iterations'][1]} inner, "
+          f"true rel res {ri['true_rel_res']:.3e}, |x| rel to MG-CG "
+          f"{abs(ri['x_norm'] - r['x_norm']) / r['x_norm']:.2e}, solve {ri['solve_s'][0]:.4f} s (first) / "
+          f"{ri['solve_s'][1]:.4f} s (warm), K4 launches {launches['f32']} [{CARD}]")
+    if not ri["true_rel_res"] <= 1.2e-10 or launches["f32"] == 0:
+        raise AssertionError("phase 36: the rounds-4 IR solve missed its residual or never ran K4")
+
+    for label, m in (("f64", m64), ("f32", m32)):
+        s = m["space"]
+        plain, k4 = AdaptivePoissonOperator(s, backend="gather"), m["op"]
+        ms, outs = {"gather": [], "general": []}, {}
+        for o in (plain, k4, k4, plain):
+            t, v = chained_vmult_ms(o)
+            ms[o.backend].append(t)
+            outs[o.backend] = v
+        rel = float((outs["general"] - outs["gather"]).abs().max() / outs["gather"].abs().max())
+        print(f"phase 36: {label} chained vmult, ms an apply in turns (plain, K4, K4, plain): {ms['gather'][0]:.4f}, "
+              f"{ms['general'][0]:.4f}, {ms['general'][1]:.4f}, {ms['gather'][1]:.4f}: K4 "
+              f"{s.n_dofs / min(ms['general']) / 1e6:.3f} GDoF/s, plain {s.n_dofs / min(ms['gather']) / 1e6:.3f} "
+              f"GDoF/s; K4 against the plain loop: max rel diff {rel:.2e} [{CARD}]")
+        if not rel <= K4_TOL[label]:
+            raise AssertionError(f"phase 36: the {label} vmult on K4 and on the plain loop disagree")
+        split = apply_split_ms(k4)
+        print(f"phase 36: {label} one apply on K4 (CUDA events), ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()) + f" [{CARD}]")
+        u = s.tensor(np.random.default_rng(36).standard_normal(s.n_dofs))
+        same_apply = torch.equal(k4.vmult(u), k4.vmult(u))
+        same_cycle = torch.equal(m["mg"].vcycle(u), m["mg"].vcycle(u))
+        print(f"phase 36: {label} two applies bitwise equal: {same_apply}; two V-cycles bitwise equal: {same_cycle}")
+        if not (same_apply and same_cycle):
+            raise AssertionError(f"phase 36: the {label} apply or V-cycle is not bitwise repeatable")
+    u = space.tensor(np.random.default_rng(4).standard_normal(space.n_dofs))
+    a = AdaptiveHelmholtzOperator(space).vmult(u)
+    want = AdaptiveHelmholtzOperator(space, backend="gather").vmult(u)
+    rel = float((a - want).abs().max() / want.abs().max())
+    print(f"phase 36: AdaptiveHelmholtzOperator at rounds {ADAPTIVE_MAIN} f64, K4 against the plain loop: rel diff "
+          f"{rel:.2e}, finite {bool(torch.isfinite(a).all())}")
+    if not (rel <= 1e-12 and bool(torch.isfinite(a).all())):
+        raise AssertionError("phase 36: adaptive Helmholtz on K4 and on the plain loop disagree")
+    return launches
+
+
+def phase37_profile_adaptive():
+    """The rounds-4 MG-CG solve under the profiler."""
+    from deal_and_ceed_on_gpu_torch import ReductionControl, assemble_rhs_adaptive, solve_cg
+
+    m = _adaptive_main("f64")
+    op, mg = m["op"], m["mg"]
+    b = assemble_rhs_adaptive(m["space"], 1.0)
+    control = ReductionControl(400, tolerance=0.0, reduction=1e-10)
+    n_it = solve_cg(op.vmult, b, control, diag=mg.vcycle)[1]["n_iterations"]
+    _profile(f"phase 37: MG-CG, ball rounds {ADAPTIVE_MAIN} ({m['space'].n_dofs} DoFs) on K4, f64, {n_it} iterations "
+             f"[{CARD}]", n_it, lambda: solve_cg(op.vmult, b, control, diag=mg.vcycle)[0], repeats=2)
+
+
 def main():
     global CARD
     smi = phase0_device()
@@ -2049,6 +2285,10 @@ def main():
     phase31_step64_precond()
     phase32_bp5_solvers()
     phase33_profile_mg()
+    k4_adaptive = phase34_k4_adaptive()
+    phase35_adaptive_golden()
+    k4_adaptive_launches = phase36_adaptive_main()
+    phase37_profile_adaptive()
     import torch
 
     records = [
@@ -2181,6 +2421,17 @@ def main():
             "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_general.py:59",
             "launches": k4_r3_launches,  # f64 and f32, over phase 30's four rows
             **k4_levels[label],
+        }
+        for label in ("f64", "f32")
+    ] + [
+        {
+            "name": f"general_k4_adaptive_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/general.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_general.py:59",
+            # f64: the MG-CG solves; f32: the IR solves (f32 inner, f64 outer applies)
+            "launches": k4_adaptive_launches[label],
+            **k4_adaptive[label],
         }
         for label in ("f64", "f32")
     ]

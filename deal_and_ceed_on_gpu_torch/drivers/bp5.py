@@ -15,6 +15,10 @@ lines match the reference format so result tables are comparable:
 Throughput = DoFs * iterations / wall_time, max over repetitions
 (``bp5/step-64.cu:458-463``); timing fences with ``torch.cuda.synchronize``.
 
+Backends: ``stencil`` (K1), ``banded`` (K2), ``qgrid`` (K3), ``general``
+(K4), and the plain torch ``separable``, ``structured`` and ``gather`` (the
+indexed ``local_to_global`` transfer with the deterministic sorted scatter).
+
 The vmult mode chains ``v <- A v`` with ``1/lambda_est`` folded into the
 operator tables (``fold_scale``), so every step is one pure apply and f32
 cannot overflow across the chain.
@@ -66,9 +70,9 @@ __all__ = ["BP5Config", "run_cycle", "run", "main", "DEFAULT_MODES", "PORTED_MOD
 DEFAULT_MODES = ("pcg-standard", "pcg-merged", "vmult")
 # every mode of the JAX driver
 PORTED_MODES = DEFAULT_MODES + ("pcg-fused", "fdm-direct", "pcg-ir", "pcg-mg")
-# stencil: K1; banded: K2; qgrid: K3; general: K4; separable / structured:
-# plain torch
-BACKENDS = ("stencil", "banded", "qgrid", "general", "separable", "structured")
+# stencil: K1; banded: K2; qgrid: K3; general: K4; separable / structured /
+# gather: plain torch
+BACKENDS = ("stencil", "banded", "qgrid", "general", "separable", "structured", "gather")
 DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
 
@@ -334,7 +338,8 @@ def main(argv=None):
     ap.add_argument(
         "--backend", default="stencil", choices=BACKENDS,
         help="stencil: the K1 CUDA kernel (GLL collocation, uniform brick); banded: K2; "
-        "qgrid: K3 (--rule gauss); general: K4; separable / structured: plain torch",
+        "qgrid: K3 (--rule gauss); general: K4; separable / structured / gather (indexed "
+        "local_to_global, sorted scatter): plain torch",
     )
     ap.add_argument("--rule", default="gauss_lobatto", choices=["gauss_lobatto", "gauss"])
     ap.add_argument(

@@ -81,6 +81,20 @@ class FESpace:
             self.mesh.boundary_dof_mask(self.degree), device=self.device
         )
 
+    @cached_property
+    def elem_dof_map(self) -> torch.Tensor:
+        """int32 ``[n_cells, (p+1)^3]`` local_to_global on the device (the
+        ``gather`` backend; ``mesh.element_dof_map`` on the host)."""
+        return torch.as_tensor(self.mesh.element_dof_map(self.degree), device=self.device)
+
+    @cached_property
+    def scatter_plan(self):
+        """The deterministic scatter-add plan of :attr:`elem_dof_map`
+        (``ops.local_global.make_scatter_plan``), built once."""
+        from .ops.local_global import make_scatter_plan
+
+        return make_scatter_plan(self.mesh.element_dof_map(self.degree), self.n_dofs, device=self.device)
+
     def initialize_dof_vector(self) -> torch.Tensor:
         return torch.zeros((self.n_dofs,), dtype=self.dtype, device=self.device)
 

@@ -7,9 +7,10 @@ reference's ``HelmholtzOperator`` + ``LocalHelmholtzOperator``
 coefficient ``a(x) = 10 / (0.05 + 2|x|^2)`` (``step-64/step-64.cu:96-118``)
 is evaluated once at set-up over the physical quadrature points. Backends:
 
-- ``structured``: the torch cell loop with values and gradients, any mesh
-  (the six-plane merged coefficient on graded and mapped ones; the plain
-  comparator on the card);
+- ``structured`` / ``gather``: the torch cell loop with values and
+  gradients, any mesh (the six-plane merged coefficient on graded and mapped
+  ones; the plain comparator on the card), on the structured or the indexed
+  transfer;
 - ``separable``: GLL collocation on a uniform or graded brick: the Poisson
   Kronecker terms plus the assembled ``a JxW`` diagonal;
 - ``qgrid``: K3 (``ops/qgrid.py``) with the weightless grad ``const`` /
@@ -117,7 +118,7 @@ class HelmholtzOperator(MatrixFreeOperator):
             self._coef_g = space.tensor(self.to_layout(geo.merged_coef_full()))  # [..., 6]
 
     def _apply_fold_scale(self, s: float) -> None:
-        if self.backend == "structured":
+        if self.backend in ("structured", "gather"):
             self._coef_val = self._coef_val * s
             if self._coef_g is None:
                 self._cdiag = tuple(c * s for c in self._cdiag)

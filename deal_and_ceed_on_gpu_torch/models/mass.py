@@ -4,8 +4,9 @@ Counterpart of ``deal_and_ceed_on_gpu_tpu/models/mass.py``. CEED BP1 is
 full Gauss quadrature q = p+2, the rectangular-interpolation path the
 reference's collocation evaluator skips. Backends:
 
-- ``structured``: the torch cell loop, ``values * JxW`` at the quadrature
-  points (uniform or graded bricks);
+- ``structured`` / ``gather``: the torch cell loop, ``values * JxW`` at the
+  quadrature points (uniform or graded bricks), on the structured or the
+  indexed transfer;
 - ``separable``: the Kronecker form ``Mz (x) My (x) Mx`` (``mass_terms``;
   diagonal at GLL collocation);
 - ``banded``: K2, the hand-written CUDA kernel (``ops/banded.py``,
@@ -63,12 +64,12 @@ class MassOperator(MatrixFreeOperator):
 
             self._sep_terms = mass_terms(space.mesh, space.basis, space.dtype, space.device)
             return
-        if backend != "structured":
-            raise ValueError(f"mass backend {backend!r}: use structured, separable, banded, qgrid or general")
+        if backend not in ("structured", "gather"):
+            raise ValueError(f"mass backend {backend!r}: use structured, gather, separable, banded, qgrid or general")
         self._jxw = space.tensor(self.jxw_layout())
 
     def _apply_fold_scale(self, s: float) -> None:
-        if self.backend == "structured":
+        if self.backend in ("structured", "gather"):
             self._jxw = self._jxw * s
             return
         super()._apply_fold_scale(s)

@@ -13,6 +13,10 @@ Subclasses provide the quad-point operation (the
 Backends:
 - ``structured``: index-free axis-separable gather/scatter, interleaved
   local layout ``[mz, p1, my, p1, mx, p1]``.
+- ``gather``: the explicit ``local_to_global`` table (``FESpace.elem_dof_map``):
+  an indexed gather, the same torch cell loop on the batched layout ``[E, p1,
+  p1, p1]``, and the deterministic sorted scatter (``FESpace.scatter_plan``,
+  ``ops/local_global.py``); the path of adaptive meshes, on a brick.
 - ``separable``: the Kronecker form of ``ops/separable.py`` (subclasses fill
   ``_sep_terms``).
 - ``stencil``: K1 (``ops/stencil.py``), set up by ``PoissonOperator`` and
@@ -51,6 +55,7 @@ __all__ = ["MatrixFreeOperator", "assemble_dense", "assemble_rhs", "l2_norm_func
 
 _LAYOUT_AXES = {
     "structured": (1, 3, 5),
+    "gather": (1, 2, 3),
     "separable": None,
     "stencil": None,
     "qgrid": None,
@@ -106,6 +111,8 @@ class MatrixFreeOperator:
         """Tensorized quadrature weights, broadcastable in the local layout."""
         w = self.space.geometry.w3d  # [qz,qy,qx]
         q = w.shape[0]
+        if self.backend == "gather":
+            return w.reshape(1, q, q, q)
         return w.reshape(1, q, 1, q, 1, q)
 
     def jxw_layout(self) -> np.ndarray:
@@ -118,6 +125,8 @@ class MatrixFreeOperator:
             return geo.det_j * w3
         if geo.mapped:
             return self.to_layout(geo.jxw_full())
+        if self.backend == "gather":
+            return geo.det_per_cell().reshape(-1, 1, 1, 1) * w3
         hx, hy, hz = self.space.mesh.h_axes()
         mx, my, mz = self.space.mesh.n_elements
         det = (
@@ -129,20 +138,27 @@ class MatrixFreeOperator:
 
     def to_layout(self, per_cell_q: np.ndarray) -> np.ndarray:
         """Reshape a host array ``[n_cells, n_q(, c)]`` (cell order (ez,ey,ex),
-        qpoint order (qz,qy,qx)) into the structured layout."""
+        qpoint order (qz,qy,qx)) into the backend's local layout."""
         mx, my, mz = self.space.mesh.n_elements
         q = self.space.basis.n_q
         trailing = per_cell_q.shape[2:]
+        if self.backend == "gather":
+            return per_cell_q.reshape((mx * my * mz, q, q, q) + trailing)
         a = per_cell_q.reshape((mz, my, mx, q, q, q) + trailing)
         return np.moveaxis(a, (3, 4, 5), (1, 3, 5))  # [mz,q,my,q,mx,q,...]
 
     # ----------------------------- apply ------------------------------ #
     def gather(self, u_flat: torch.Tensor) -> torch.Tensor:
         s = self.space
+        if self.backend == "gather":
+            return lg.gather_indexed(u_flat, s.elem_dof_map, s.degree)
         return lg.gather_structured(u_flat.reshape(s.grid_shape), s.mesh.n_elements, s.degree)
 
     def scatter(self, v_local: torch.Tensor) -> torch.Tensor:
-        return lg.scatter_structured(v_local, self.space.degree).reshape(-1)
+        s = self.space
+        if self.backend == "gather":
+            return lg.scatter_indexed_sorted(v_local, s.scatter_plan, s.n_dofs)
+        return lg.scatter_structured(v_local, s.degree).reshape(-1)
 
     def apply_cell_loop(self, u_flat: torch.Tensor) -> torch.Tensor:
         """The raw cell loop (no constraint handling): reference L-2. K2

@@ -9,6 +9,9 @@ reference's ``LocalPoissonOperator`` + ``PoissonOperator``
   scalars, ``coefficient = "merged_const"``) or, on graded and mapped
   meshes, the six-plane table ``merged_coef_full`` and the symmetric 3x3
   contraction (``"merged_full"``); the plain comparator on the card;
+- ``gather``: the same cell loop on the indexed transfer
+  (``FESpace.elem_dof_map`` and its sorted scatter plan): the JAX
+  ``backend="gather"``;
 - ``separable``: the Kronecker form (uniform or graded bricks);
 - ``stencil``: K1, the hand-written CUDA kernel (``ops/stencil.py``) on a
   uniform brick with GLL collocation; the counterpart of the JAX
@@ -100,7 +103,7 @@ class PoissonOperator(MatrixFreeOperator):
             self._coef = space.tensor(self.to_layout(geo.merged_coef_full()))  # [..., 6]
 
     def _apply_fold_scale(self, s: float) -> None:
-        if self.backend == "structured":
+        if self.backend in ("structured", "gather"):
             if self.coefficient == "merged_const":
                 self._cdiag = tuple(c * s for c in self._cdiag)
             else:

@@ -4,6 +4,7 @@ from .cg_merged import solve_cg_merged
 from .fdm import FDMSolver
 from .ir import solve_cg_ir
 from .multigrid import Multigrid
+from .adaptive_mg import AdaptiveMultigrid
 from .control import (
     IterationNumberControl,
     NoConvergence,
@@ -14,6 +15,7 @@ from .control import (
 __all__ = [
     "FDMSolver",
     "Multigrid",
+    "AdaptiveMultigrid",
     "SolverControl",
     "IterationNumberControl",
     "ReductionControl",
