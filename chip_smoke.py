@@ -12,7 +12,8 @@ anything does not build, launch, agree or converge. Phases:
    (``csrc/copy.cu``), one ``nvcc`` each, started together; print the build
    times and ptxas usage;
 2. K1 (``csrc/stencil.cu`` on ``csrc/stencil_tile.cuh``) against its plain
-   torch twin: the ptxas registers of each of its 96 instantiations (fails
+   torch twin: the ptxas registers of each of its 144 instantiations, the
+   shard mode's 48 among them (fails
    if one is missing, spills or keeps a stack frame); every p = 1..8 on the
    small shapes, a brick whose grid is not a multiple of the tile in x, y or
    z, one element and tables after ``scale_``, with and without the value
@@ -72,7 +73,8 @@ anything does not build, launch, agree or converge. Phases:
     cycle-33 shape, then the port's ``scripts/exp_solver_budget.py`` lines
     (a)-(i) at cycle 33 with short chains (K6 must have launched);
 18. K2 (``csrc/banded.cu``) against ``banded_apply_reference``: the ptxas
-    registers of each of its 48 instantiations (fails if one is missing,
+    registers of each of its 96 instantiations, the shard mode's 48 among
+    them (fails if one is missing,
     spills or keeps a stack frame); the cases of ``tests/test_pallas_banded.py``
     (uniform and graded, stiffness and mass, ``value_const``), then every p
     = 1..8, stiffness and mass, on bricks that are not a multiple of K2's
@@ -164,7 +166,37 @@ anything does not build, launch, agree or converge. Phases:
     turns, f64 and f32; one apply's split (zero + distribute, gather, K4,
     scatter, condense); two applies and two V-cycles bitwise equal, f64 and
     f32; ``AdaptiveHelmholtzOperator`` once on K4 against the plain loop;
-37. a ``torch.profiler`` trace of the rounds-4 MG-CG solve.
+37. a ``torch.profiler`` trace of the rounds-4 MG-CG solve;
+38. slice G1, K1 and K2 in shard mode (``parallel/``): the ptxas registers
+    of their shard instantiations (fails on a spill); both against their
+    plain versions at every p = 1..8, every combination of wall faces, dead
+    element layers behind an upper wall, K1 also raw (the plane partials'
+    mode) and its four plane partials (slabs one element thick), f64 / f32
+    / bf16, K2 stiffness and mass, from NaN-filled outputs (identity rows
+    bitwise); then K1 and its plane partials at a block of cycle 33 on 2 x
+    2 ([81, 81, 481]) and K2 at a block of BP3 32^3 on 4 x 2 ([41, 81,
+    161]), timed beside the single-device mode on the same block, the plain
+    version, the bound and the library call;
+39. the JAX package's dryrun checks 1-7, 12 and 15 on 8 gloo ranks sharing
+    the card, at its sizes: Poisson and Helmholtz ``DistOperator`` on 4 x 2,
+    K1 overlapped (Poisson, Helmholtz), the overlapped ``separable`` with the
+    corner exchange, ``general`` (K4) with Gauss q = p+2, the 3-D 2 x 2 x 2,
+    bf16-streamed K1 CG inside IR to a true f64 residual of 1e-10, K2 BP3 on
+    4 x 2: the JAX iteration counts (+-1), the single-device port's f64
+    solution to 1e-10, shared planes bitwise, the kernels launched on every
+    rank; then the distributed BP3 vmult at full width (32^3, p = 5 on 4 x
+    2) in f64 / f32 / bf16 vectors against the plain K2 on the global grid,
+    K2's shard-mode launches counted per precision;
+40. the distributed main path: ``drivers/bp5.run_cycle_distributed`` at
+    cycle 33 on 2 x 2 gloo ranks sharing the card (K1 in shard mode with the
+    overlapped exchange), f64 / f32 / f32 with bf16 vectors, pcg-standard +
+    pcg-merged + vmult, against phase 3's single-device run (the same
+    iterations, L2 norm to 1e-10 / 5e-5 / 5e-3), shared planes bitwise, K1
+    and its plane partial launched on every rank; pcg-merged + vmult again
+    with the halo exchanged after the apply (``overlap=False``), held to the
+    same; then one NCCL rank through the same code;
+41. phase 40's per-rank DoF/s and ms an iteration, both halo schedules: 4
+    ranks time-sharing one H100, not a measure of scaling.
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -302,7 +334,11 @@ def _grid_tensor(shape, dtype, seed):
 
 
 K1_TOL = {"f64": 1e-13, "f32": 1e-5, "bf16": 3e-2}  # of max|out| (f64: of each point's |out|, plus 1e-13)
-K1_INSTANTIATIONS = 3 * 8 * 2 * 2  # stencil_kernel<S, C, P, V, NC>: f64/f32/bf16 storage, p = 1..8, value term, components
+# stencil_kernel<S, C, P, V, NC, SHARD>: f64/f32/bf16 storage, p = 1..8, value term, then one or more components
+# (single-device) or the shard mode (one component)
+K1_INSTANTIATIONS = 3 * 8 * 2 * 3
+K1_PATTERN = r"stencil_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)ELb([01])ELb([01])ELb([01])E"
+K1_SHARD_PATTERN = r"stencil_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)ELb([01])ELb0ELb1E"
 K5_INSTANTIATIONS = 3 * 8 * 2  # cg_kernel<S, C, P, V>: f64/f32/bf16 storage, p = 1..8, value term
 
 
@@ -401,10 +437,11 @@ def _k1_sweep():
 
 
 def _ptxas_k1(args):
-    """The report line and entry of a K1 instantiation (S, C, P, V, NC)."""
-    storage, _, p, value, nc = args
+    """The report line and entry of a K1 instantiation (S, C, P, V[, NC,
+    SHARD])."""
+    storage, _, p, value, *rest = args
     label = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}[storage]
-    return f"{label} value={value} nc>1={nc}", p
+    return f"{label} value={value}" + ("" if not rest else f" nc>1={rest[0]} shard={rest[1]}"), p
 
 
 def _k1_main(tag, name):
@@ -439,8 +476,7 @@ def _k1_main(tag, name):
 def phase2_kernel_vs_twin():
     from deal_and_ceed_on_gpu_torch.ops import stencil
 
-    _ptxas("phase 2", "K1", stencil.SOURCE, r"stencil_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)ELb([01])ELb([01])E",
-           K1_INSTANTIATIONS, _ptxas_k1)
+    _ptxas("phase 2", "K1", stencil.SOURCE, K1_PATTERN, K1_INSTANTIATIONS, _ptxas_k1)
     n, worst = _k1_sweep()
     print(f"phase 2: K1 agrees with its twin on {n} cases, NaN-filled outputs fully written, faces bitwise")
     return _k1_main("phase 2", "bp5")
@@ -453,7 +489,7 @@ def phase3_main_path():
     from deal_and_ceed_on_gpu_torch.drivers.bp5 import run_cycle
     from deal_and_ceed_on_gpu_torch.ops import stencil
 
-    launches = {}
+    launches, results = {}, {}
     for label, dtype, stream in PRECISIONS:
         print(f"phase 3: main path, cycle {MAIN_CYCLE}, stencil backend, {label}")
         stencil.LAUNCHES = 0
@@ -463,6 +499,7 @@ def phase3_main_path():
             n_iterations=MAIN_ITERATIONS, n_repetitions=2,
         )
         launches[label] = stencil.LAUNCHES
+        results[label] = r
         if launches[label] == 0:
             raise AssertionError(f"main path ({label}) never launched K1")
         if not all(r["finite"].values()) or not math.isfinite(r["l2_norm"]):
@@ -478,7 +515,7 @@ def phase3_main_path():
     print(f"phase 3: f64 apply, stencil vs separable: rel err {rel:.3e}")
     if not rel <= 1e-12:
         raise AssertionError(f"f64 stencil apply disagrees with separable: {rel:.3e}")
-    return launches
+    return launches, results
 
 
 def _k1_bound_ms(n, p, label):
@@ -1146,7 +1183,10 @@ K2_CASES = (
     ((3, 4, 5), 4, 6, False, "mass", 3.0),
 )
 K2_TOL = {"f64": 1e-13, "f32": 1e-5, "bf16": 3e-2}  # of max|out|, as K1
-K2_INSTANTIATIONS = 3 * 8 * 2  # banded_kernel<S, C, P, STIFF>: f64/f32/bf16 storage, p = 1..8, stiffness or mass
+# banded_kernel<S, C, P, STIFF, SHARD>: f64/f32/bf16 storage, p = 1..8, stiffness or mass, single-device or shard
+K2_INSTANTIATIONS = 3 * 8 * 2 * 2
+K2_PATTERN = r"banded_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)ELb([01])ELb([01])E"
+K2_SHARD_PATTERN = r"banded_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)ELb([01])ELb1E"
 BP_DEGREE = 5
 BP_TARGET_DOFS = 4_000_000  # 32^3 elements at p = 5: 4,173,281 DoFs a component
 BP_ITERATIONS = 100
@@ -1275,8 +1315,7 @@ def phase18_k2_vs_plain():
     from deal_and_ceed_on_gpu_torch.ops import banded
     from deal_and_ceed_on_gpu_torch.scripts.bench_k2 import k2_shapes, k4_ms, time_k2
 
-    _ptxas("phase 18", "K2", banded.SOURCE, r"banded_kernelI(d|f|13__nv_bfloat16)([df])Li(\d+)ELb([01])E",
-           K2_INSTANTIATIONS, _ptxas_k2)
+    _ptxas("phase 18", "K2", banded.SOURCE, K2_PATTERN, K2_INSTANTIATIONS, _ptxas_k2)
     # the tile-edge bricks below are sized by kernel_tile: it must be the library's
     tiles = [banded.library_tile(p) for p in range(1, 9)]
     if tiles != [banded.kernel_tile(p) for p in range(1, 9)]:
@@ -1320,10 +1359,11 @@ def phase18_k2_vs_plain():
 
 
 def _ptxas_k2(args):
-    """The report line and entry of a K2 instantiation (S, C, P, STIFF)."""
-    storage, _, p, stiff = args
+    """The report line and entry of a K2 instantiation (S, C, P, STIFF[,
+    SHARD])."""
+    storage, _, p, stiff, *rest = args
     label = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}[storage]
-    return f"{label} {'stiffness' if stiff == '1' else 'mass'}", p
+    return f"{label} {'stiffness' if stiff == '1' else 'mass'}" + ("" if not rest else f" shard={rest[0]}"), p
 
 
 def phase19_k1_components():
@@ -2247,13 +2287,611 @@ def phase37_profile_adaptive():
              f"[{CARD}]", n_it, lambda: solve_cg(op.vmult, b, control, diag=mg.vcycle)[0], repeats=2)
 
 
+
+# ---------------------------------------------------------------------------
+# slice G1: distribution (parallel/), K1 and K2 in shard mode
+# ---------------------------------------------------------------------------
+SHARD_CYCLE = MAIN_CYCLE  # BP5 cycle 33 on 2 x 2 ranks: a block is [81, 81, 481]
+SHARD_K1_PARTITION = (2, 2)
+SHARD_K2_PARTITION = (4, 2)  # BP3 32^3, p = 5, q = 7 on 4 x 2 ranks: a block is [41, 81, 161]
+SHARD_K2_RANK = (1, 0)  # an interior block in z: shared faces below and above
+
+
+def _shard_local(n_el, p, faces, ragged):
+    """The synthetic block of a phase-38 case: ``n_el`` local elements,
+    ``faces = (z_lo, z_hi, y_lo, y_hi)`` the global walls, one dead element
+    layer in z and y where ``ragged`` and the upper face is a wall; returns
+    (mesh, phys_elems, ident)."""
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+
+    mx, my, mz = n_el
+    z_lo, z_hi, y_lo, y_hi = faces
+    my_p = my - 1 if ragged and y_hi else my
+    mz_p = mz - 1 if ragged and z_hi else mz
+    nz, ny, nx = mz * p + 1, my * p + 1, mx * p + 1
+    ident = (int(z_lo), mz_p * p if z_hi else nz, int(y_lo), my_p * p if y_hi else ny, 1, nx - 1)
+    return BrickMesh(n_el, upper=(1.0, 0.8, 1.3)), (mx, my_p, mz_p), ident
+
+
+def _shard_check(kernel, u, tables, label, tol):
+    """A shard-mode kernel against its plain version on ``u``, from a
+    NaN-filled output: the tolerance, finiteness and the identity rows
+    (bitwise)."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops import banded, stencil
+
+    apply, ref = ((stencil.stencil_apply, stencil.stencil_apply_reference) if kernel == "K1"
+                  else (banded.banded_apply, banded.banded_apply_reference))
+    got = apply(u, tables, out=torch.full_like(u, float("nan")))
+    torch.cuda.synchronize()
+    want = ref(u, tables)
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    rel = err / max(float(want.double().abs().max()), 1e-300)
+    ident = stencil.identity_mask(tables.shape, tables.identity, DEVICE).expand(u.shape)
+    ok = rel <= tol[label] and bool(torch.isfinite(got).all()) and bool(torch.equal(got[ident], u[ident]))
+    if not ok:
+        raise AssertionError(f"{kernel} shard mode disagrees with its plain version: shape {tuple(u.shape)} "
+                             f"p={tables.p} ident {tables.identity} {label}: max abs {err:.3e}, rel {rel:.3e}")
+    return err, rel
+
+
+def _plane_check(u, tables, label):
+    """K1's plane partials (``ops/stencil.plane_partial``: K1 raw on the
+    (p+1)-plane slab next to the first and last z and y planes, at the
+    compute dtype) against the matching planes of the plain raw apply on the
+    whole block, and each slab's launch, from a NaN-filled output, against
+    its plain version; returns the worst relative error (of max|raw apply|).
+    The slab is at the compute dtype, so bf16 vectors are held to f32's
+    tolerance."""
+    import dataclasses
+
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops import stencil
+
+    nz, ny, nx = tables.shape
+    want = stencil.apply_plain(u.to(tables.dtype), dataclasses.replace(tables, ident=(0, nz, 0, ny, 0, nx))).double()
+    scale = max(float(want.abs().max()), 1e-300)
+    tol = K1_TOL["f64" if label == "f64" else "f32"]
+    worst = 0.0
+    for axis in (0, 1):
+        for side in (0, -1):
+            slab, sub = stencil.plane_slab(u, tables, axis, side)
+            _, slab_rel = _shard_check("K1", slab, sub, "f64" if label == "f64" else "f32", K1_TOL)
+            got = stencil.plane_partial(u, tables, axis, side)
+            plane = want.select(axis, 0 if side == 0 else tables.shape[axis] - 1)
+            rel = float((got.double() - plane).abs().max()) / scale
+            if not (rel <= tol and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"K1 plane partial (axis {axis}, side {side}) disagrees with the plain raw "
+                                     f"apply: block {tuple(u.shape)} p={tables.p} {label}: rel {rel:.3e}")
+            worst = max(worst, rel, slab_rel)
+    return worst
+
+
+def _shard_sweep():
+    """K1 and K2 in shard mode against their plain versions at every p =
+    1..8, every combination of wall faces, with and without dead element
+    layers past an upper wall, K1 also raw (no identity row, the plane
+    partials' mode) and its four plane partials (K1 on slabs one element
+    thick), f64 / f32 / bf16, K2 stiffness and mass; returns the case count
+    and the worst relative error per kernel and precision."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.ops import banded, stencil
+
+    worst = {(k, label): 0.0 for k in ("K1", "K2") for label, _, _ in PRECISIONS}
+    n = 0
+    for p in range(1, 9):
+        n_el = (3, 3, 4) if p <= 4 else (2, 3, 3)
+        gll, gauss = Basis1D.make(p), Basis1D.make(p, p + 2, "gauss")
+        for faces in itertools.product((False, True), repeat=4):
+            for ragged in (False, True):
+                if ragged and not (faces[1] or faces[3]):
+                    continue
+                mesh, phys, ident = _shard_local(n_el, p, faces, ragged)
+                for label, dtype, stream in PRECISIONS:
+                    cd = getattr(torch, dtype)
+                    sd = getattr(torch, stream) if stream else cd
+                    k1 = stencil.StencilTables.from_numpy(
+                        stencil.stencil_tables_np(mesh, gll, phys, faces), p, cd, DEVICE, ident=ident)
+                    u = torch.as_tensor(np.random.default_rng(n).standard_normal(k1.shape), dtype=cd,
+                                        device=DEVICE).to(sd)
+                    for ident_k1 in ((ident, (0, k1.shape[0], 0, k1.shape[1], 0, k1.shape[2])) if not ragged
+                                     else (ident,)):
+                        k1.ident = ident_k1
+                        _, rel = _shard_check("K1", u, k1, label, K1_TOL)
+                        worst["K1", label] = max(worst["K1", label], rel)
+                        n += 1
+                    worst["K1", label] = max(worst["K1", label], _plane_check(u, k1, label))
+                    n += 4
+                    for kind in ("stiffness", "mass"):
+                        k2 = banded.BandedTables.from_numpy(
+                            banded.banded_tables_np(mesh, gauss, kind, None, phys, faces), p, cd, DEVICE,
+                            element=banded.element_tables_np(mesh, gauss, kind, None, phys), ident=ident)
+                        _, rel = _shard_check("K2", u, k2, label, K2_TOL)
+                        worst["K2", label] = max(worst["K2", label], rel)
+                        n += 1
+        print(f"phase 38: p={p}: K1 and K2 shard mode, 16 wall combinations, dead layers, K1 raw and its plane "
+              f"partials on slabs [{p + 1}, ny, nx] and [nz, {p + 1}, nx], f64 / f32 / bf16, K2 stiffness and mass: agree (worst rel err so far "
+              + ", ".join(f"{k} {l} {v:.3e}" for (k, l), v in worst.items()) + ")")
+    return n, worst
+
+
+def _shard_k1_tables(label):
+    """K1's tables of rank (0, 0) of cycle 33 on 2 x 2 (shard mode), and
+    the single-device tables of the same block."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.ops import stencil
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition
+
+    part = BlockPartition(BrickMesh.bp5_cycle(SHARD_CYCLE), DEGREE, *SHARD_K1_PARTITION)
+    cd = torch.float64 if label == "f64" else torch.float32
+    basis = Basis1D.make(DEGREE)
+    shard = stencil.StencilTables.from_numpy(
+        stencil.stencil_tables_np(part.local_mesh, basis, part.phys_elems(0, 0), part.faces(0, 0)), DEGREE, cd,
+        DEVICE, ident=part.ident(0, 0))
+    return part, shard, stencil.StencilTables.create(part.local_mesh, basis, cd, DEVICE)
+
+
+def _shard_k2_tables(label):
+    """K2's tables (BP3 stiffness) of rank ``SHARD_K2_RANK`` of the 32^3
+    brick on 4 x 2 (shard mode), and the single-device tables of the block."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.drivers.bp import target_mesh
+    from deal_and_ceed_on_gpu_torch.ops import banded
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition
+
+    part = BlockPartition(target_mesh(BP_DEGREE, BP_TARGET_DOFS), BP_DEGREE, *SHARD_K2_PARTITION)
+    cd = torch.float64 if label == "f64" else torch.float32
+    basis = Basis1D.make(BP_DEGREE, BP_DEGREE + 2, "gauss")
+    iz, iy = SHARD_K2_RANK
+    phys, faces = part.phys_elems(iz, iy), part.faces(iz, iy)
+    shard = banded.BandedTables.from_numpy(
+        banded.banded_tables_np(part.local_mesh, basis, "stiffness", None, phys, faces), BP_DEGREE, cd, DEVICE,
+        element=banded.element_tables_np(part.local_mesh, basis, "stiffness", None, phys),
+        ident=part.ident(iz, iy))
+    return part, shard, banded.BandedTables.create(part.local_mesh, basis, cd, DEVICE)
+
+
+def phase38_shard_modes():
+    """K1 and K2 in shard mode: ptxas reports (no spill), the sweep against
+    the plain versions, then each at its 2-D shard shape timed beside the
+    single-device mode on the same block, the plain version, the bound and
+    the library call; returns the records."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops import banded, stencil
+    from deal_and_ceed_on_gpu_torch.scripts import bench_k1_k5, bench_k2
+
+    # the shard-mode instantiations alone (phases 2 and 18 check all)
+    _ptxas("phase 38", "K1 shard mode", stencil.SOURCE, K1_SHARD_PATTERN, 3 * 8 * 2, _ptxas_k1)
+    _ptxas("phase 38", "K2 shard mode", banded.SOURCE, K2_SHARD_PATTERN, 3 * 8 * 2, _ptxas_k2)
+    n, _ = _shard_sweep()
+    print(f"phase 38: K1 and K2 shard mode agree with their plain versions on {n} cases, NaN-filled outputs fully "
+          f"written, identity rows bitwise")
+    k1, k2 = {}, {}
+    for label, dtype, stream in PRECISIONS:
+        sd = getattr(torch, stream) if stream else getattr(torch, dtype)
+        part, shard, single = _shard_k1_tables(label)
+        u = torch.as_tensor(np.random.default_rng(3).standard_normal(shard.shape), dtype=shard.dtype,
+                            device=DEVICE).to(sd)
+        err, rel = _shard_check("K1", u, shard, label, K1_TOL)
+        plane_rel = _plane_check(u, shard, label)
+        library = (None if label == "bf16" else
+                   bench_k1_k5._library(part.local_mesh, bench_k1_k5.Basis1D.make(DEGREE), shard.dtype, DEVICE))
+        ms, plain_ms, library_ms = bench_k1_k5.time_k1(u, shard, library)
+        single_ms = _time_ms(lambda: stencil.stencil_apply(u, single), 100)
+        plane_ms = _time_ms(lambda: stencil.plane_partial(u, shard, 1, -1), 100)
+        bound_ms, bound_by = _k1_bound_ms(u.numel(), DEGREE, label)
+        print(f"phase 38: K1 shard mode, rank (0, 0) of cycle {SHARD_CYCLE} on {SHARD_K1_PARTITION[0]}x"
+              f"{SHARD_K1_PARTITION[1]}, block {tuple(u.shape)} {label}: max abs err {err:.3e} (rel {rel:.3e}), "
+              f"plane partials (z, y; first, last; slabs from NaN-filled outputs) against the plain raw apply: worst "
+              f"rel {plane_rel:.3e}; shard {ms:.4f} ms, single-device mode on the block {single_ms:.4f} ms, y plane partial "
+              f"{plane_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f} %)"
+              + ("" if library_ms is None else f", torch.matmul(U, A_loc) {library_ms:.4f} ms") + f" [{CARD}]")
+        k1[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+        part, shard, single = _shard_k2_tables(label)
+        u = torch.as_tensor(np.random.default_rng(4).standard_normal(shard.shape), dtype=shard.dtype,
+                            device=DEVICE).to(sd)
+        err, rel = _shard_check("K2", u, shard, label, K2_TOL)
+        library = None if label == "bf16" else bench_k2._library("bp3", part.local_mesh, bench_k2.Basis1D.make(
+            BP_DEGREE, BP_DEGREE + 2, "gauss"), shard.dtype, DEVICE)
+        ms, plain_ms, library_ms = bench_k2.time_k2(u, shard, library)
+        single_ms = _time_ms(lambda: banded.banded_apply(u, single), 100)
+        bound_ms, bound_by = _k2_bound_ms(shard, u, label)
+        print(f"phase 38: K2 shard mode, rank {SHARD_K2_RANK} of BP3 32^3 on {SHARD_K2_PARTITION[0]}x"
+              f"{SHARD_K2_PARTITION[1]}, block {tuple(u.shape)} {label}: max abs err {err:.3e} (rel {rel:.3e}); "
+              f"shard {ms:.4f} ms, single-device mode on the block {single_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f} %)"
+              + ("" if library_ms is None else f", torch.matmul(U, A_loc) {library_ms:.4f} ms") + f" [{CARD}]")
+        k2[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+    return k1, k2
+
+
+
+# the JAX package's iteration counts of its dryrun checks 1-7, 12 and 15 on
+# the CPU (__graft_entry__.dryrun_multichip(8), MULTICHIP_r05.json): f64,
+# p = 2, reduction 1e-10, 4 x 2 on a (2, 5, 9) brick (ragged, a dead block),
+# 2 x 2 x 2 on (3, 3, 3); bf16-ir: outer IR steps on (3, 3, 4) to a true f64
+# relative residual of 1e-10
+DRYRUN_GOLDEN = {
+    "poisson": 52, "helmholtz": 70, "stencil-poisson": 62, "stencil-helmholtz": 88, "separable": 62,
+    "general": 52, "3d": 10, "bf16-ir": 7, "banded": 52,
+}
+DRYRUN_P = 2
+DRYRUN_RANKS = 8
+
+
+def _dryrun_spec(name):
+    """(mesh elements, (pz, py, px), n_q, rule) of a phase-39 check."""
+    if name == "3d":
+        return (3, 3, 3), (2, 2, 2), None, "gauss"
+    if name == "bf16-ir":
+        return (3, 3, 4), (4, 2, 1), None, "gauss_lobatto"
+    if name in ("stencil-poisson", "stencil-helmholtz", "separable"):
+        return (2, 5, 9), (4, 2, 1), None, "gauss_lobatto"
+    if name in ("general", "banded"):
+        return (2, 5, 9), (4, 2, 1), DRYRUN_P + 2, "gauss"
+    return (2, 5, 9), (4, 2, 1), None, "gauss"
+
+
+def _counts():
+    """The distributed kernels' launch counters of this process."""
+    from deal_and_ceed_on_gpu_torch.ops import banded, general, stencil
+
+    return {"k1_shard": stencil.SHARD_LAUNCHES, "k1_plane": stencil.PLANE_LAUNCHES,
+            "k2_shard": banded.SHARD_LAUNCHES, "k4": general.LAUNCHES}
+
+
+def _reset_counts():
+    from deal_and_ceed_on_gpu_torch.ops import banded, general, stencil
+
+    stencil.SHARD_LAUNCHES = stencil.PLANE_LAUNCHES = banded.SHARD_LAUNCHES = general.LAUNCHES = 0
+
+
+def _dryrun_rank(rank, device):
+    """A rank of phase 39 (gloo, every rank on cuda:0): each check's solve on
+    the rank's block; rank 0 gathers the blocks. Returns per check the
+    gathered solution (rank 0), the iterations (IR: outer steps and the
+    distributed true residual) and this rank's launch counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deal_and_ceed_on_gpu_torch import HelmholtzOperator, PoissonOperator, ReductionControl
+    from deal_and_ceed_on_gpu_torch.fe_space import FESpace
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+    from deal_and_ceed_on_gpu_torch.parallel import (BlockPartition, DistBandedOperator, DistOperator,
+                                                     DistStencilOperator, ShardComm, solve_cg_merged_dist)
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    control = ReductionControl(200, tolerance=0.0, reduction=1e-10)
+    groups = {8: None}
+    out = {}
+    for name in DRYRUN_GOLDEN:
+        n_el, shards, n_q, rule = _dryrun_spec(name)
+        part = BlockPartition(BrickMesh(n_el), DRYRUN_P, *shards)
+        comm = ShardComm(part, device, groups[part.n_shards])
+        f64 = torch.float64
+        space = FESpace.create(part.mesh, DRYRUN_P, n_q=n_q, rule=rule, dtype=f64, device="cpu")
+        b = torch.as_tensor(part.block(assemble_rhs(space, 1.0).numpy().reshape(space.grid_shape), comm.rank),
+                            device=device)
+        _reset_counts()
+        res = None
+        if name == "bf16-ir":
+            op64 = DistStencilOperator(part, comm, f64)
+            op16 = DistStencilOperator(part, comm, torch.float32, stream_dtype=torch.bfloat16)
+            w = op64.dot_weight
+
+            def norm(v):
+                s = torch.dot((v * w).reshape(-1), v.reshape(-1)).reshape(1)
+                return float(torch.sqrt(comm.allreduce_sum_(s))[0])
+
+            inner = ReductionControl(60, tolerance=0.0, reduction=3e-2, success_on_max_steps=True)
+            bnorm, x, res, it = norm(b), torch.zeros_like(b), 1.0, 0
+            for _ in range(12):
+                r = b - op64.vmult(x)
+                res = norm(r) / bnorm
+                if res <= 1e-10:
+                    break
+                e, _ = solve_cg_merged_dist(op16, r, inner)
+                x = x + e.to(f64)
+                it += 1
+        else:
+            if name.startswith("stencil"):
+                op = DistStencilOperator(part, comm, f64, operator=name.split("-")[1])
+            elif name == "banded":
+                op = DistBandedOperator(part, comm, f64, n_q=n_q)
+            else:
+                cls = HelmholtzOperator if name == "helmholtz" else PoissonOperator
+                backend = {"separable": "separable", "general": "general"}.get(name, "structured")
+                op = DistOperator(part, comm, cls, f64, backend=backend, rule=rule, n_q=n_q)
+            x, info = solve_cg_merged_dist(op, b, control)
+            it = int(info["n_iterations"])
+        out[name] = dict(x=comm.gather_blocks(x), it=it, res=res, coherent=comm.shared_planes_equal(x),
+                         counts=_counts())
+        dist.barrier()
+    out["k2-bp3"] = _k2_dist_rank(device)
+    return out
+
+
+K2_DIST_APPLIES = 20
+
+
+def _k2_dist_input(part, label):
+    """The global probe of phase 39's distributed BP3 vmult at ``label``'s
+    storage dtype (host numpy, f64 values)."""
+    import numpy as np
+    import torch
+
+    _, dtype, stream = next(pr for pr in PRECISIONS if pr[0] == label)
+    g = np.random.default_rng(6).standard_normal(part.global_grid_shape)
+    return torch.as_tensor(g, dtype=getattr(torch, dtype)).to(getattr(torch, stream or dtype))
+
+
+def _k2_dist_rank(device):
+    """A rank of phase 39's K2 path at full width: the distributed BP3
+    vmult at 32^3, p = 5, q = 7 on 4 x 2 (``parallel.DistBandedOperator``:
+    K2 in shard mode on a [41, 81, 161] block, then the plane exchange),
+    ``K2_DIST_APPLIES`` applies in f64, f32 and bf16 vectors, the counts
+    reset just before each precision's; returns per precision the gathered
+    output of the last apply (rank 0), whether its shared planes are bitwise
+    equal and this rank's launches."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.drivers.bp import target_mesh
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition, DistBandedOperator, ShardComm
+
+    part = BlockPartition(target_mesh(BP_DEGREE, BP_TARGET_DOFS), BP_DEGREE, *SHARD_K2_PARTITION)
+    comm = ShardComm(part, device)
+    out = {}
+    for label, dtype, stream in PRECISIONS:
+        cd = getattr(torch, dtype)
+        op = DistBandedOperator(part, comm, cd, n_q=BP_DEGREE + 2,
+                                stream_dtype=getattr(torch, stream) if stream else None)
+        g = _k2_dist_input(part, label)
+        u = torch.as_tensor(part.block(g.double().numpy(), comm.rank), device=device).to(g.dtype)
+        _reset_counts()
+        for _ in range(K2_DIST_APPLIES):
+            y = op.vmult(u)
+        counts = _counts()
+        out[label] = dict(y=comm.gather_blocks(y.double()), coherent=comm.shared_planes_equal(y), counts=counts)
+    return out
+
+
+def _dryrun_reference(name):
+    """The single-device port's f64 solution of a phase-39 check on the
+    card (the same operator on the global mesh)."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import (FESpace, HelmholtzOperator, PoissonOperator, ReductionControl,
+                                            solve_cg_merged)
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+
+    n_el, _, n_q, rule = _dryrun_spec(name)
+    space = FESpace.create(BrickMesh(n_el), DRYRUN_P, n_q=n_q, rule=rule, dtype=torch.float64, device=DEVICE)
+    cls = HelmholtzOperator if name.endswith("helmholtz") else PoissonOperator
+    backend = {"stencil-poisson": "stencil", "stencil-helmholtz": "stencil", "separable": "separable",
+               "general": "general", "banded": "banded", "bf16-ir": "stencil"}.get(name, "structured")
+    op = cls(space, backend=backend)
+    b = assemble_rhs(space, 1.0)
+    x, info = solve_cg_merged(op.vmult, b, ReductionControl(200, tolerance=0.0, reduction=1e-10))
+    return op, b, x, int(info["n_iterations"])
+
+
+def phase39_dryrun_checks():
+    """The JAX package's dryrun checks 1-7, 12 and 15 ported: 8 gloo ranks
+    sharing cuda:0 run each distributed solve at the JAX sizes and meshes;
+    each meets the JAX iteration count (+-1) and the single-device port's
+    f64 solution to 1e-10 (IR: a true f64 residual <= 1e-10), shared
+    planes bitwise equal; then the distributed BP3 vmult at full width in
+    f64 / f32 / bf16 (``_k2_dist_check``), whose K2 shard-mode launches
+    (all ranks, per precision) it returns."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition, spawn
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+
+    t0 = time.perf_counter()
+    per_rank = spawn(_dryrun_rank, DRYRUN_RANKS, args=(DEVICE,), backend="gloo", device=DEVICE, timeout=400)
+    print(f"phase 39: {DRYRUN_RANKS} gloo ranks on {DEVICE} ran {len(DRYRUN_GOLDEN)} checks in "
+          f"{time.perf_counter() - t0:.1f} s (start-up included) [{CARD}]")
+    for name, golden in DRYRUN_GOLDEN.items():
+        got = per_rank[0][name]
+        n_el, shards, _, _ = _dryrun_spec(name)
+        part = BlockPartition(BrickMesh(n_el), DRYRUN_P, *shards)
+        x = torch.as_tensor(part.assemble(got["x"]).reshape(-1), device=DEVICE)
+        op, b, x_ref, it_ref = _dryrun_reference(name)
+        counts = {k: [r[name]["counts"][k] for r in per_rank] for k in per_rank[0][name]["counts"]}
+        if name == "bf16-ir":
+            res = float(torch.linalg.vector_norm(b - op.vmult(x)) / torch.linalg.vector_norm(b))
+            ok = abs(got["it"] - golden) <= 1 and got["res"] <= 1e-10 and res <= 1e-10
+            detail = f"{got['it']} outer (golden {golden}), true f64 rel res {res:.2e} (distributed {got['res']:.2e})"
+        else:
+            err = float((x - x_ref).abs().max() / x_ref.abs().max())
+            ok = abs(got["it"] - golden) <= 1 and abs(got["it"] - it_ref) <= 1 and err <= 1e-10
+            detail = (f"{got['it']} iterations (JAX golden {golden}, single-device port {it_ref}), solution vs "
+                      f"single-device rel {err:.2e}")
+        ok = ok and got["coherent"] and bool(torch.isfinite(x).all())
+        kernels = {k: v for k, v in counts.items() if any(v)}
+        print(f"phase 39: {name} on {'x'.join(map(str, shards))}: {detail}, shared planes bitwise "
+              f"{got['coherent']}, launches per rank {kernels}")
+        if not ok:
+            raise AssertionError(f"phase 39: the distributed {name} check failed: {detail}")
+        need = {"stencil-poisson": ("k1_shard", "k1_plane"), "stencil-helmholtz": ("k1_shard", "k1_plane"),
+                "bf16-ir": ("k1_shard", "k1_plane"), "banded": ("k2_shard",), "general": ("k4",)}.get(name, ())
+        for k in need:
+            if not all(counts[k]):
+                raise AssertionError(f"phase 39: {name}: {k} did not launch on every rank: {counts[k]}")
+    return _k2_dist_check(per_rank)
+
+
+def _k2_dist_check(per_rank):
+    """Phase 39's distributed BP3 vmult against the plain K2 version on the
+    global grid (K2_TOL of max|want|), shared planes bitwise equal, K2's
+    shard mode launched on every rank; returns the launches per precision
+    (all ranks)."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.drivers.bp import target_mesh
+    from deal_and_ceed_on_gpu_torch.ops import banded
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition
+
+    part = BlockPartition(target_mesh(BP_DEGREE, BP_TARGET_DOFS), BP_DEGREE, *SHARD_K2_PARTITION)
+    basis = Basis1D.make(BP_DEGREE, BP_DEGREE + 2, "gauss")
+    launches = {}
+    for label, dtype, _ in PRECISIONS:
+        got = [r["k2-bp3"][label] for r in per_rank]
+        tables = banded.BandedTables.create(part.mesh, basis, getattr(torch, dtype), DEVICE)
+        u = _k2_dist_input(part, label).to(DEVICE)
+        want = banded.banded_apply_reference(u, tables).double()
+        y = torch.as_tensor(part.assemble(got[0]["y"]), device=DEVICE)
+        err = float((y - want).abs().max())
+        rel = err / float(want.abs().max())
+        k2 = [r["counts"]["k2_shard"] for r in got]
+        print(f"phase 39: distributed BP3 vmult, 32^3 p={BP_DEGREE} on {SHARD_K2_PARTITION[0]}x"
+              f"{SHARD_K2_PARTITION[1]} (blocks {part.local_grid_shape}), {label}: {K2_DIST_APPLIES} applies, the "
+              f"last against the plain K2 version on the global grid: max abs err {err:.3e} (rel {rel:.3e}), shared "
+              f"planes bitwise {got[0]['coherent']}, K2 shard launches per rank {k2}")
+        if not (rel <= K2_TOL[label] and got[0]["coherent"] and bool(torch.isfinite(y).all()) and all(k2)):
+            raise AssertionError(f"phase 39: the distributed BP3 vmult ({label}) disagrees with the plain version "
+                                 f"or did not launch K2 on every rank")
+        launches[label] = sum(k2)
+    return launches
+
+
+SHARD_MAIN = (2, 2)
+
+
+def _main_rank(rank, cycle, precisions, n_iterations, device):
+    """A rank of phase 40: ``drivers/bp5.run_cycle_distributed`` at cycle 33
+    on its block, per precision, with the launch counts of that run; then
+    pcg-merged and vmult again with the halo exchanged after the apply
+    (``overlap=False``), to time the two schedules in one run."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.drivers.bp5 import BP5Config, run_cycle_distributed
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    out = {}
+    for label, dtype, stream in precisions:
+        cfg = BP5Config(dtype=dtype, stream_dtype=stream, backend="stencil", device=device,
+                        modes=("pcg-standard", "pcg-merged", "vmult"), n_iterations=n_iterations, n_repetitions=2)
+        _reset_counts()
+        r = run_cycle_distributed(cycle, *SHARD_MAIN, cfg)
+        r["counts"] = _counts()
+        out[label] = r
+        out[label, "after"] = run_cycle_distributed(cycle, *SHARD_MAIN, cfg, modes=("pcg-merged", "vmult"),
+                                                    overlap=False)
+    return out
+
+
+def phase40_main_path(single):
+    """The main path of the distributed port: ``run_cycle_distributed`` at
+    cycle 33 (12,468,001 DoFs, p = 5, K1) on 2 x 2 gloo ranks sharing the
+    card, f64 / f32 / f32 with bf16 vectors, pcg-standard + pcg-merged +
+    vmult; the same iteration counts as the single-device ``run_cycle`` of
+    phase 3 (``single``) and its L2 norm to 1e-10 (f64) / 5e-5 (f32), shared
+    planes bitwise equal, K1 and its plane partial launched on every rank;
+    the same with the halo exchanged after the apply (pcg-merged + vmult);
+    then a 1 x 1 x 1 NCCL pass through the same code. Returns the ranks'
+    results per precision and the K1 shard-mode launches (all ranks)."""
+    from deal_and_ceed_on_gpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    n = SHARD_MAIN[0] * SHARD_MAIN[1]
+    per_rank = spawn(_main_rank, n, args=(SHARD_CYCLE, PRECISIONS, MAIN_ITERATIONS, DEVICE), backend="gloo", device=DEVICE,
+                     timeout=600)
+    print(f"phase 40: {n} gloo ranks on {DEVICE}: cycle {SHARD_CYCLE} in f64 / f32 / bf16 in "
+          f"{time.perf_counter() - t0:.1f} s (start-up included) [{CARD}]")
+    launches = {}
+    for label, _, _ in PRECISIONS:
+        r0, want = per_rank[0][label], single[label]
+        its = {m: {r[label]["n_iterations"][m] for r in per_rank} for m in ("pcg-standard", "pcg-merged")}
+        k1 = [r[label]["counts"]["k1_shard"] for r in per_rank]
+        plane = [r[label]["counts"]["k1_plane"] for r in per_rank]
+        rel = abs(r0["l2_norm"] - want["l2_norm"]) / want["l2_norm"]
+        # bf16 vectors: the shared planes' sums are rounded once, as the
+        # single kernel's are, but at other points of the summation
+        tol = {"f64": 1e-10, "f32": 5e-5, "bf16": 5e-3}[label]
+        print(f"phase 40: {label}: iterations {its} (single-device {want['n_iterations']}), L2 norm "
+              f"{r0['l2_norm']:.12g} (single-device {want['l2_norm']:.12g}, rel {rel:.2e}), shared planes bitwise "
+              f"{all(r[label]['coherent'] for r in per_rank)}, K1 launches per rank {k1}, plane partials {plane}")
+        ok = (all(its[m] == {want["n_iterations"][m]} for m in its) and rel <= tol
+              and all(r[label]["coherent"] and all(r[label]["finite"].values()) for r in per_rank)
+              and all(k1) and all(plane))
+        after = per_rank[0][label, "after"]
+        its_after = {r[label, "after"]["n_iterations"]["pcg-merged"] for r in per_rank}
+        rel_after = abs(after["l2_norm"] - want["l2_norm"]) / want["l2_norm"]
+        print(f"phase 40: {label}, halo after the apply: pcg-merged iterations {its_after}, L2 norm rel "
+              f"{rel_after:.2e} to single-device, shared planes bitwise "
+              f"{all(r[label, 'after']['coherent'] for r in per_rank)}")
+        ok = ok and (its_after == {want["n_iterations"]["pcg-merged"]} and rel_after <= tol
+                     and all(r[label, "after"]["coherent"] and all(r[label, "after"]["finite"].values())
+                             for r in per_rank))
+        if not ok:
+            raise AssertionError(f"phase 40: the distributed main path ({label}) disagrees with the single-device one")
+        launches[label] = sum(k1)
+
+    from deal_and_ceed_on_gpu_torch.drivers.bp5 import BP5Config, run_distributed
+
+    t0 = time.perf_counter()
+    cfg = BP5Config(dtype="float64", backend="stencil", device=DEVICE, modes=("pcg-merged",),
+                    n_iterations=MAIN_ITERATIONS, n_repetitions=1)
+    (r,) = run_distributed(SHARD_CYCLE, SHARD_CYCLE, (1, 1, 1), cfg, "nccl", timeout=300)[0]
+    rel = abs(r["l2_norm"] - single["f64"]["l2_norm"]) / single["f64"]["l2_norm"]
+    print(f"phase 40: 1x1x1 on nccl (init, all-reduce of CUDA tensors) through run_cycle_distributed: "
+          f"{r['n_iterations']['pcg-merged']} iterations, L2 norm rel {rel:.2e} to single-device, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if r["n_iterations"]["pcg-merged"] != single["f64"]["n_iterations"]["pcg-merged"] or rel > 1e-10:
+        raise AssertionError("phase 40: the 1x1x1 nccl pass disagrees with the single-device run")
+    return per_rank, launches
+
+
+def phase41_per_rank_timing(per_rank):
+    """Phase 40's per-rank numbers: DoF/s a rank and ms an iteration, as 4
+    ranks time-sharing one H100 (not a measure of scaling), with the halo
+    overlapped (the driver's default) and exchanged after the apply."""
+    n = len(per_rank)
+    for label, _, _ in PRECISIONS:
+        for key, modes, schedule in ((label, ("pcg-standard", "pcg-merged", "vmult"), "overlapped"),
+                                     ((label, "after"), ("pcg-merged", "vmult"), "after the apply")):
+            for mode in modes:
+                tp = [r[key][mode] for r in per_rank]
+                ms = [r[key]["ms_per_iteration"][mode] for r in per_rank]
+                print(f"phase 41: {label} {mode}, halo {schedule}: {n} ranks time-sharing one H100 [{CARD}]: DoF/s "
+                      "a rank " + " ".join(f"{t:.4g}" for t in tp) + ", ms an iteration a rank "
+                      + " ".join(f"{m:.3f}" for m in ms))
+
+
 def main():
     global CARD
     smi = phase0_device()
     CARD = smi
     phase1_build()
     kernel = phase2_kernel_vs_twin()
-    launches = phase3_main_path()
+    launches, single_main = phase3_main_path()
     phase4_golden()
     phase5_timing()
     k3, k3_mapped = phase6_k3_vs_plain()
@@ -2289,6 +2927,10 @@ def main():
     phase35_adaptive_golden()
     k4_adaptive_launches = phase36_adaptive_main()
     phase37_profile_adaptive()
+    k1_shard, k2_shard = phase38_shard_modes()
+    k2_shard_launches = phase39_dryrun_checks()
+    dist_ranks, k1_shard_launches = phase40_main_path(single_main)
+    phase41_per_rank_timing(dist_ranks)
     import torch
 
     records = [
@@ -2434,6 +3076,29 @@ def main():
             **k4_adaptive[label],
         }
         for label in ("f64", "f32")
+    ]
+    records += [
+        {
+            "name": f"stencil_k1_shard_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/stencil.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py:443",
+            # the ranks' launches of phase 40's main path (full applies and plane partials)
+            "launches": k1_shard_launches[label],
+            **k1_shard[label],
+        }
+        for label, _, _ in PRECISIONS
+    ] + [
+        {
+            "name": f"banded_k2_shard_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/banded.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_banded.py:253",
+            # the ranks' launches of phase 39's distributed BP3 vmult at this precision
+            "launches": k2_shard_launches[label],
+            **k2_shard[label],
+        }
+        for label, _, _ in PRECISIONS
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

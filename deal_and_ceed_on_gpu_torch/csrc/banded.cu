@@ -7,7 +7,19 @@
 //
 //   stiffness:  out = Mz (My Ax + Ay Mx) u + Gz My Mx u
 //   mass:       out = Gz My Mx u
-//   out = u on the six boundary faces of each component (identity rows)
+//   out = u on the identity rows of each component: the six boundary faces
+//
+// Shard mode (parallel/dist_banded.py, a separate instantiation SHARD: the
+// single-device code is compiled as it was): on a block of a partition the z and
+// y identity rows are given as pairs (lo, hi), row i an identity row when i
+// < lo or i >= hi: the global walls and the dead rows past the global
+// extent (one device: lo = 1, hi = n - 1; x is never partitioned and keeps
+// its two faces). Only identity rows read u as 0 and write out = u. A
+// shared face (lo = 0 or hi = n) reads u and holds the partial sum of the
+// block's elements, which the neighbouring blocks add: the block that ends
+// on a shared upper y face sums one more row of columns, and the last z
+// range writes the last plane. Dead elements have zero factors (ey, ez), so
+// they add exactly nothing.
 //
 // with the assembled 1D factors M_a = Z^T diag(h_e) B Z, A_a = Z^T
 // diag(1/h_e) K Z of each axis (B = S^T W S, K = D^T W D the (p+1)^2
@@ -237,6 +249,7 @@ struct Tile {
   static constexpr int NN = (TE + 1) * P + 1;           // slab nodes a side
   static constexpr int NO = TE * P;                     // owned nodes a side
   static constexpr int CPT = cdiv(NO * NO, NT);         // owned columns a thread (z sums)
+  static constexpr int CPTS = cdiv(NO * (NO + 1), NT);  // in shard mode: one more row
   static constexpr int LPT = cdiv(NN * NN, NT);         // slab nodes a thread loads
   // x lines: the slab rows of each element of the tile, then those of the
   // element below it (its last node only); y lines: the owned columns of
@@ -255,10 +268,11 @@ struct Tile {
 
 // Resident blocks a SM asked of ptxas (65,536 registers an SM: two blocks of
 // 256 threads leave 128 registers a thread): two, but one for f64 stiffness
-// at p >= 6, which spills at 128 (ptxas reports)
-template <typename C, int P, bool STIFF>
+// at p >= 6, which spills at 128 (ptxas reports), and for f64 in shard mode
+// (its identity pairs and extra row spilled at 128 at p = 1-7)
+template <typename C, int P, bool STIFF, bool SHARD>
 constexpr int min_blocks() {
-  return sizeof(C) == 8 && STIFF && P >= 6 ? 1 : 2;
+  return sizeof(C) == 8 && ((STIFF && P >= 6) || SHARD) ? 1 : 2;
 }
 
 template <typename S, typename C>
@@ -270,14 +284,18 @@ struct Params {
   const C* ez;  // [3][mz]: Mz's h; Gz = ez[1] K + ez[2] B
   int mx, my, mz;
   int zchunk, nchunks;  // element layers a z range; ranges a component
+  int zlo, zhi, ylo, yhi;  // identity rows: i < lo or i >= hi (z, y)
 };
 
-template <typename S, typename C, int P, bool STIFF>
-__global__ void __launch_bounds__(NT, (min_blocks<C, P, STIFF>()))
+// SHARD: the z and y identity rows from the pairs of Params (shard mode),
+// else the faces.
+template <typename S, typename C, int P, bool STIFF, bool SHARD>
+__global__ void __launch_bounds__(NT, (min_blocks<C, P, STIFF, SHARD>()))
     banded_kernel(const __grid_constant__ ElemTables<C, P> tab, const Params<S, C> a) {
   using L = Tile<P, STIFF>;
   using CV = Convert<S, C>;
-  constexpr int P1 = P + 1, HP = P1 / 2, CPT = L::CPT, LPT = L::LPT, XT = L::XT, YT = L::YT;
+  constexpr int P1 = P + 1, HP = P1 / 2, LPT = L::LPT, XT = L::XT, YT = L::YT;
+  constexpr int CPT = SHARD ? L::CPTS : L::CPT;
   constexpr int RU = L::RU, RX = L::RX, RY = L::RY;
   // two buffers of each (plane parity): the slab's plane U [NN][RU]; the x
   // sweep's B u (X0) and K u (X1) [NN][RX], element-local; the y sweep's My
@@ -314,7 +332,7 @@ __global__ void __launch_bounds__(NT, (min_blocks<C, P, STIFF>()))
   // fixed for the march; x lines go to the first threads, y lines to the
   // last, so that the x sweep of one plane and the y sweep of the previous
   // one run on different warps
-  constexpr int IN = 1, FACE = 2, OWN = 4;
+  constexpr int IN = 1, FACE = 2, OWN = 4;  // FACE: an identity row of y or x
   int ld_u[LPT], ld_g[LPT], ld_f[LPT];
 #pragma unroll
   for (int k = 0; k < LPT; ++k) {
@@ -325,7 +343,9 @@ __global__ void __launch_bounds__(NT, (min_blocks<C, P, STIFF>()))
     ld_g[k] = y * nx + x;
     const bool in = live && y >= 0 && y < ny && x >= 0 && x < nx;
     const bool own = in && sy >= P && sx >= P && (sy < P + oy || y == ny - 1) && (sx < P + ox || x == nx - 1);
-    ld_f[k] = (in ? IN : 0) | (y == 0 || y == ny - 1 || x == 0 || x == nx - 1 ? FACE : 0) | (own ? OWN : 0);
+    const bool face = SHARD ? y < a.ylo || y >= a.yhi || x == 0 || x == nx - 1
+                            : y == 0 || y == ny - 1 || x == 0 || x == nx - 1;
+    ld_f[k] = (in ? IN : 0) | (face ? FACE : 0) | (own ? OWN : 0);
   }
   // x lines from the first thread, (sy, el) packed sy | el << 16, el 0 the
   // element below the tile after the others; y lines from the last thread,
@@ -376,19 +396,36 @@ __global__ void __launch_bounds__(NT, (min_blocks<C, P, STIFF>()))
   for (int k = 0; k < (HOIST ? YT : 1); ++k) yf[k] = HOIST ? y_factors(k) : YF{};
   // the owned columns: the Y offsets of the column's value and of the lower
   // part of a node shared by two y elements (the Y arrays' zero cell where
-  // there is none); the global column; whether the sweeps write it (not a face)
+  // there is none); the global column; whether the sweeps write it (not an
+  // identity row). A tile that ends on a shared upper y face owns one more
+  // row: the last node of its last element.
   int zc_y[CPT], zc_z[CPT], zc_g[CPT];
   bool zc_w[CPT];
+  if constexpr (SHARD) {
+    const int oyz = oy + (ey1 == a.my && a.yhi >= ny ? 1 : 0);
 #pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int c = tid + k * NT, iy = c / ox, ix = c - iy * ox;
-    const int ye = iy / P + 1, yi = iy - (ye - 1) * P, row = ye * P1 + yi;
-    const bool live = c < oy * ox;
-    zc_y[k] = live ? row * RY + ix : L::SY - 1;
-    zc_z[k] = live && yi == 0 ? (row - 1) * RY + ix : L::SY - 1;
-    const int y = ey0 * P + iy, x = ex0 * P + ix;
-    zc_g[k] = y * nx + x;
-    zc_w[k] = live && y != 0 && x != 0;
+    for (int k = 0; k < CPT; ++k) {
+      const int c = tid + k * NT, iy = c / ox, ix = c - iy * ox;
+      const int ye = iy / P + 1, yi = iy - (ye - 1) * P, row = iy < oy ? ye * P1 + yi : (sey - 1) * P1 + P;
+      const bool live = c < oyz * ox;
+      zc_y[k] = live ? row * RY + ix : L::SY - 1;
+      zc_z[k] = live && yi == 0 && iy < oy ? (row - 1) * RY + ix : L::SY - 1;
+      const int y = ey0 * P + iy, x = ex0 * P + ix;
+      zc_g[k] = y * nx + x;
+      zc_w[k] = live && y >= a.ylo && y < a.yhi && x != 0;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = tid + k * NT, iy = c / ox, ix = c - iy * ox;
+      const int ye = iy / P + 1, yi = iy - (ye - 1) * P, row = ye * P1 + yi;
+      const bool live = c < oy * ox;
+      zc_y[k] = live ? row * RY + ix : L::SY - 1;
+      zc_z[k] = live && yi == 0 ? (row - 1) * RY + ix : L::SY - 1;
+      const int y = ey0 * P + iy, x = ex0 * P + ix;
+      zc_g[k] = y * nx + x;
+      zc_w[k] = live && y != 0 && x != 0;
+    }
   }
 
   S pre[LPT];  // the next plane of the slab
@@ -401,7 +438,7 @@ __global__ void __launch_bounds__(NT, (min_blocks<C, P, STIFF>()))
   // the fetched plane z of the slab to U (faces zero: the Dirichlet
   // columns); the owned face nodes of out are u
   auto store_plane = [&](int z, C* Ub) {
-    const bool zface = z == 0 || z == nz - 1;
+    const bool zface = SHARD ? z < a.zlo || z >= a.zhi : z == 0 || z == nz - 1;
     const bool zown = (z >= ez0 * P && z < ez1 * P) || (z == nz - 1 && ez1 == a.mz);
     const int keep = zface ? 0 : FACE;  // a node is a face if zface or its FACE bit
     const int wr = zown ? (zface ? OWN : OWN | FACE) : -1;  // write out = u if all of wr's bits are set
@@ -500,7 +537,7 @@ __global__ void __launch_bounds__(NT, (min_blocks<C, P, STIFF>()))
   auto layer = [&](int ez) { return Fz{__ldg(a.ez + ez), __ldg(a.ez + a.mz + ez), __ldg(a.ez + 2 * a.mz + ez)}; };
   auto write_layer = [&](int ez, int k, int i, C v) {
     const int z = ez * P + i;
-    if (ez >= ez0 && zc_w[k] && z != 0) out[(long long)z * plane + zc_g[k]] = CV::down(v);
+    if (ez >= ez0 && zc_w[k] && (SHARD ? z >= a.zlo && z < a.zhi : z != 0)) out[(long long)z * plane + zc_g[k]] = CV::down(v);
   };
   // acc[k][i] sums output i of the current element layer at owned column k:
   // plane j adds Mz[i][j] g1 + Gz[i][j] g2
@@ -532,6 +569,8 @@ __global__ void __launch_bounds__(NT, (min_blocks<C, P, STIFF>()))
     for (int k = 0; k < CPT; ++k) {
 #pragma unroll
       for (int i = 0; i < P; ++i) write_layer(ez, k, i, acc[k][i]);
+      if constexpr (SHARD)
+        if (ez == a.mz - 1) write_layer(ez, k, P, acc[k][P]);  // the last plane, if not an identity row
       acc[k][0] = acc[k][P];
 #pragma unroll
       for (int i = 1; i < P1; ++i) acc[k][i] = C(0);
@@ -589,11 +628,11 @@ __global__ void __launch_bounds__(NT, (min_blocks<C, P, STIFF>()))
   }
 }
 
-template <typename S, typename C, int P, bool STIFF>
+template <typename S, typename C, int P, bool STIFF, bool SHARD>
 cudaError_t launch_kind(const ElemTables<C, P>& tab, Params<S, C> a, int nc, cudaStream_t stream) {
   using L = Tile<P, STIFF>;
   const size_t smem = L::smem(sizeof(C));
-  auto kernel = banded_kernel<S, C, P, STIFF>;
+  auto kernel = banded_kernel<S, C, P, STIFF, SHARD>;
   int dev = 0;
   cudaGetDevice(&dev);
   static int resident[64] = {};  // blocks the card holds at once, per device (set up once)
@@ -630,16 +669,20 @@ cudaError_t launch_kind(const ElemTables<C, P>& tab, Params<S, C> a, int nc, cud
 }
 
 template <typename S, typename C, int P>
-cudaError_t launch(bool stiff, const double* B, const double* K, const Params<S, C>& a, int nc,
+cudaError_t launch(bool stiff, bool shard, const double* B, const double* K, const Params<S, C>& a, int nc,
                    cudaStream_t stream) {
   ElemTables<C, P> tab;
   if (!fill_mat<C, P>(B, tab.B) || !fill_mat<C, P>(K, tab.K)) return cudaErrorInvalidValue;
-  return stiff ? launch_kind<S, C, P, true>(tab, a, nc, stream) : launch_kind<S, C, P, false>(tab, a, nc, stream);
+  if (shard)
+    return stiff ? launch_kind<S, C, P, true, true>(tab, a, nc, stream)
+                 : launch_kind<S, C, P, false, true>(tab, a, nc, stream);
+  return stiff ? launch_kind<S, C, P, true, false>(tab, a, nc, stream)
+               : launch_kind<S, C, P, false, false>(tab, a, nc, stream);
 }
 
 template <typename S, typename C>
 int run(int p, bool stiff, const void* u, void* out, const void* ex, const void* ey, const void* ez, int nc,
-        int nz, int ny, int nx, void* stream, const double* B, const double* K) {
+        int nz, int ny, int nx, void* stream, const double* B, const double* K, const int* ident) {
   if ((nz - 1) % p || (ny - 1) % p || (nx - 1) % p || nz <= p || ny <= p || nx <= p)
     return (int)cudaErrorInvalidValue;
   Params<S, C> a;
@@ -652,16 +695,20 @@ int run(int p, bool stiff, const void* u, void* out, const void* ex, const void*
   a.my = (ny - 1) / p;
   a.mz = (nz - 1) / p;
   a.zchunk = a.nchunks = 0;
+  a.zlo = ident ? ident[0] : 1;
+  a.zhi = ident ? ident[1] : nz - 1;
+  a.ylo = ident ? ident[2] : 1;
+  a.yhi = ident ? ident[3] : ny - 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p) {
-    case 1: return (int)launch<S, C, 1>(stiff, B, K, a, nc, s);
-    case 2: return (int)launch<S, C, 2>(stiff, B, K, a, nc, s);
-    case 3: return (int)launch<S, C, 3>(stiff, B, K, a, nc, s);
-    case 4: return (int)launch<S, C, 4>(stiff, B, K, a, nc, s);
-    case 5: return (int)launch<S, C, 5>(stiff, B, K, a, nc, s);
-    case 6: return (int)launch<S, C, 6>(stiff, B, K, a, nc, s);
-    case 7: return (int)launch<S, C, 7>(stiff, B, K, a, nc, s);
-    case 8: return (int)launch<S, C, 8>(stiff, B, K, a, nc, s);
+    case 1: return (int)launch<S, C, 1>(stiff, ident != nullptr, B, K, a, nc, s);
+    case 2: return (int)launch<S, C, 2>(stiff, ident != nullptr, B, K, a, nc, s);
+    case 3: return (int)launch<S, C, 3>(stiff, ident != nullptr, B, K, a, nc, s);
+    case 4: return (int)launch<S, C, 4>(stiff, ident != nullptr, B, K, a, nc, s);
+    case 5: return (int)launch<S, C, 5>(stiff, ident != nullptr, B, K, a, nc, s);
+    case 6: return (int)launch<S, C, 6>(stiff, ident != nullptr, B, K, a, nc, s);
+    case 7: return (int)launch<S, C, 7>(stiff, ident != nullptr, B, K, a, nc, s);
+    case 8: return (int)launch<S, C, 8>(stiff, ident != nullptr, B, K, a, nc, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -695,18 +742,20 @@ extern "C" int banded_tile(int p) { return p >= 1 && p <= MAX_DEGREE ? TILE_WIDT
 // ez[2]). The element matrices come from B_host,
 // K_host ([p+1][p+1] doubles in host memory, rounded to the compute type) by
 // value with the launch; it refuses matrices that are not centrosymmetric.
+// ident: the identity rows of a shard, four ints (zlo, zhi, ylo, yhi) in
+// host memory, or null for the faces (1, nz - 1, 1, ny - 1).
 // Returns the cudaError_t of the launch (0 on success); never synchronises.
 extern "C" int banded_apply_launch(int dtype_code, int p, int stiff, const void* u, void* out, const void* ex,
                                    const void* ey, const void* ez, int nc, int nz, int ny, int nx, void* stream,
-                                   const double* B_host, const double* K_host) {
+                                   const double* B_host, const double* K_host, const int* ident) {
   if (nc < 1 || p < 1 || p > MAX_DEGREE || B_host == nullptr || K_host == nullptr || ex == nullptr ||
       ey == nullptr || ez == nullptr)
     return (int)cudaErrorInvalidValue;
   const bool st = stiff != 0;
   switch (dtype_code) {
-    case 0: return run<double, double>(p, st, u, out, ex, ey, ez, nc, nz, ny, nx, stream, B_host, K_host);
-    case 1: return run<float, float>(p, st, u, out, ex, ey, ez, nc, nz, ny, nx, stream, B_host, K_host);
-    case 2: return run<__nv_bfloat16, float>(p, st, u, out, ex, ey, ez, nc, nz, ny, nx, stream, B_host, K_host);
+    case 0: return run<double, double>(p, st, u, out, ex, ey, ez, nc, nz, ny, nx, stream, B_host, K_host, ident);
+    case 1: return run<float, float>(p, st, u, out, ex, ey, ez, nc, nz, ny, nx, stream, B_host, K_host, ident);
+    case 2: return run<__nv_bfloat16, float>(p, st, u, out, ex, ey, ez, nc, nz, ny, nx, stream, B_host, K_host, ident);
     default: return (int)cudaErrorInvalidValue;
   }
 }

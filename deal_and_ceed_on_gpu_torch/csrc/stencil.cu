@@ -9,8 +9,21 @@
 //   v[z,y,x]   = sz[z] sy[y] sx[x] u[z,y,x]         (sz/sy/sx zero on Dirichlet rows)
 //   acc        = sum_t bz[z,t] v[z-p+t,y,x] + by[y,t] v[z,y-p+t,x] + bx[x,t] v[z,y,x-p+t]
 //   acc       += a[z,y,x] v[z,y,x]                   (optional value term, a != nullptr)
-//   out[z,y,x] = u[z,y,x]                            on the six boundary faces (identity rows)
+//   out[z,y,x] = u[z,y,x]                            on the identity rows
 //              = sz[z] sy[y] sx[x] acc               elsewhere
+//
+// The identity rows are given per axis as a pair (lo, hi): index i of the
+// axis is an identity row when i < lo or i >= hi. On one device they are
+// the six boundary faces (lo = 1, hi = n - 1). On a shard of a block
+// partition (parallel/) they are the global Dirichlet walls and the dead rows
+// past the global extent: a shared face is not one (lo = 0, or hi = n), its
+// rows hold partial sums that the neighbouring shards add, and lo = 0, hi =
+// n on every axis gives the raw apply with no identity row at all (the
+// plane partials of the overlapped halo exchange). The tables carry the
+// shard's own scalings (zero on its walls and dead rows), so the arithmetic
+// of a point does not depend on the pairs. The pairs are a separate
+// instantiation (SHARD, one component): the single-device code is compiled
+// as it was, its registers and times unchanged.
 //
 // with B_d = c_d d^{-1/2} A1_d d^{-1/2} the weight-normalised banded 1D
 // stiffness factors (2p+1 taps, tables [n_d, 2p+1]) and s_d = sqrt(d). The
@@ -64,6 +77,7 @@ struct Params {
   S* out;
   const C *bz, *by, *bx, *sz, *sy, *sx, *a;
   int nz, ny, nx, zchunk, nchunks;
+  int zlo, zhi, ylo, yhi, xlo, xhi;  // identity rows: i < lo or i >= hi on each axis
 };
 
 // The shared memory of one instantiation: the ring of raw stages of u (and
@@ -82,8 +96,9 @@ struct Smem {
 };
 
 // V: with the value term (a is read); NC: a stack of components
-// (blockIdx.z = component * nchunks + z range).
-template <typename S, typename C, int P, bool V, bool NC>
+// (blockIdx.z = component * nchunks + z range); SHARD: the identity rows
+// from the pairs (zlo, zhi, ...) of Params, else the six faces.
+template <typename S, typename C, int P, bool V, bool NC, bool SHARD>
 __global__ void __launch_bounds__(32 * Cfg<S, P>::NW, Cfg<S, P>::MINB)
 stencil_kernel(const Params<S, C> pr) {
   using G = Cfg<S, P>;
@@ -118,13 +133,16 @@ stencil_kernel(const Params<S, C> pr) {
   fill_by<C, P, Sh::TH>(bys, t, pr.by, pr.sy, ny, Sh::NT);
   const Column<C, P, R> col(t, pr.bx, pr.sx, pr.sy, ny, nx);
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  // per point: in the tile; on a face of y or x (then only z decides)
+  // per point: in the tile; on an identity row of y or x (then only z decides)
   bool in[R], edge[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     const int y = col.y0 + j;
     in[j] = col.in(t, j);
-    edge[j] = y == 0 || y == ny - 1 || col.x == 0 || col.x == nx - 1;
+    if constexpr (SHARD)
+      edge[j] = y < pr.ylo || y >= pr.yhi || col.x < pr.xlo || col.x >= pr.xhi;
+    else
+      edge[j] = y == 0 || y == ny - 1 || col.x == 0 || col.x == nx - 1;
   }
 
   // the input planes: P on each side of the range feed its z taps; those
@@ -191,7 +209,7 @@ stencil_kernel(const Params<S, C> pr) {
 #pragma unroll
         for (int j = 0; j < R; ++j) xy[j] = C(0);
         add_xy<C, P, R, RS>(xy, win, bys, col, cz[NTAP]);
-        const bool zface = zi == 0 || zi == nz - 1;
+        const bool zface = SHARD ? zi < pr.zlo || zi >= pr.zhi : zi == 0 || zi == nz - 1;
         const int azl = (int)(asrc.zoff(zi, plane) & (Word<C>::W - 1));
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -204,7 +222,7 @@ stencil_kernel(const Params<S, C> pr) {
     }
     // output plane zo = zi - P has all its taps
     const int zo = zi - P;
-    if (zo >= z0 && zo > 0 && zo < nz - 1) {
+    if (zo >= z0 && (SHARD ? zo >= pr.zlo && zo < pr.zhi : zo > 0 && zo < nz - 1)) {
       const C so = cz[NTAP + 1];
 #pragma unroll
       for (int j = 0; j < R; ++j)
@@ -221,13 +239,16 @@ stencil_kernel(const Params<S, C> pr) {
 }
 
 template <typename S, typename C, int P>
-cudaError_t launch(const Params<S, C>& a0, int nc, cudaStream_t stream) {
+cudaError_t launch(const Params<S, C>& a0, int nc, bool shard, cudaStream_t stream) {
   using G = Cfg<S, P>;
   using Sh = Shape<S, P, G::NW, G::R>;
   Params<S, C> a = a0;
   const bool v = a.a != nullptr;
-  auto kernel = v ? (nc > 1 ? stencil_kernel<S, C, P, true, true> : stencil_kernel<S, C, P, true, false>)
-                  : (nc > 1 ? stencil_kernel<S, C, P, false, true> : stencil_kernel<S, C, P, false, false>);
+  if (shard && nc > 1) return cudaErrorInvalidValue;  // shard mode takes one component
+  auto kernel = shard ? (v ? stencil_kernel<S, C, P, true, false, true> : stencil_kernel<S, C, P, false, false, true>)
+                : v   ? (nc > 1 ? stencil_kernel<S, C, P, true, true, false> : stencil_kernel<S, C, P, true, false, false>)
+                      : (nc > 1 ? stencil_kernel<S, C, P, false, true, false>
+                                : stencil_kernel<S, C, P, false, false, false>);
   const size_t smem = v ? Smem<S, C, P, true>::BYTES : Smem<S, C, P, false>::BYTES;
   // always: above 48 KB a launch needs the attribute
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -243,16 +264,16 @@ cudaError_t launch(const Params<S, C>& a0, int nc, cudaStream_t stream) {
 }
 
 template <typename S, typename C>
-cudaError_t launch_degree(int p, const Params<S, C>& a, int nc, cudaStream_t s) {
+cudaError_t launch_degree(int p, const Params<S, C>& a, int nc, bool shard, cudaStream_t s) {
   switch (p) {
-    case 1: return launch<S, C, 1>(a, nc, s);
-    case 2: return launch<S, C, 2>(a, nc, s);
-    case 3: return launch<S, C, 3>(a, nc, s);
-    case 4: return launch<S, C, 4>(a, nc, s);
-    case 5: return launch<S, C, 5>(a, nc, s);
-    case 6: return launch<S, C, 6>(a, nc, s);
-    case 7: return launch<S, C, 7>(a, nc, s);
-    case 8: return launch<S, C, 8>(a, nc, s);
+    case 1: return launch<S, C, 1>(a, nc, shard, s);
+    case 2: return launch<S, C, 2>(a, nc, shard, s);
+    case 3: return launch<S, C, 3>(a, nc, shard, s);
+    case 4: return launch<S, C, 4>(a, nc, shard, s);
+    case 5: return launch<S, C, 5>(a, nc, shard, s);
+    case 6: return launch<S, C, 6>(a, nc, shard, s);
+    case 7: return launch<S, C, 7>(a, nc, shard, s);
+    case 8: return launch<S, C, 8>(a, nc, shard, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -260,12 +281,12 @@ cudaError_t launch_degree(int p, const Params<S, C>& a, int nc, cudaStream_t s) 
 template <typename S, typename C>
 cudaError_t launch_type(int p, const void* u, void* out, const void* bz, const void* by, const void* bx,
                         const void* sz, const void* sy, const void* sx, const void* a, int nc, int nz, int ny,
-                        int nx, cudaStream_t s) {
+                        int nx, const int* id, bool shard, cudaStream_t s) {
   const Params<S, C> pr{static_cast<const S*>(u), static_cast<S*>(out), static_cast<const C*>(bz),
                         static_cast<const C*>(by), static_cast<const C*>(bx), static_cast<const C*>(sz),
                         static_cast<const C*>(sy), static_cast<const C*>(sx), static_cast<const C*>(a),
-                        nz, ny, nx, nz, 1};
-  return launch_degree<S, C>(p, pr, nc, s);
+                        nz, ny, nx, nz, 1, id[0], id[1], id[2], id[3], id[4], id[5]};
+  return launch_degree<S, C>(p, pr, nc, shard, s);
 }
 
 }  // namespace
@@ -273,17 +294,22 @@ cudaError_t launch_type(int p, const void* u, void* out, const void* bz, const v
 // dtype_code: 0 = (f64 storage, f64 compute), 1 = (f32, f32), 2 = (bf16, f32).
 // a: the value coefficient [nz, ny, nx] at the compute type, or null; u and
 // out are [nc, nz, ny, nx] (nc >= 1 components sharing the tables and a).
+// ident: the identity rows, six ints (zlo, zhi, ylo, yhi, xlo, xhi) in host
+// memory (shard mode, one component), or null for the six boundary faces.
 // Returns the cudaError_t of the launch (0 on success); never synchronises.
 extern "C" int stencil_apply_launch(int dtype_code, int p, const void* u, void* out,
                                     const void* bz, const void* by, const void* bx,
                                     const void* sz, const void* sy, const void* sx,
-                                    const void* a, int nc, int nz, int ny, int nx, void* stream) {
+                                    const void* a, int nc, int nz, int ny, int nx, void* stream,
+                                    const int* ident) {
   if (nc < 1 || nz < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  const int faces[6] = {1, nz - 1, 1, ny - 1, 1, nx - 1};
+  const int* id = ident ? ident : faces;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
-    case 0: return (int)launch_type<double, double>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 1: return (int)launch_type<float, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
-    case 2: return (int)launch_type<__nv_bfloat16, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, s);
+    case 0: return (int)launch_type<double, double>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, id, ident != nullptr, s);
+    case 1: return (int)launch_type<float, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, id, ident != nullptr, s);
+    case 2: return (int)launch_type<__nv_bfloat16, float>(p, u, out, bz, by, bx, sz, sy, sx, a, nc, nz, ny, nx, id, ident != nullptr, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

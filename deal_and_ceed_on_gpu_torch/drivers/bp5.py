@@ -36,9 +36,21 @@ runs on the same backend, the card's kernels being native f64), and
 driver never drops to the CPU silently. ``--device cpu`` runs the plain
 torch versions of the kernels (the test path).
 
+Distributed (``--shards PZxPY[xPX]``, ``run_cycle_distributed``): the mesh
+is cut into blocks, one a rank (``parallel/``), and pcg-standard,
+pcg-merged and vmult run on every rank's block, with the JAX driver's
+per-rank lines (DoFs a rank, DoF/s a rank). The backend ``stencil`` runs K1
+in shard mode (``parallel.DistStencilOperator``, overlapped halo
+exchange; ``--no-overlap`` exchanges after the apply), the others ``parallel.DistOperator``. ``--dist-backend``: the
+``torch.distributed`` backend, ``nccl`` (one card a rank; more ranks than
+cards raise) or ``gloo`` (ranks may share a card, or run on the CPU). Under
+``torchrun`` the ranks are its processes; otherwise the driver starts them
+(``parallel.spawn``).
+
 Run: ``python -m deal_and_ceed_on_gpu_torch.drivers.bp5 --cycle-min 10
 --cycle-max 12 --dtype float32 --backend stencil``; ``--modes
-fdm-direct,pcg-ir,pcg-mg --dtype float64`` for the extra solvers.
+fdm-direct,pcg-ir,pcg-mg --dtype float64`` for the extra solvers;
+``--shards 2x2 --dist-backend gloo`` for four ranks sharing one card.
 """
 
 from __future__ import annotations
@@ -64,7 +76,8 @@ from ..solvers import (
 from ..utils.logging import rank0_print as pcout
 from ..utils.timer import Timer
 
-__all__ = ["BP5Config", "run_cycle", "run", "main", "DEFAULT_MODES", "PORTED_MODES", "BACKENDS", "resolve_device"]
+__all__ = ["BP5Config", "run_cycle", "run_cycle_distributed", "run", "main", "DEFAULT_MODES", "PORTED_MODES",
+           "BACKENDS", "resolve_device"]
 
 # the JAX driver's default modes (drivers/bp5.py BP5Config.modes)
 DEFAULT_MODES = ("pcg-standard", "pcg-merged", "vmult")
@@ -91,6 +104,9 @@ class BP5Config:
     # bytes) while the apply, the dots and the recurrences run at ``dtype``
     stream_dtype: str | None = None
     device: str = "cuda"
+    # distributed stencil (--shards): send the shared planes' partials before
+    # the full apply (True) or exchange the planes after it (False)
+    overlap: bool = True
 
 
 def resolve_device(name: str) -> torch.device:
@@ -105,30 +121,39 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def _throughput_lines(label, n_dofs, times, iters):
-    tp = [n_dofs * it / t for t, it in zip(times, iters)]
+def _throughput_lines(label, n_dofs, times, iters, n_ranks=1):
+    """The reference's lines: per solve, then ``label <DoFs a rank> <best
+    DoF/s a rank>``."""
+    tp = [n_dofs * it / t / n_ranks for t, it in zip(times, iters)]
     for t, it, th in zip(times, iters, tp):
         pcout(f"   Solved in {it} iterations with time {t:.6f} and DoFs/s {th:.6g}")
     best = max(tp)
-    pcout(f"{label} {n_dofs} {best:.6g}")
+    pcout(f"{label} {n_dofs // n_ranks} {best:.6g}")
     pcout("")
     return best
 
 
-def estimate_lambda_max(op, n_dofs, iters=12, seed=0):
+def estimate_lambda_max(op, n_dofs, iters=12, seed=0, block=None, dot_weight=None, comm=None):
     """Crude power-iteration bound on the operator spectral radius (used only
     to scale the chained vmult benchmark); the same numpy draws as the JAX
-    driver."""
-    s = op.space
-    u = torch.as_tensor(
-        np.random.default_rng(seed).standard_normal(n_dofs), dtype=s.dtype, device=s.device
-    )
-    u = u / torch.linalg.vector_norm(u)
-    lam = torch.ones((), dtype=s.dtype, device=s.device)
+    driver. A distributed operator passes ``block`` (the global draws ->
+    this rank's block), its ``dot_weight`` (0 on the planes the rank
+    duplicates) and ``comm``: the norms are then weighted and all-reduced."""
+    dtype, device = (op.space.dtype, op.space.device) if dot_weight is None else (dot_weight.dtype, dot_weight.device)
+    g = np.random.default_rng(seed).standard_normal(n_dofs)
+    u = torch.as_tensor(g if block is None else block(g), dtype=dtype, device=device)
+
+    def norm(v):
+        if comm is None:
+            return torch.linalg.vector_norm(v)
+        return torch.sqrt(comm.allreduce_sum_(torch.dot((v * dot_weight).reshape(-1), v.reshape(-1)).reshape(1)))[0]
+
+    u = u / norm(u)
+    lam = torch.ones((), dtype=dtype, device=device)
     for _ in range(iters):
         # back to the probe dtype: bf16-streaming operators return bf16
         v = op.vmult(u).to(u.dtype)
-        lam = torch.linalg.vector_norm(v)
+        lam = norm(v)
         u = v / lam
     return float(lam)
 
@@ -322,6 +347,161 @@ def run_cycle(cycle: int, cfg: BP5Config | None = None, **overrides):
     return results
 
 
+DIST_MODES = ("pcg-standard", "pcg-merged", "vmult")
+
+
+def run_cycle_distributed(cycle: int, pz: int, py: int = 1, cfg: BP5Config | None = None, px: int = 1,
+                          comm=None, **overrides):
+    """One BP5 cycle on this rank's block of a ``pz x py x px`` partition
+    (JAX ``drivers/bp5.py:492-640``; its ``fdm-direct`` and
+    ``--write-solution`` are not ported here). Called by every rank of the
+    process group, with this rank's device as ``cfg.device`` (or a
+    ``ShardComm``). Returns the per-mode throughputs a rank, ``n_iterations``
+    and ``finite`` per mode, ``ms_per_iteration`` per solve mode (this rank's
+    wall clock), ``coherent`` (the shared planes of the last solution
+    bitwise equal on every pair of sharers) and, on rank 0, ``l2_norm`` of
+    the solution assembled from the blocks."""
+    import torch.distributed as dist
+
+    from ..parallel import (
+        BlockPartition,
+        DistOperator,
+        DistStencilOperator,
+        ShardComm,
+        solve_cg_dist,
+        solve_cg_merged_dist,
+    )
+
+    cfg = dataclasses.replace(cfg or BP5Config(), **overrides)
+    unknown = set(cfg.modes) - set(DIST_MODES)
+    if unknown:
+        raise ValueError(f"distributed modes are {DIST_MODES}; not ported: {sorted(unknown)}")
+    dtype = DTYPES[cfg.dtype]
+    stream = dtype if cfg.stream_dtype is None else DTYPES[cfg.stream_dtype]
+    if stream != dtype and cfg.backend != "stencil":
+        raise ValueError("distributed --stream-dtype needs --backend stencil")
+    mesh = BrickMesh.bp5_cycle(cycle)
+    part = BlockPartition(mesh, cfg.degree, pz, py, px)
+    if comm is None:
+        comm = ShardComm(part, resolve_device(cfg.device))
+    device = comm.device
+    n_ranks = part.n_shards
+    if cfg.backend == "stencil":
+        dist_op = DistStencilOperator(part, comm, dtype, stream_dtype=stream, overlap=cfg.overlap)
+    else:
+        dist_op = DistOperator(part, comm, PoissonOperator, dtype, backend=cfg.backend, rule=cfg.rule, n_q=cfg.n_q)
+    halo = "" if cfg.backend != "stencil" else ", halo " + ("overlapped" if cfg.overlap else "after the apply")
+    pcout(f"Cycle {cycle} on {pz}x{py}x{px} shards{halo}")
+    pcout(f"   Number of active cells:       {mesh.n_cells}")
+    n_dofs = int(np.prod(part.global_grid_shape))
+    pcout(f"   Number of degrees of freedom: {n_dofs}")
+
+    # the right-hand side: the global vector on every rank, then its block
+    gspace = FESpace.create(mesh, cfg.degree, n_q=cfg.n_q, rule=cfg.rule, dtype=dtype, device=device)
+    b_global = assemble_rhs(gspace, 1.0)
+    norm_b = float(torch.linalg.vector_norm(b_global))
+    b = torch.as_tensor(part.block(b_global.cpu().numpy().reshape(part.global_grid_shape), comm.rank),
+                        device=device)
+    del b_global
+    control = IterationNumberControl(cfg.n_iterations, 1e-6 * norm_b)
+    results = {"n_iterations": {}, "finite": {}, "ms_per_iteration": {}}
+    solution = None
+
+    def fence(x):
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        dist.barrier(group=comm.group)
+
+    for label, solver in (("pcg-standard", solve_cg_dist), ("pcg-merged", solve_cg_merged_dist)):
+        if label not in cfg.modes:
+            continue
+        x, info = solver(dist_op, b, control)
+        times, iters = [], []
+        for _ in range(cfg.n_repetitions):
+            fence(x)
+            t = Timer().start()
+            x, info = solver(dist_op, b, control)
+            t.stop(fence=x)
+            times.append(t.elapsed)
+            iters.append(int(info["n_iterations"]))
+        results[label] = _throughput_lines(label, n_dofs, times, iters, n_ranks)
+        results["n_iterations"][label] = iters[-1]
+        results["finite"][label] = bool(torch.isfinite(x).all())
+        results["ms_per_iteration"][label] = 1e3 * min(times) / max(iters[-1], 1)
+        solution = x
+
+    if "vmult" in cfg.modes:
+        lam = estimate_lambda_max(dist_op, n_dofs, block=lambda g: part.block(g.reshape(part.global_grid_shape),
+                                                                              comm.rank),
+                                  dot_weight=dist_op.dot_weight, comm=comm)
+        dist_op.fold_scale(1.0 / lam)
+        u0 = (b.to(dtype) / norm_b).to(stream)
+
+        def chain(u):
+            for _ in range(cfg.n_iterations):
+                u = dist_op.vmult(u)
+            return u
+
+        out = chain(u0)
+        times = []
+        for _ in range(cfg.n_repetitions):
+            fence(out)
+            t = Timer().start()
+            out = chain(u0)
+            t.stop(fence=out)
+            times.append(t.elapsed)
+        tp = [n_dofs * cfg.n_iterations / t / n_ranks for t in times]
+        for t, th in zip(times, tp):
+            pcout(f"   {cfg.n_iterations} mat-vecs in time {t:.6f} and DoFs/s {th:.6g}")
+        results["vmult"] = max(tp)
+        results["finite"]["vmult"] = bool(torch.isfinite(out).all())
+        results["ms_per_iteration"]["vmult"] = 1e3 * min(times) / cfg.n_iterations
+        pcout(f"vmult {n_dofs // n_ranks} {max(tp):.6g}")
+        pcout("")
+
+    if solution is not None:
+        results["coherent"] = comm.shared_planes_equal(solution)
+        blocks = comm.gather_blocks(solution.to(dtype))
+        if comm.rank == 0 and cfg.validate:
+            x_global = torch.as_tensor(part.assemble(blocks).reshape(-1), device=device)
+            norm = float(l2_norm_function(gspace, x_global))
+            pcout(f"   solution L2 norm: {norm:.12g}")
+            results["l2_norm"] = norm
+            pcout("")
+    return results
+
+
+def _rank_main(rank, cycles, shards, cfg, dist_backend):
+    """A driver rank (``parallel.spawn``): its device, then the cycles."""
+    import torch
+
+    pz, py, px = shards
+    if torch.device(cfg.device).type == "cuda":
+        cfg = dataclasses.replace(cfg, device=f"cuda:{rank % torch.cuda.device_count()}")
+        torch.cuda.set_device(torch.device(cfg.device))
+    return [run_cycle_distributed(c, pz, py, cfg, px) for c in cycles]
+
+
+def run_distributed(cycle_min: int, cycle_max: int, shards, cfg: BP5Config, dist_backend: str = "nccl",
+                    timeout: float = 3600.0):
+    """The distributed cycles on ``pz x py x px`` ranks: under ``torchrun``
+    (``RANK`` set) in this process, else on ranks the driver starts. Returns
+    the ranks' results (this rank's alone under torchrun)."""
+    import os
+
+    from ..parallel import init_shards, spawn
+
+    pz, py, px = shards
+    cycles = list(range(cycle_min, cycle_max + 1))
+    if "RANK" in os.environ:
+        _, device = init_shards(pz, py, px, dist_backend,
+                                None if dist_backend == "nccl" else str(resolve_device(cfg.device)))
+        return [run_cycle_distributed(c, pz, py, dataclasses.replace(cfg, device=str(device)), px) for c in cycles]
+    resolve_device(cfg.device)
+    return spawn(_rank_main, pz * py * px, args=(cycles, shards, cfg, dist_backend), backend=dist_backend,
+                 device=cfg.device, timeout=timeout)
+
+
 def run(cycle_min=7, cycle_max=40, cfg: BP5Config | None = None):
     cfg = cfg or BP5Config()
     return {cycle: run_cycle(cycle, cfg) for cycle in range(cycle_min, cycle_max + 1)}
@@ -352,6 +532,12 @@ def main(argv=None):
         "accumulate at --dtype",
     )
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--shards", default="1", help="PZxPY[xPX]: the block partition (one rank a block); 1: one device")
+    ap.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                    help="torch.distributed backend of --shards: nccl (one card a rank) or gloo (ranks may share a "
+                    "card or run on the CPU)")
+    ap.add_argument("--no-overlap", dest="overlap", action="store_false",
+                    help="distributed stencil: exchange the shared planes after the apply, not its partials before")
     args = ap.parse_args(argv)
     cfg = BP5Config(
         degree=args.degree,
@@ -363,8 +549,17 @@ def main(argv=None):
         modes=tuple(args.modes.split(",")),
         stream_dtype=args.stream_dtype,
         device=args.device,
+        overlap=args.overlap,
     )
-    run(args.cycle_min, args.cycle_max, cfg)
+    shards = tuple((int(s) for s in args.shards.split("x")))
+    pz, py, px = (shards + (1, 1))[:3]
+    if pz * py * px > 1:
+        if set(cfg.modes) - set(DIST_MODES):
+            cfg = dataclasses.replace(cfg, modes=tuple(m for m in cfg.modes if m in DIST_MODES))
+            pcout(f"distributed runs take the modes {', '.join(DIST_MODES)}; running {', '.join(cfg.modes)}")
+        run_distributed(args.cycle_min, args.cycle_max, (pz, py, px), cfg, args.dist_backend)
+    else:
+        run(args.cycle_min, args.cycle_max, cfg)
 
 
 if __name__ == "__main__":

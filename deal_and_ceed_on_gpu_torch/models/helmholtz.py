@@ -61,6 +61,14 @@ class HelmholtzOperator(MatrixFreeOperator):
         geo = space.geometry
         a_q = np.asarray(coefficient_fn(geo.q_points_phys()), dtype=np.float64)
         self._a_q_raw = a_q  # [n_cells, n_q], kept for compute_diagonal
+        if backend not in ("structured", "gather"):
+            # the a(x) value term lives in a kernel's table or a global
+            # diagonal, not in a sliceable named table (JAX helmholtz.py:90,127,164)
+            self._dist_unsupported = (
+                f"{backend} Helmholtz holds a position-dependent a(x) value term inside its kernel or diagonal; "
+                "use backend='structured' for the distributed operator (or parallel.DistStencilOperator"
+                "(operator='helmholtz'))"
+            )
         if backend == "stencil":
             from ..ops.stencil import StencilTables
 
@@ -134,6 +142,14 @@ class HelmholtzOperator(MatrixFreeOperator):
         """``(gradient, value_q, value_const)``, as
         :func:`tensor_product_diagonal` takes them."""
         return True, self._a_q_raw, None
+
+    def shard_table_names(self):
+        """The value coefficient ``a(x_q) JxW`` depends on the block's
+        position (``step-64/step-64.cu:69-118``), the gradient tables too on
+        graded and mapped meshes."""
+        if self.backend not in ("structured", "gather"):
+            return ()
+        return ("_coef_val", "_coef_g") if self._coef_g is not None else ("_coef_val",)
 
     def quad_point_op(self, vals, grads):
         gx, gy, gz = grads

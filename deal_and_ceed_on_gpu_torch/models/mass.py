@@ -82,3 +82,9 @@ class MassOperator(MatrixFreeOperator):
 
     def weak_form(self):
         return False, None, 1.0
+
+    def shard_table_names(self):
+        """JxW depends on the position on graded and mapped meshes."""
+        if self.backend in ("structured", "gather") and not self.space.geometry.uniform:
+            return ("_jxw",)
+        return ()

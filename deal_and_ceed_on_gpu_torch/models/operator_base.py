@@ -67,6 +67,9 @@ _LAYOUT_AXES = {
 class MatrixFreeOperator:
     needs_values: bool = False
     needs_gradients: bool = False
+    # why the distributed layer (parallel/dist_operator.py) cannot take this
+    # operator and backend, or None
+    _dist_unsupported: str | None = None
 
     def __init__(
         self,
@@ -296,6 +299,25 @@ class MatrixFreeOperator:
         host-side dense assembly (:func:`assemble_dense`, the multigrid
         coarse solve). Operators without one raise ``NotImplementedError``."""
         raise NotImplementedError(f"{type(self).__name__} has no weak_form")
+
+    # --------------------- distributed-table hooks -------------------- #
+    def shard_table_names(self) -> tuple[str, ...]:
+        """Names of the coefficient-table attributes that depend on the
+        element block's physical position (empty for position-invariant
+        operators such as uniform-mesh Poisson and mass). The distributed
+        layer builds them on the global mesh, pads them over the dead
+        elements and slices each rank's block (``parallel/dist_operator``;
+        JAX ``operator_base.py:298-306``)."""
+        return ()
+
+    def bind_shard_tables(self, tables: dict) -> "MatrixFreeOperator":
+        """A shallow copy with the given table attributes replaced."""
+        import copy
+
+        new = copy.copy(self)
+        for name, value in tables.items():
+            setattr(new, name, value)
+        return new
 
     def jacobi_preconditioner(self) -> torch.Tensor:
         """1/diag(A) with identity on constrained rows, for the ``diag``

@@ -119,6 +119,13 @@ class PoissonOperator(MatrixFreeOperator):
     def weak_form(self):
         return True, None, None
 
+    def shard_table_names(self):
+        """The six-plane merged coefficient depends on the position on
+        graded and mapped meshes (uniform bricks use three scalars)."""
+        if self.backend in ("structured", "gather") and self.coefficient == "merged_full":
+            return ("_coef",)
+        return ()
+
     def quad_point_op(self, vals, grads):
         gx, gy, gz = grads
         if self.coefficient == "merged_const":

@@ -40,6 +40,14 @@ Two forms of the same tables, in the compute dtype:
   kernel applies the Dirichlet rows and columns as masks; its even-odd
   sweeps need centrosymmetric ``B`` and ``K`` (symmetric rules: Gauss, GLL).
 
+Shard mode (``parallel/dist_banded.py``): a block of a partition takes
+the tables of its physical elements (``phys_elems``; dead elements get
+zero factors and zero band rows) with Dirichlet rows and columns zeroed on
+its global walls only (``faces``), as the JAX ``BandedLayout(phys_elems=,
+faces=)``; ``BandedTables.ident`` gives the kernel the identity rows per
+axis (``parallel.BlockPartition.ident``): only those read ``u`` as 0 and write
+``out = u``, and a shared face holds the block's partial sums.
+
 The port works on the unpadded ``[nz, ny, nx]`` grid, with an optional
 leading component count ``nc`` (the vector BPs: one launch for all
 components, shared tables), the port's form of ``StackedBandedOperator``.
@@ -61,12 +69,13 @@ import numpy as np
 import torch
 
 from .separable import _bands_from_dense, band_matrix_1d
-from .stencil import face_mask
+from .stencil import identity_mask
 
 __all__ = [
     "KINDS",
     "LAUNCHES",
     "MAX_DEGREE",
+    "SHARD_LAUNCHES",
     "SOURCE",
     "BandedTables",
     "banded_apply",
@@ -85,6 +94,8 @@ KINDS = {"stiffness": ("mx", "ax", "my", "ay", "mz", "gz"), "mass": ("mx", "my",
 
 # kernel launches made by banded_apply (a run resets it to 0 to count its own)
 LAUNCHES = 0
+# of those, the launches on a shard's tables (``ident`` set)
+SHARD_LAUNCHES = 0
 
 # (storage dtype, compute dtype) -> the launcher's dtype code
 _DTYPE_CODES = {
@@ -109,33 +120,62 @@ def _element_matrices(basis) -> tuple[np.ndarray, np.ndarray]:
     return np.einsum("q,qa,qb->ab", w, S, S), np.einsum("q,qa,qb->ab", w, D, D)
 
 
-def banded_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | None = None) -> dict[str, np.ndarray]:
+def _shard_args(mesh, phys_elems, faces):
+    """Per axis (x, y, z): the physical element count and the lower and
+    upper wall flags (one device: all elements, all walls)."""
+    mx, my, mz = mesh.n_elements
+    mx_p, my_p, mz_p = (mx, my, mz) if phys_elems is None else phys_elems
+    z_lo, z_hi, y_lo, y_hi = (True,) * 4 if faces is None else faces
+    if mx_p != mx:
+        raise ValueError("banded shard tables: the x axis is never partitioned")
+    for m, m_p, hi in ((my, my_p, y_hi), (mz, mz_p, z_hi)):
+        if 0 < m_p < m and not hi:
+            raise ValueError("banded shard tables: only a block on the upper wall holds dead elements")
+    return (mx, True, True), (my_p, y_lo, y_hi), (mz_p, z_lo, z_hi)
+
+
+def banded_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | None = None,
+                     phys_elems=None, faces=None) -> dict[str, np.ndarray]:
     """Host tables of K2 in float64, built as ``pallas_banded.BandedLayout``
     builds them (on the real rows only): per axis the mass and stiffness
     factors assembled with the per-element widths, Dirichlet rows and
     columns zeroed, as ``[n_d, 2p+1]`` band tables; the z table is
-    ``gz = Az + c Mz`` (stiffness) or ``c Mz`` (mass)."""
+    ``gz = Az + c Mz`` (stiffness) or ``c Mz`` (mass).
+
+    A shard's tables (``pallas_banded.py:184-210``): ``phys_elems = (mx,
+    my_p, mz_p)`` assembles y and z over the first ``m_p`` physical
+    elements (dead rows zero), ``faces = (z_lo, z_hi, y_lo, y_hi)`` zeroes
+    the rows and columns of global walls only (the upper wall at the
+    physical extent, dead rows beyond it)."""
     _validate(mesh, basis, kind)
     p = basis.degree
     B_e, K_e = _element_matrices(basis)
     hx, hy, hz = mesh.h_axes()
     mx, my, mz = mesh.n_elements
+    (_, _, _), (my_p, y_lo, y_hi), (mz_p, z_lo, z_hi) = _shard_args(mesh, phys_elems, faces)
 
-    def axis(m, h):
+    def axis(m, m_p, h, lo, hi):
         """(mass bands, stiffness bands) of one axis, Dirichlet rows and
-        columns zeroed: the per-axis factor of M A M."""
+        columns zeroed on its walls: the per-axis factor of M A M."""
         h = np.broadcast_to(np.asarray(h, float).reshape(-1), (m,))
-        A1 = band_matrix_1d(m, p, K_e, scale=1.0 / h)
-        M1 = band_matrix_1d(m, p, B_e, scale=h)
+        n1 = m * p + 1
+        A1, M1 = np.zeros((n1, n1)), np.zeros((n1, n1))
+        if m_p > 0:
+            n_p = m_p * p + 1
+            A1[:n_p, :n_p] = band_matrix_1d(m_p, p, K_e, scale=1.0 / h[:m_p])
+            M1[:n_p, :n_p] = band_matrix_1d(m_p, p, B_e, scale=h[:m_p])
         for mat in (A1, M1):
-            mat[0, :] = mat[:, 0] = mat[-1, :] = mat[:, -1] = 0.0
+            if lo:
+                mat[0, :] = mat[:, 0] = 0.0
+            if hi:
+                mat[m_p * p:, :] = mat[:, m_p * p:] = 0.0
         return (np.ascontiguousarray(_bands_from_dense(M1, p).T),
                 np.ascontiguousarray(_bands_from_dense(A1, p).T))
 
     tabs = {}
-    tabs["mx"], tabs["ax"] = axis(mx, hx)
-    tabs["my"], tabs["ay"] = axis(my, hy)
-    tabs["mz"], az = axis(mz, hz)
+    tabs["mx"], tabs["ax"] = axis(mx, mx, hx, True, True)
+    tabs["my"], tabs["ay"] = axis(my, my_p, hy, y_lo, y_hi)
+    tabs["mz"], az = axis(mz, mz_p, hz, z_lo, z_hi)
     c = 0.0 if value_const is None else float(value_const)
     if kind == "stiffness":
         tabs["gz"] = az + c * tabs["mz"]  # the value term folded into the z factor
@@ -143,15 +183,19 @@ def banded_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | 
     return {"mx": tabs["mx"], "my": tabs["my"], "gz": (1.0 if value_const is None else c) * tabs["mz"]}
 
 
-def element_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | None = None) -> dict[str, np.ndarray]:
+def element_tables_np(mesh, basis, kind: str = "stiffness", value_const: float | None = None,
+                      phys_elems=None) -> dict[str, np.ndarray]:
     """The element form of K2's tables in float64 (the same operator as
     ``banded_tables_np``): ``B``, ``K`` and the per-element factors ``ex [4,
     mx]``, ``ey [2, my]``, ``ez [3, mz]`` of the module docstring, fold
-    factor 1."""
+    factor 1. ``phys_elems``: a shard's physical element counts; the dead
+    elements past them get zero factors (the walls are the kernel's
+    identity rows, ``BandedTables.ident``)."""
     _validate(mesh, basis, kind)
     B, K = _element_matrices(basis)
     hx, hy, hz = (np.broadcast_to(np.asarray(h, float).reshape(-1), (m,))
                   for h, m in zip(mesh.h_axes(), mesh.n_elements))
+    (_, _, _), (my_p, _, _), (mz_p, _, _) = _shard_args(mesh, phys_elems, None)
     if kind == "stiffness":
         c = 0.0 if value_const is None else float(value_const)
         gk = 1.0 / hz
@@ -159,8 +203,10 @@ def element_tables_np(mesh, basis, kind: str = "stiffness", value_const: float |
         c = 1.0 if value_const is None else float(value_const)
         gk = np.zeros_like(hz)
     below = np.concatenate([[0.0], hx[:-1] / hx[1:]])  # h_{e-1} / h_e: the ratios of ex rows 0 and 1 to element e-1
+    live_y = (np.arange(hy.size) < my_p)[None]
+    live_z = (np.arange(hz.size) < mz_p)[None]
     return {"B": B, "K": K, "ex": np.stack([hx, 1.0 / hx, below, np.concatenate([[0.0], 1.0 / below[1:]])]),
-            "ey": np.stack([hy, 1.0 / hy]), "ez": np.stack([hz, gk, c * hz])}
+            "ey": np.stack([hy, 1.0 / hy]) * live_y, "ez": np.stack([hz, gk, c * hz]) * live_z}
 
 
 def kernel_tile(p: int) -> int:
@@ -211,12 +257,20 @@ class BandedTables:
     ex: torch.Tensor | None = None
     ey: torch.Tensor | None = None
     ez: torch.Tensor | None = None
+    ident: tuple[int, ...] | None = None
+    """The identity rows of a shard, ``(zlo, zhi, ylo, yhi, xlo, xhi)``
+    (``parallel.BlockPartition.ident``; x keeps its two faces), None for the six
+    faces."""
     symmetric: bool = dataclasses.field(init=False, repr=False)
     """Whether the element form exists and its ``B`` and ``K`` are
     centrosymmetric (symmetric rules): what the CUDA kernel needs."""
 
     def __post_init__(self):
         _check_bands(self)
+        if self.ident is not None:
+            self.ident = tuple(int(i) for i in self.ident)
+            if len(self.ident) != 6 or self.ident[4:] != (1, self.shape[2] - 1):
+                raise ValueError(f"banded: ident must be (zlo, zhi, ylo, yhi, 1, nx - 1), not {self.ident}")
         element = (self.B_host, self.K_host, self.ex, self.ey, self.ez)
         if all(t is None for t in element):
             self.symmetric = False
@@ -235,16 +289,16 @@ class BandedTables:
         self.symmetric = _centrosymmetric(self.B_host) and _centrosymmetric(self.K_host)
 
     @staticmethod
-    def from_numpy(tabs: dict, p: int, dtype: torch.dtype, device="cuda", element: dict | None = None
-                   ) -> "BandedTables":
+    def from_numpy(tabs: dict, p: int, dtype: torch.dtype, device="cuda", element: dict | None = None,
+                   ident=None) -> "BandedTables":
         """Tables from ``banded_tables_np`` keys (the kind follows from them)
         and, for the CUDA kernel, ``element_tables_np``'s ``element``; copied:
         ``scale_`` never reaches the caller's arrays."""
         bands = {k: torch.tensor(np.asarray(v), dtype=dtype, device=device) for k, v in tabs.items()}
         if element is None:
-            return BandedTables(p, **bands)
+            return BandedTables(p, **bands, ident=ident)
         return BandedTables(
-            p, **bands,
+            p, **bands, ident=ident,
             **{f"{k}_host": np.array(element[k], dtype=np.float64, order="C") for k in ("B", "K")},
             **{k: torch.tensor(np.asarray(element[k]), dtype=dtype, device=device) for k in ("ex", "ey", "ez")},
         )
@@ -258,6 +312,14 @@ class BandedTables:
     @property
     def kind(self) -> str:
         return "mass" if self.ax is None else "stiffness"
+
+    @property
+    def identity(self) -> tuple[int, ...]:
+        """The identity rows the kernel is given: ``ident``, or the six faces."""
+        if self.ident is not None:
+            return self.ident
+        nz, ny, nx = self.shape
+        return (1, nz - 1, 1, ny - 1, 1, nx - 1)
 
     @property
     def tables(self) -> tuple[torch.Tensor, ...]:
@@ -353,7 +415,7 @@ def apply_plain(uc: torch.Tensor, tables: BandedTables) -> torch.Tensor:
     else:
         q2 = sum(_sweep(w2, tables.my, -2, p), torch.zeros_like(uc))
         acc = sum(_sweep(q2, tables.mx, -1, p), torch.zeros_like(uc))
-    return torch.where(face_mask(tables.shape, uc.device), uc, acc)
+    return torch.where(identity_mask(tables.shape, tables.identity, uc.device), uc, acc)
 
 
 def banded_apply_reference(u: torch.Tensor, tables: BandedTables) -> torch.Tensor:
@@ -378,7 +440,7 @@ def kernel_args(tables: BandedTables) -> tuple[int, int, int, int, int]:
             tables.B_host.ctypes.data, tables.K_host.ctypes.data)
 
 
-_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
 
 
 @functools.cache
@@ -397,7 +459,7 @@ def banded_apply(u: torch.Tensor, tables: BandedTables, out: torch.Tensor | None
     (raises if it cannot launch), the plain version for a CPU tensor.
     ``out``: a buffer of u's shape and dtype to write (every entry is
     written), else a new tensor."""
-    global LAUNCHES
+    global LAUNCHES, SHARD_LAUNCHES
     code = _check(u, tables, out)
     if u.device.type == "cpu":
         want = banded_apply_reference(u, tables)
@@ -409,12 +471,15 @@ def banded_apply(u: torch.Tensor, tables: BandedTables, out: torch.Tensor | None
     out = torch.empty_like(u) if out is None else out
     nc = 1 if u.dim() == 3 else u.shape[0]
     nz, ny, nx = tables.shape
+    ident = None if tables.ident is None else (ctypes.c_int * 4)(*tables.ident[:4])
     with torch.cuda.device(u.device):
         rc = launch(
             code, tables.p, int(tables.kind == "stiffness"), u.data_ptr(), out.data_ptr(), ex, ey, ez,
-            nc, nz, ny, nx, torch.cuda.current_stream(u.device).cuda_stream, b_host, k_host,
+            nc, nz, ny, nx, torch.cuda.current_stream(u.device).cuda_stream, b_host, k_host, ident,
         )
     if rc != 0:
         raise RuntimeError(f"banded kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    if tables.ident is not None:
+        SHARD_LAUNCHES += 1
     return out

@@ -100,6 +100,8 @@ class CGFusedStep:
     included when they carry ``a``). Single device, identity diagonal."""
 
     def __init__(self, tables: StencilTables):
+        if tables.ident is not None:
+            raise ValueError("K5 runs on one device's tables (the six faces): shard tables (ident) have none")
         self.tables = tables
 
     @property

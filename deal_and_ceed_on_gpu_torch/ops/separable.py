@@ -32,6 +32,7 @@ __all__ = [
     "band_matrix_1d",
     "diag_vector_1d",
     "apply_separable",
+    "apply_separable_plane",
     "band_apply",
     "mass_terms",
     "poisson_terms",
@@ -109,6 +110,46 @@ def apply_separable(
             v = band_apply(v, mat, bands, axis, mode, p)
         if t["diag"] is not None:
             v = v * t["diag"]
+        v = t["coef"] * v
+        out = v if out is None else out + v
+    return out
+
+
+def apply_separable_plane(
+    u: torch.Tensor,
+    terms: Sequence[dict],
+    axis: int,
+    side: int,
+    mode: Literal["matmul", "stencil"] = "matmul",
+) -> torch.Tensor:
+    """The first (``side == 0``) or last (``side == -1``) output plane of
+    :func:`apply_separable` along ``axis``, from the p+1 nearest input
+    planes only: one plane's work instead of a full apply (JAX
+    ``ops/separable.py:128``). The distributed boundary partial: the shared
+    plane a rank must send depends on this alone, so the halo exchange can
+    start before the full local apply. Returns the plane with ``keepdims``
+    (size 1 along ``axis``)."""
+    n = u.shape[axis]
+    out = None
+    for t in terms:
+        on_axis = [b for b in t["band"] if b[0] == axis]
+        others = [b for b in t["band"] if b[0] != axis]
+        if on_axis:
+            _, mat, _, p = on_axis[0]
+            lo = 0 if side == 0 else n - p - 1
+            row = mat[0, 0 : p + 1] if side == 0 else mat[n - 1, n - p - 1 : n]
+            shape = [1] * u.dim()
+            shape[axis] = p + 1
+            v = torch.sum(u.narrow(axis, lo, p + 1) * row.reshape(shape), dim=axis, keepdim=True)
+        else:
+            v = u.narrow(axis, 0 if side == 0 else n - 1, 1)
+        for ax2, mat2, bands2, p2 in others:
+            v = band_apply(v, mat2, bands2, ax2, mode, p2)
+        if t["diag"] is not None:
+            d = t["diag"]
+            if d.dim() == u.dim() and d.shape[axis] == n:
+                d = d.narrow(axis, 0 if side == 0 else n - 1, 1)
+            v = v * d
         v = t["coef"] * v
         out = v if out is None else out + v
     return out

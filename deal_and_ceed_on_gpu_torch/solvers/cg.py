@@ -32,6 +32,8 @@ def solve_cg(
     diag: Optional[torch.Tensor | Callable] = None,
     x0: Optional[torch.Tensor] = None,
     dot_dtype: Optional[torch.dtype] = None,
+    dot_weight: Optional[torch.Tensor] = None,
+    comm=None,
 ):
     """Solve A x = b with Jacobi-preconditioned CG.
 
@@ -42,13 +44,33 @@ def solve_cg(
     may also be a callable preconditioner. ``dot_dtype``: accumulation dtype
     of the dot products and scalars (float32 for bfloat16 vectors). The
     vectors may have any shape (``[3, n]`` for the vector BPs): the dots run
-    over all entries, as the JAX solvers' ``jnp.sum`` does."""
+    over all entries, as the JAX solvers' ``jnp.sum`` does.
+
+    Distributed (``parallel/dist_solve.py``): the vectors are a rank's
+    ghosted block, ``dot_weight`` (broadcastable to them) zeroes the
+    duplicated planes in the dots and ``comm`` (a ``ShardComm``) sums them
+    over the ranks, the residual norm and ``r.z`` in one all-reduce (JAX's
+    ``dot_weight`` / ``psum_axis``)."""
     dt = b.dtype
     dd = dot_dtype or dt
 
     def dot(u, v):
         # over all entries: a [3, n] vector solves like a flat one
         return torch.dot(u.to(dd).reshape(-1), v.to(dd).reshape(-1))
+
+    if comm is not None:
+        w = None if dot_weight is None else dot_weight.to(dd)
+
+        def local(u, v):
+            uq = u.to(dd)
+            return dot(uq if w is None else uq * w, v)
+
+        def dots(*pairs):
+            # the local dots of every pair in one all-reduce
+            return comm.allreduce_sum_(torch.stack([local(u, v) for u, v in pairs])).unbind()
+    else:
+        def dots(*pairs):
+            return tuple(dot(u, v) for u, v in pairs)
 
     if callable(diag):
         precond = diag
@@ -64,25 +86,26 @@ def solve_cg(
         x = x0
         r = b - A(x0)
 
-    res0 = torch.sqrt(dot(r, r))
-    res = res0
     z = precond(r)
+    rr, rz = dots((r, r), (r, z))
+    res0 = torch.sqrt(rr)
+    res = res0
     d = z
-    rz = dot(r, z)
     it = 0
     res0_h = float(res0)
     res_h = res0_h
     while control.continue_pred(it, res_h, res0_h):
         h = A(d)
-        alpha = safe_div(rz, dot(d, h)).to(dt)
+        (dh,) = dots((d, h))
+        alpha = safe_div(rz, dh).to(dt)
         x = x + alpha * d
         r = r - alpha * h
         z = precond(r)
-        rz_new = dot(r, z)
+        rz_new, rr = dots((r, z), (r, r))
         beta = safe_div(rz_new, rz).to(dt)
         d = z + beta * d
         rz = rz_new
-        res = torch.sqrt(dot(r, r))
+        res = torch.sqrt(rr)
         it += 1
         res_h = float(res)  # the one host read per iteration
     return x, {"n_iterations": it, "res_norm": res, "res0": res0}

@@ -52,29 +52,48 @@ def solve_cg_merged(
     x0: Optional[torch.Tensor] = None,
     deferred_x_update: bool = False,
     dot_dtype: Optional[torch.dtype] = None,
+    dot_weight: Optional[torch.Tensor] = None,
+    comm=None,
 ):
     """Solve A x = b. Returns ``(x, info)``; see ``solve_cg`` for the
     ``diag`` convention (a vector or None, the identity) and ``dot_dtype``
     (the dots and recurrences accumulate at it: float32 for bfloat16
     vectors). The vectors may have any shape (``[3, n]`` for the vector
-    BPs): the dots run over all entries."""
+    BPs): the dots run over all entries.
+
+    Distributed (``parallel/dist_solve.py``): ``dot_weight`` zeroes a
+    rank's duplicated planes in the dots and ``comm`` (a ``ShardComm``)
+    sums the seven dots of an iteration in one all-reduce of the stacked
+    seven, at ``dot_dtype`` (JAX's ``dot_weight`` / ``psum_axis``,
+    ``cg_merged.py:67-68,112``); the initial residual norm is one more."""
     dt = b.dtype
     dd = dot_dtype or dt
+    w = None if dot_weight is None else dot_weight.to(dd)
 
     def dot(u, v):
         # over all entries: a [3, n] vector solves like a flat one
         return torch.dot(u.reshape(-1), v.reshape(-1))
 
+    def wt(u):
+        return u if w is None else u * w
+
+    def reduce(*s):
+        if comm is None:
+            return s
+        return comm.allreduce_sum_(torch.stack(s)).unbind()
+
     def dots7(d, g, h):
         """The update_b seven-way reduction at the accumulation dtype. With
         the identity diagonal the last three equal g.h, h.h and g.g."""
         dq, gq, hq = d.to(dd), g.to(dd), h.to(dd)
-        dh, hh, gh, gg = dot(dq, hq), dot(hq, hq), dot(gq, hq), dot(gq, gq)
+        hw = wt(hq)
+        dh, hh, gh, gg = dot(dq, hw), dot(hq, hw), dot(gq, hw), dot(gq, wt(gq))
         if diag is None:
+            dh, hh, gh, gg = reduce(dh, hh, gh, gg)
             return dh, hh, gh, gg, gh, hh, gg
         mq = diag.to(dd)
-        mh = mq * hq
-        return dh, hh, gh, gg, dot(gq, mh), dot(hq, mh), dot(gq, mq * gq)
+        mh = mq * hw
+        return reduce(dh, hh, gh, gg, dot(gq, mh), dot(hq, mh), dot(gq, mq * wt(gq)))
 
     def mdiag(v):
         return v if diag is None else diag * v
@@ -87,7 +106,8 @@ def solve_cg_merged(
         x = x0
         g = A(x0) - b
     gq = g.to(dd)
-    res0 = torch.sqrt(dot(gq, gq))
+    (gg0,) = reduce(dot(gq, wt(gq)))
+    res0 = torch.sqrt(gg0)
     d = -mdiag(g)  # update_a0 (bp5/solver.h:48-72)
 
     alpha = beta = torch.zeros((), dtype=dd, device=b.device)
