@@ -197,6 +197,36 @@ anything does not build, launch, agree or converge. Phases:
     same; then one NCCL rank through the same code;
 41. phase 40's per-rank DoF/s and ms an iteration, both halo schedules: 4
     ranks time-sharing one H100, not a measure of scaling.
+42. slice G2 (``parallel/``: distributed FDM, multigrid, adaptive meshes,
+    AMR): the JAX package's dryrun checks 8-11, 16 and 17 on 8 gloo ranks
+    sharing the card, at its sizes: adaptive merged CG (237 +-1) and MG-CG
+    (4 levels, 8 +-1) on K4 on the ball-refined 4^3 brick over 8 slabs,
+    MG-CG on 4 x 2 (3 levels, 13, K1 in shard mode on every smoothing
+    level) and on 2 x 2 x 2 (3 levels, 9, K4), the AMR loop's history
+    (cells 8, 36, 50) and the distributed FDM, each against the
+    single-device port on the card at JAX's tolerances; on every rank, K1
+    in shard mode on each 4 x 2 smoothing level's tables and K4 on each
+    adaptive and 2 x 2 x 2 level's cells against their plain versions
+    from NaN-filled outputs; K1 and K4 timed at rank 0's shapes;
+43. ``fdm-direct`` at BP5 cycle 33 on 2 x 2 ranks in f64 through
+    ``run_cycle_distributed`` (what each rank of ``run_distributed`` runs):
+    true relative residual <= 1e-10, the single-device FDM's solution to
+    1e-10, the solve time a rank;
+44. MG-CG to 1e-10 on the cycle-26 cube on 2 x 2 ranks, f64: 4 levels, K1
+    in shard mode on every smoothing level (its launches per level), the
+    single-device MG-CG's iterations (+-1) and solution (1e-9), true
+    residual <= 1.2e-10, ms an iteration a rank; K1 on every rank's
+    level tables against its plain version, timed at rank 0's fine block;
+45. the distributed adaptive path at ball rounds 4 (853,585 DoFs) on 4
+    ranks, f64, K4: merged CG and MG-CG to 1e-10, MG-CG at phase 36's
+    iterations (+-1) and solution (rtol 1e-7, atol 1e-9), host set-up
+    seconds a rank; K4 on every rank's packed cells of every level
+    against its plain version, timed at rank 0's fine level (dead cells
+    included) beside its plain version and bound;
+46. ``amr_loop_distributed`` at ``drivers/amr``'s defaults with
+    ``precond="mg"`` on 4 ranks against ``AMR_GOLDEN["mg"]``; K4 on every
+    rank's packed cells of the last step against its plain version, timed
+    at rank 0's.
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -2532,7 +2562,15 @@ def phase38_shard_modes():
 DRYRUN_GOLDEN = {
     "poisson": 52, "helmholtz": 70, "stencil-poisson": 62, "stencil-helmholtz": 88, "separable": 62,
     "general": 52, "3d": 10, "bf16-ir": 7, "banded": 52,
+    # checks 8-11, 16 and 17 (phase 42): adaptive merged CG and MG-CG on the
+    # 4^3 brick ball-refined 3 rounds over 8 slabs; MG-CG on (4, 8, 16) over
+    # 4 x 2 and on (8, 8, 8) over 2 x 2 x 2; the AMR loop's cells from (2, 2,
+    # 2); FDM has no count (held to the single-device FDM at rtol 1e-12)
+    "adaptive-cg": 237, "adaptive-mg": 8, "mg-4x2": 13, "mg-2x2x2": 9, "amr": (8, 36, 50), "fdm": None,
 }
+DRYRUN_G1 = ("poisson", "helmholtz", "stencil-poisson", "stencil-helmholtz", "separable", "general", "3d", "bf16-ir",
+             "banded")
+DRYRUN_LEVELS = {"adaptive-mg": 4, "mg-4x2": 3, "mg-2x2x2": 3}
 DRYRUN_P = 2
 DRYRUN_RANKS = 8
 
@@ -2585,7 +2623,7 @@ def _dryrun_rank(rank, device):
     control = ReductionControl(200, tolerance=0.0, reduction=1e-10)
     groups = {8: None}
     out = {}
-    for name in DRYRUN_GOLDEN:
+    for name in DRYRUN_G1:
         n_el, shards, n_q, rule = _dryrun_spec(name)
         part = BlockPartition(BrickMesh(n_el), DRYRUN_P, *shards)
         comm = ShardComm(part, device, groups[part.n_shards])
@@ -2713,10 +2751,10 @@ def phase39_dryrun_checks():
 
     t0 = time.perf_counter()
     per_rank = spawn(_dryrun_rank, DRYRUN_RANKS, args=(DEVICE,), backend="gloo", device=DEVICE, timeout=400)
-    print(f"phase 39: {DRYRUN_RANKS} gloo ranks on {DEVICE} ran {len(DRYRUN_GOLDEN)} checks in "
+    print(f"phase 39: {DRYRUN_RANKS} gloo ranks on {DEVICE} ran {len(DRYRUN_G1)} checks in "
           f"{time.perf_counter() - t0:.1f} s (start-up included) [{CARD}]")
-    for name, golden in DRYRUN_GOLDEN.items():
-        got = per_rank[0][name]
+    for name in DRYRUN_G1:
+        golden, got = DRYRUN_GOLDEN[name], per_rank[0][name]
         n_el, shards, _, _ = _dryrun_spec(name)
         part = BlockPartition(BrickMesh(n_el), DRYRUN_P, *shards)
         x = torch.as_tensor(part.assemble(got["x"]).reshape(-1), device=DEVICE)
@@ -2885,6 +2923,659 @@ def phase41_per_rank_timing(per_rank):
                       + " ".join(f"{m:.3f}" for m in ms))
 
 
+# ---------------------------------------------------------------------------
+# slice G2: distributed FDM, multigrid, adaptive meshes and the AMR loop
+# ---------------------------------------------------------------------------
+G2_AMR_KW = dict(n_steps=2, theta=0.4, reduction=1e-8, max_iterations=300)  # the dryrun's AMR loop
+G2_MG_CYCLE = 26  # the cycle-26 cube: 1,056,321 DoFs at p = 5, blocks [41, 41, 161] on 2 x 2
+G2_MG_LEVELS = {26: 4}  # the hierarchy of phase 29's single-device MG-CG
+ADAPTIVE_DIST_ROUNDS = ADAPTIVE_MAIN  # phase 45: ball rounds 4 (853,585 DoFs) over 4 slabs
+ADAPTIVE_DIST_RANKS = 4
+
+
+def _sync(device):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _k1_level_checks(ops, seed=11):
+    """K1 in shard mode on each level's tables of a rank (``ops``: the
+    levels' ``DistStencilOperator``s, f64) against its plain version, from
+    NaN-filled outputs (``_shard_check``); returns [(block, rel err)]. The
+    callers read the launch counts before."""
+    import numpy as np
+    import torch
+
+    out = []
+    for k, op in enumerate(ops):
+        t = op.tables
+        u = torch.as_tensor(np.random.default_rng(seed + k).standard_normal(t.shape), dtype=t.dtype,
+                            device=op.device)
+        _, rel = _shard_check("K1", u, t, "f64", K1_TOL)
+        out.append((tuple(t.shape), rel))
+    return out
+
+
+def _k4_level_checks(kernels, seed=13):
+    """K4 on each kernel's cells (a rank's packed adaptive cells, dead cells
+    included, or a block's elements; f64) against its plain version, from
+    NaN-filled outputs; returns [(cells, rel err)]. The callers read the
+    launch counts before."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.general import general_apply
+
+    out = []
+    for k, kern in enumerate(kernels):
+        u = _k4_input(kern, seed + k)
+        got = general_apply(u, kern, out=torch.full_like(u, float("nan")))
+        torch.cuda.synchronize()
+        _, rel = _k4_check(kern, "f64", u, got)
+        out.append((kern.n_cells, rel))
+    return out
+
+
+def _k1_shard_time(op, tag, phase):
+    """K1 in shard mode on a rank's level tables (``op``: a
+    ``DistStencilOperator``, f64) against its plain version, timed beside
+    it, the element-matrix product and the bound; returns its record (and
+    prints it)."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D
+    from deal_and_ceed_on_gpu_torch.scripts import bench_k1_k5
+
+    t = op.tables
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(t.shape), dtype=t.dtype, device=op.device)
+    err, rel = _shard_check("K1", u, t, "f64", K1_TOL)
+    library = bench_k1_k5._library(op.part.local_mesh, Basis1D.make(t.p), t.dtype, op.device)
+    ms, plain_ms, library_ms = bench_k1_k5.time_k1(u, t, library)
+    bound_ms, bound_by = _k1_bound_ms(u.numel(), t.p, "f64")
+    print(f"{phase}: K1 shard mode {tag}, block {tuple(u.shape)} p={t.p} f64: max abs err {err:.3e} (rel {rel:.3e}); "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul(U, A_loc) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}, {100 * bound_ms / ms:.1f} % reached)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def _worst(checks):
+    return max(rel for _, rel in checks)
+
+
+def _dryrun_ball():
+    """The JAX dryrun's adaptive mesh: the 4^3 brick ball-refined 3 rounds
+    (cells within 0.3 of the centre), ~40k Q2 DoFs."""
+    import numpy as np
+
+    from deal_and_ceed_on_gpu_torch.adaptive import AdaptiveMesh
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+
+    amesh = AdaptiveMesh.from_brick(BrickMesh((4, 4, 4)))
+    for _ in range(3):
+        ctr = amesh.origins + 0.5 * amesh.sizes
+        amesh = amesh.refine_active(np.linalg.norm(ctr - 0.5 * np.asarray(amesh.upper), axis=1) < 0.3 * amesh.upper[0])
+    return amesh
+
+
+def _dryrun_mg_spec(name):
+    """(mesh elements, (pz, py, px), coarse_max_dofs) of a phase-42 MG check."""
+    return ((4, 8, 16), (4, 2, 1), 300) if name in ("mg-4x2", "fdm") else ((8, 8, 8), (2, 2, 2), 500)
+
+
+def _dryrun_g2_rank(rank, device, card):
+    """A rank of phase 42 (gloo, every rank on cuda:0): the JAX dryrun's
+    checks 8-11, 16 and 17 on 8 ranks, each with this rank's launch counts
+    and its levels' kernels held to their plain versions (after the
+    counts); rank 0 returns the gathered solutions (the others None) and
+    times K4 at its packed adaptive cells and K1 at its 4 x 2 fine block."""
+    import torch
+    import torch.distributed as dist
+
+    from deal_and_ceed_on_gpu_torch import ReductionControl
+    from deal_and_ceed_on_gpu_torch.adaptive import AdaptiveSpace, assemble_rhs_adaptive
+    from deal_and_ceed_on_gpu_torch.fe_space import FESpace
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+    from deal_and_ceed_on_gpu_torch.parallel import (AdaptivePartition, BlockPartition, DistAdaptiveMultigrid,
+                                                     DistAdaptivePoisson, DistFDM, DistMultigrid, ShardComm, SlabComm,
+                                                     amr_loop_distributed, solve_cg_merged_dist_adaptive,
+                                                     solve_cg_mg_dist, solve_cg_mg_dist_adaptive)
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    out = {}
+    t0 = time.perf_counter()
+    space = AdaptiveSpace(_dryrun_ball(), DRYRUN_P, device=device)
+    part = AdaptivePartition(space, DRYRUN_RANKS)
+    comm = SlabComm(DRYRUN_RANKS, device)
+    b = torch.as_tensor(part.to_shards(assemble_rhs_adaptive(space, 1.0).cpu().numpy())[rank], device=device)
+    acontrol = ReductionControl(800, tolerance=0.0, reduction=1e-10)
+    setup_s = time.perf_counter() - t0
+    for name in ("adaptive-cg", "adaptive-mg"):
+        t0 = time.perf_counter()
+        if name == "adaptive-cg":
+            solver, n_levels = DistAdaptivePoisson(part, comm), None
+        else:
+            solver = DistAdaptiveMultigrid(part, comm)
+            n_levels = solver.n_levels
+        setup = time.perf_counter() - t0
+        _reset_counts()
+        if name == "adaptive-cg":
+            x, info = solve_cg_merged_dist_adaptive(solver, b, acontrol)
+        else:
+            x, info = solve_cg_mg_dist_adaptive(solver, b, acontrol)
+        counts = _counts()
+        kernels = [solver.kernel] if name == "adaptive-cg" else [o.kernel for o in solver.dist_ops]
+        checks = _k4_level_checks(kernels)
+        g = part.from_shards(comm.all_gather(x).cpu().numpy())
+        out[name] = dict(x=g if rank == 0 else None, it=int(info["n_iterations"]), n_levels=n_levels,
+                         counts=counts, setup_s=setup_s + setup, checks=checks)
+        if name == "adaptive-cg":
+            dist.barrier()
+            if rank == 0:
+                out["k4_timed"] = _k4_time(solver.kernel, "f64", f"at a rank's packed adaptive cells (the dryrun's "
+                                           f"ball, slab 0 of {DRYRUN_RANKS}, dead cells included) [{card}]",
+                                           phase="phase 42")
+            dist.barrier()
+    control = ReductionControl(200, tolerance=0.0, reduction=1e-10)
+    for name in ("mg-4x2", "mg-2x2x2", "fdm"):
+        n_el, shards, cmax = _dryrun_mg_spec(name)
+        bpart = BlockPartition(BrickMesh(n_el), DRYRUN_P, *shards)
+        bcomm = ShardComm(bpart, device)
+        gspace = FESpace.create(bpart.mesh, DRYRUN_P, dtype=torch.float64, device="cpu")
+        bb = torch.as_tensor(bpart.block(assemble_rhs(gspace, 1.0).numpy().reshape(gspace.grid_shape), rank),
+                             device=device)
+        _reset_counts()
+        if name == "fdm":
+            x, it, n_levels, kinds = DistFDM(bpart, bcomm).solve_direct(bb), 1, None, None
+        else:
+            mg = DistMultigrid(bpart, bcomm, coarse_max_dofs=cmax)
+            x, info = solve_cg_mg_dist(mg, bb, control)
+            it, n_levels = int(info["n_iterations"]), mg.n_levels
+            kinds = sorted({type(o).__name__ + ("/" + o.backend if hasattr(o, "backend") else "")
+                            for o in mg.dist_ops})
+        counts = _counts()
+        checks = (_k1_level_checks(mg.dist_ops) if name == "mg-4x2" else
+                  _k4_level_checks([o._op._general for o in mg.dist_ops]) if name == "mg-2x2x2" else [])
+        out[name] = dict(x=bcomm.gather_blocks(x), it=it, n_levels=n_levels, kinds=kinds, counts=counts,
+                         coherent=bcomm.shared_planes_equal(x), checks=checks)
+        if name == "mg-4x2":
+            dist.barrier()
+            if rank == 0:
+                out["k1_timed"] = _k1_shard_time(mg.dist_ops[0], f"at rank (0, 0)'s fine level of the dryrun's 4 x 2 "
+                                                 f"MG [{card}]", "phase 42")
+            dist.barrier()
+    _reset_counts()
+    hist = amr_loop_distributed(BrickMesh((2, 2, 2)), DRYRUN_P, DRYRUN_RANKS, precond="mg", device=device,
+                                keep_solutions=False, **G2_AMR_KW)
+    out["amr"] = dict(hist=[(h["n_cells"], h["n_dofs"], h["n_iterations"], h["eta"]) for h in hist],
+                      counts=_counts())
+    return out
+
+
+def _g2_reference(name):
+    """The single-device port's f64 run of a phase-42 check on the card:
+    (solution, iterations, levels) (AMR: the history)."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import (AdaptiveMultigrid, FESpace, Multigrid, PoissonOperator, ReductionControl,
+                                            solve_cg, solve_cg_merged)
+    from deal_and_ceed_on_gpu_torch.adaptive import (AdaptivePoissonOperator, AdaptiveSpace, amr_loop,
+                                                     assemble_rhs_adaptive)
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+    from deal_and_ceed_on_gpu_torch.solvers.fdm import FDMSolver
+
+    if name == "amr":
+        hist = amr_loop(BrickMesh((2, 2, 2)), DRYRUN_P, precond="mg", device=DEVICE, **G2_AMR_KW)
+        return [(h["n_cells"], h["n_dofs"], h["n_iterations"], h["eta"]) for h in hist]
+    if name.startswith("adaptive"):
+        space = AdaptiveSpace(_dryrun_ball(), DRYRUN_P, device=DEVICE)
+        op = AdaptivePoissonOperator(space)
+        b = assemble_rhs_adaptive(space, 1.0)
+        control = ReductionControl(800, tolerance=0.0, reduction=1e-10)
+        if name == "adaptive-cg":
+            x, info = solve_cg_merged(op.vmult, b, control)
+            return x, int(info["n_iterations"]), None
+        mg = AdaptiveMultigrid(space, fine_op=op)
+        x, info = solve_cg(op.vmult, b, control, diag=mg.vcycle)
+        return x, int(info["n_iterations"]), mg.n_levels
+    n_el, _, cmax = _dryrun_mg_spec(name)
+    space = FESpace.create(BrickMesh(n_el), DRYRUN_P, dtype=torch.float64, device=DEVICE)
+    b = assemble_rhs(space, 1.0)
+    if name == "fdm":
+        return FDMSolver(space).solve(b), 1, None
+    op = PoissonOperator(space, backend="stencil")
+    mg = Multigrid(space, make_op=lambda s: PoissonOperator(s, backend="stencil"), fine_op=op,
+                   coarse_max_dofs=cmax)
+    x, info = solve_cg(op.vmult, b, ReductionControl(200, tolerance=0.0, reduction=1e-10), diag=mg.vcycle)
+    return x, int(info["n_iterations"]), mg.n_levels
+
+
+def phase42_dryrun_checks():
+    """The JAX package's dryrun checks 8-11, 16 and 17 ported: 8 gloo ranks
+    sharing cuda:0, at the JAX sizes. Adaptive merged CG (237 +-1) and MG-CG
+    (4 levels, 8 +-1) on K4 against the single-device port's solutions (rtol
+    1e-7, atol 1e-9; MG-CG also against plain CG's at 1e-6 / 1e-8); MG-CG on
+    4 x 2 (3 levels, 13, every smoothing level on K1 in shard mode) and 2 x 2
+    x 2 (3 levels, 9, K4) against the single-device MG-CG's (rtol 1e-8, atol
+    1e-11); the AMR loop's cells (8, 36, 50) and DoFs as the single-device
+    loop's; FDM equal to the single-device FDM (rtol 1e-12, atol 1e-14);
+    shared planes bitwise; K1 in shard mode and K4 on every rank's level
+    tables against their plain versions. Returns the records of K1 in shard
+    mode (the 4 x 2 MG-CG's launches, all ranks) and of K4 (the launches of
+    the other checks, all ranks, and by check), timed at rank 0's
+    shapes."""
+    import numpy as np
+
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition, spawn
+
+    t0 = time.perf_counter()
+    per_rank = spawn(_dryrun_g2_rank, DRYRUN_RANKS, args=(DEVICE, CARD), backend="gloo", device=DEVICE,
+                     timeout=400)
+    print(f"phase 42: {DRYRUN_RANKS} gloo ranks on {DEVICE} ran 6 checks in {time.perf_counter() - t0:.1f} s "
+          f"(start-up included); adaptive host set-up per rank " + " ".join(
+              f"{r['adaptive-cg']['setup_s']:.2f}" for r in per_rank) + f" s [{CARD}]")
+    k4_by_check = {}
+    for name in ("adaptive-cg", "adaptive-mg", "mg-4x2", "mg-2x2x2", "fdm", "amr"):
+        got = per_rank[0][name]
+        counts = {k: [r[name]["counts"][k] for r in per_rank] for k in per_rank[0][name]["counts"]}
+        kernels = {k: v for k, v in counts.items() if any(v)}
+        golden = DRYRUN_GOLDEN[name]
+        if name == "amr":
+            want = _g2_reference(name)
+            cells = tuple(h[0] for h in got["hist"])
+            ok = cells == golden and [h[:2] for h in got["hist"]] == [h[:2] for h in want]
+            ok = ok and all(abs(g[2] - w[2]) <= 1 for g, w in zip(got["hist"], want))
+            same = all(r[name]["hist"] == got["hist"] for r in per_rank)
+            detail = (f"history (cells, DoFs, iterations) {[h[:3] for h in got['hist']]}, single-device "
+                      f"{[h[:3] for h in want]}, the same on every rank {same}")
+            ok = ok and same
+        else:
+            x_ref, it_ref, levels_ref = _g2_reference(name)
+            x_ref = x_ref.double().cpu().numpy().reshape(-1)
+            if name.startswith("adaptive"):
+                x = got["x"]
+            else:
+                n_el, shards, _ = _dryrun_mg_spec(name)
+                x = BlockPartition(BrickMesh(n_el), DRYRUN_P, *shards).assemble(got["x"]).reshape(-1)
+            rtol, atol = {"adaptive-cg": (1e-7, 1e-9), "adaptive-mg": (1e-7, 1e-9), "fdm": (1e-12, 1e-14)}.get(
+                name, (1e-8, 1e-11))
+            err = np.abs(x - x_ref) - rtol * np.abs(x_ref)
+            ok = bool(np.isfinite(x).all()) and float(err.max()) <= atol
+            rel = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+            detail = f"solution vs single-device: max rel diff {rel:.2e} (rtol {rtol:g}, atol {atol:g})"
+            if golden is not None:
+                ok = ok and abs(got["it"] - golden) <= 1 and abs(got["it"] - it_ref) <= 1
+                detail = f"{got['it']} iterations (JAX golden {golden}, single-device port {it_ref}), " + detail
+            if name in DRYRUN_LEVELS:
+                ok = ok and got["n_levels"] == DRYRUN_LEVELS[name] == (levels_ref or got["n_levels"])
+                detail = f"{got['n_levels']} levels, " + detail
+            if name == "adaptive-mg":
+                err_cg = np.abs(x - per_rank[0]["adaptive-cg"]["x"]) - 1e-6 * np.abs(x)
+                ok = ok and float(err_cg.max()) <= 1e-8
+            if "coherent" in got:
+                ok = ok and got["coherent"]
+                detail += f", shared planes bitwise {got['coherent']}"
+            if got.get("kinds"):
+                detail += f", levels on {got['kinds']}"
+        print(f"phase 42: {name}: {detail}, launches per rank {kernels}")
+        if not ok:
+            raise AssertionError(f"phase 42: the distributed {name} check failed: {detail}")
+        need = {"adaptive-cg": "k4", "adaptive-mg": "k4", "mg-4x2": "k1_shard", "mg-2x2x2": "k4", "amr": "k4"}
+        if name in need and not all(counts[need[name]]):
+            raise AssertionError(f"phase 42: {name}: {need[name]} did not launch on every rank: {counts[need[name]]}")
+        if name == "mg-4x2" and got["kinds"] != ["DistStencilOperator"]:
+            raise AssertionError(f"phase 42: mg-4x2: a smoothing level is not on K1 in shard mode: {got['kinds']}")
+        if got.get("checks"):
+            kernel = "K1 shard mode" if name == "mg-4x2" else "K4"
+            print(f"phase 42: {name}: {kernel} on every rank's level shapes (rank 0: "
+                  f"{[c[0] for c in got['checks']]}) agrees with its plain version from NaN-filled outputs, worst "
+                  f"rel {max(_worst(r[name]['checks']) for r in per_rank):.3e}")
+        if name == "mg-4x2":
+            k1 = dict(launches=sum(counts["k1_shard"]), **per_rank[0]["k1_timed"])
+        elif need.get(name) == "k4":
+            k4_by_check[name] = sum(counts["k4"])
+    k4 = dict(launches=sum(k4_by_check.values()), launches_by_check=k4_by_check, **per_rank[0]["k4_timed"])
+    return k1, k4
+
+
+def _fdm33_rank(rank, device, cycle):
+    """A rank of phase 43: ``run_cycle_distributed`` (the function each rank
+    of ``run_distributed`` runs) at cycle 33 on 2 x 2 with ``fdm-direct`` in
+    f64; then the same ``DistFDM`` solve once more, gathered, and rank 0
+    solves with the single-device FDM (phase 32's path) on the card and
+    compares."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.drivers.bp5 import BP5Config, run_cycle_distributed
+    from deal_and_ceed_on_gpu_torch.fe_space import FESpace
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition, DistFDM, ShardComm
+    from deal_and_ceed_on_gpu_torch.solvers.fdm import FDMSolver
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    part = BlockPartition(BrickMesh.bp5_cycle(cycle), DEGREE, *SHARD_MAIN)
+    comm = ShardComm(part, device)
+    cfg = BP5Config(dtype="float64", backend="stencil", device=device, modes=("fdm-direct",), n_repetitions=3)
+    r = run_cycle_distributed(cycle, *SHARD_MAIN, cfg, comm=comm)
+    space = FESpace.create(part.mesh, DEGREE, dtype=torch.float64, device=device)
+    b = assemble_rhs(space, 1.0)
+    x = DistFDM(part, comm).solve_direct(torch.as_tensor(part.block(b.cpu().numpy().reshape(space.grid_shape),
+                                                                    comm.rank), device=device))
+    blocks = comm.gather_blocks(x)
+    if comm.rank == 0:
+        want = FDMSolver(space).solve(b)
+        x = torch.as_tensor(part.assemble(blocks).reshape(-1), device=device)
+        r["single_rel"] = float((x - want).abs().max() / want.abs().max())
+    return r
+
+
+def phase43_fdm_cycle33():
+    """BP5 cycle 33 (12,468,001 DoFs, blocks [81, 81, 481]) on 2 x 2 gloo
+    ranks sharing the card, ``fdm-direct`` in f64: the true relative
+    residual (single-device K1 on the assembled solution) <= 1e-10, the
+    solution equal to the single-device FDM's to 1e-10 relative, the solve
+    time a rank."""
+    from deal_and_ceed_on_gpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    per_rank = spawn(_fdm33_rank, SHARD_MAIN[0] * SHARD_MAIN[1], args=(DEVICE, SHARD_CYCLE), backend="gloo",
+                     device=DEVICE, timeout=300)
+    r0 = per_rank[0]
+    res, rel = r0["true_rel_res"]["fdm-direct"], r0["single_rel"]
+    ms = [r["ms_per_iteration"]["fdm-direct"] for r in per_rank]
+    print(f"phase 43: cycle {SHARD_CYCLE} fdm-direct on {SHARD_MAIN[0]}x{SHARD_MAIN[1]} gloo ranks ({time.perf_counter() - t0:.1f} s "
+          f"with start-up): true rel res {res:.3e}, solution vs single-device FDM rel {rel:.2e}, shared planes "
+          f"bitwise {all(r['coherent'] for r in per_rank)}, solve ms a rank " + " ".join(f"{m:.2f}" for m in ms)
+          + f", DoF/s a rank {r0['fdm-direct']:.4g} (4 ranks time-sharing one H100) [{CARD}]")
+    if not (res <= 1e-10 and rel <= 1e-10 and all(r["coherent"] and r["finite"]["fdm-direct"] for r in per_rank)):
+        raise AssertionError("phase 43: the distributed fdm-direct at cycle 33 missed its residual or the "
+                             "single-device solution")
+
+
+def _mg26_rank(rank, device, cycle, card):
+    """A rank of phase 44: MG-CG to 1e-10 on the cycle-26 cube over 2 x 2
+    (``DistMultigrid``, ``backend="auto"``: K1 in shard mode on every
+    smoothing level), its set-up and a warm timed solve, K1's shard
+    launches per level in that solve; then K1 on each level's tables
+    against its plain version; the gathered solution on rank 0, which also
+    times K1 at its fine block."""
+    import torch
+    import torch.distributed as dist
+
+    from deal_and_ceed_on_gpu_torch import ReductionControl
+    from deal_and_ceed_on_gpu_torch.fe_space import FESpace
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+    from deal_and_ceed_on_gpu_torch.ops import stencil
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition, DistMultigrid, ShardComm, solve_cg_mg_dist
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    part = BlockPartition(BrickMesh.bp5_cycle(cycle), DEGREE, *SHARD_MAIN)
+    comm = ShardComm(part, device)
+    space = FESpace.create(part.mesh, DEGREE, dtype=torch.float64, device=device)
+    b = torch.as_tensor(part.block(assemble_rhs(space, 1.0).cpu().numpy().reshape(space.grid_shape), comm.rank),
+                        device=device)
+    t0 = time.perf_counter()
+    mg = DistMultigrid(part, comm, dtype=torch.float64)
+    setup_s = time.perf_counter() - t0
+    per_level = [0] * (mg.n_levels - 1)
+    for k, op in enumerate(mg.dist_ops):
+        def counted(u, vmult=op.vmult, k=k):
+            before = stencil.SHARD_LAUNCHES
+            out = vmult(u)
+            per_level[k] += stencil.SHARD_LAUNCHES - before
+            return out
+
+        op.vmult = counted
+    control = ReductionControl(2000, tolerance=0.0, reduction=1e-10)
+    solve_cg_mg_dist(mg, b, control)  # warm-up
+    _sync(device)
+    dist.barrier()
+    per_level[:] = [0] * len(per_level)
+    _reset_counts()
+    t0 = time.perf_counter()
+    x, info = solve_cg_mg_dist(mg, b, control)
+    _sync(device)
+    solve_s = time.perf_counter() - t0
+    counts = _counts()
+    out = dict(x=comm.gather_blocks(x), it=int(info["n_iterations"]), n_levels=mg.n_levels, setup_s=setup_s,
+               solve_s=solve_s, per_level=list(per_level), counts=counts, coherent=comm.shared_planes_equal(x),
+               kinds=sorted({type(o).__name__ for o in mg.dist_ops}), blocks=[p.local_grid_shape for p in mg.parts],
+               checks=_k1_level_checks(mg.dist_ops))
+    dist.barrier()
+    if comm.rank == 0:
+        out["k1_timed"] = _k1_shard_time(mg.dist_ops[0], f"at rank (0, 0)'s fine level of the cycle-{cycle} MG on "
+                                         f"{SHARD_MAIN[0]} x {SHARD_MAIN[1]} [{card}]", "phase 44")
+    dist.barrier()
+    return out
+
+
+def phase44_mg_cycle26():
+    """MG-CG to 1e-10 on the cycle-26 cube (1,056,321 DoFs) on 2 x 2 gloo
+    ranks, f64: 4 levels, every smoothing level on K1 in shard mode; the
+    single-device MG-CG's iterations (+-1), true residual <= 1.2e-10 on the
+    single-device K1, the single-device solution to 1e-9; ms an iteration a
+    rank and K1's shard launches per level; K1 on every rank's level tables
+    against its plain version. Returns the record of K1 in shard mode:
+    timed at rank 0's fine block, the launches (all ranks) in all and by
+    level."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import FESpace, Multigrid, PoissonOperator, ReductionControl, solve_cg
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition, spawn
+
+    t0 = time.perf_counter()
+    per_rank = spawn(_mg26_rank, SHARD_MAIN[0] * SHARD_MAIN[1], args=(DEVICE, G2_MG_CYCLE, CARD), backend="gloo",
+                     device=DEVICE, timeout=300)
+    wall = time.perf_counter() - t0
+    part = BlockPartition(BrickMesh.bp5_cycle(G2_MG_CYCLE), DEGREE, *SHARD_MAIN)
+    space = FESpace.create(part.mesh, DEGREE, dtype=torch.float64, device=DEVICE)
+    op = PoissonOperator(space, backend="stencil")
+    b = assemble_rhs(space, 1.0)
+    mg = Multigrid(space, make_op=lambda s: PoissonOperator(s, backend="stencil"), fine_op=op)
+    x_ref, info = solve_cg(op.vmult, b, ReductionControl(2000, tolerance=0.0, reduction=1e-10), diag=mg.vcycle)
+    it_ref = int(info["n_iterations"])
+    r0 = per_rank[0]
+    x = torch.as_tensor(part.assemble(r0["x"]).reshape(-1), device=DEVICE)
+    res = float(torch.linalg.vector_norm(b - op.vmult(x)) / torch.linalg.vector_norm(b))
+    rel = float((x - x_ref).abs().max() / x_ref.abs().max())
+    its = {r["it"] for r in per_rank}
+    ms = [1e3 * r["solve_s"] / max(r["it"], 1) for r in per_rank]
+    print(f"phase 44: MG-CG on the cycle-{G2_MG_CYCLE} cube ({space.n_dofs} DoFs) on {SHARD_MAIN[0]}x{SHARD_MAIN[1]} "
+          f"gloo ranks ({wall:.1f} s with start-up): {r0['n_levels']} levels, blocks {r0['blocks']}, smoothing levels "
+          f"on {r0['kinds']}, iterations {its} (single-device {it_ref}, {mg.n_levels} levels), true rel res {res:.3e}, "
+          f"solution vs single-device rel {rel:.2e}, shared planes bitwise {all(r['coherent'] for r in per_rank)}")
+    print(f"phase 44: set-up s a rank " + " ".join(f"{r['setup_s']:.2f}" for r in per_rank) + ", ms an iteration a "
+          "rank " + " ".join(f"{m:.2f}" for m in ms) + ", K1 shard launches per level a rank "
+          + " ".join(str(r["per_level"]) for r in per_rank) + f" (4 ranks time-sharing one H100) [{CARD}]")
+    print(f"phase 44: K1 shard mode on every rank's level tables {[c[0] for c in r0['checks']]} agrees with its plain "
+          f"version from NaN-filled outputs, worst rel {max(_worst(r['checks']) for r in per_rank):.3e}")
+    if not (len(its) == 1 and abs(r0["it"] - it_ref) <= 1 and res <= 1.2e-10 and rel <= 1e-9
+            and r0["n_levels"] == mg.n_levels == G2_MG_LEVELS.get(G2_MG_CYCLE, mg.n_levels)
+            and r0["kinds"] == ["DistStencilOperator"]
+            and all(r["coherent"] and all(r["per_level"]) for r in per_rank)):
+        raise AssertionError("phase 44: the distributed MG-CG on the cycle-26 cube disagrees with the single-device "
+                             "one or a level did not run K1 in shard mode")
+    by_level = [sum(r["per_level"][k] for r in per_rank) for k in range(len(r0["per_level"]))]
+    return dict(launches=sum(r["counts"]["k1_shard"] for r in per_rank), launches_by_level=by_level,
+                **r0["k1_timed"])
+
+
+def _adaptive_dist_rank(rank, device, rounds, card):
+    """A rank of phase 45: ball rounds ``rounds`` over ``ADAPTIVE_DIST_RANKS``
+    slabs, f64, K4: host set-up seconds, merged CG and MG-CG to 1e-10 (one
+    timed solve each, after one V-cycle), the launches; then K4 on each
+    level's packed cells against its plain version; the gathered solutions
+    on rank 0, which then times K4 at its packed cell count alone."""
+    import torch
+    import torch.distributed as dist
+
+    from deal_and_ceed_on_gpu_torch import ReductionControl
+    from deal_and_ceed_on_gpu_torch.adaptive import AdaptiveSpace, assemble_rhs_adaptive
+    from deal_and_ceed_on_gpu_torch.parallel import (AdaptivePartition, DistAdaptiveMultigrid, DistAdaptivePoisson,
+                                                     SlabComm, solve_cg_merged_dist_adaptive, solve_cg_mg_dist_adaptive)
+    from deal_and_ceed_on_gpu_torch.scripts.bench_adaptive import DEGREE as ADEGREE, ball_mesh
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    setup = {}
+    t0 = time.perf_counter()
+    space = AdaptiveSpace(ball_mesh(rounds), ADEGREE, device=device)
+    setup["space"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part = AdaptivePartition(space, ADAPTIVE_DIST_RANKS)
+    comm = SlabComm(ADAPTIVE_DIST_RANKS, device)
+    op = DistAdaptivePoisson(part, comm)
+    setup["partition"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mg = DistAdaptiveMultigrid(part, comm)
+    setup["multigrid"] = time.perf_counter() - t0
+    b = torch.as_tensor(part.to_shards(assemble_rhs_adaptive(space, 1.0).cpu().numpy())[comm.rank], device=device)
+    control = ReductionControl(2000, tolerance=0.0, reduction=1e-10)
+    out = {"setup_s": setup, "n_levels": mg.n_levels, "n_sigma": part.n_sigma, "cells": part.n_cells_local}
+    mg.vcycle(b)  # warm-up: the transfers' first products
+    for name, solve in (("cg", lambda: solve_cg_merged_dist_adaptive(op, b, control)),
+                        ("mg", lambda: solve_cg_mg_dist_adaptive(mg, b, control))):
+        _sync(device)
+        dist.barrier()
+        _reset_counts()
+        t0 = time.perf_counter()
+        x, info = solve()
+        _sync(device)
+        out[name] = dict(it=int(info["n_iterations"]), solve_s=time.perf_counter() - t0, counts=_counts(),
+                         x=part.from_shards(comm.all_gather(x).cpu().numpy()))
+        if comm.rank:
+            out[name]["x"] = None
+    out["checks"] = _k4_level_checks([op.kernel] + [o.kernel for o in mg.dist_ops])
+    dist.barrier()
+    if comm.rank == 0:
+        out["k4"] = _k4_time(op.kernel, "f64", f"at a rank's packed adaptive cells (rounds {rounds}, slab 0 of "
+                             f"{ADAPTIVE_DIST_RANKS}, dead cells included) [{card}]", phase="phase 45")
+    dist.barrier()
+    return out
+
+
+def phase45_adaptive_dist():
+    """The distributed adaptive path at ball rounds 4 (853,585 DoFs) on 4
+    gloo ranks, f64, K4 on every level: plain merged CG and MG-CG to 1e-10,
+    the MG-CG iterations of phase 36's single-device solve (+-1), its
+    solution at rtol 1e-7 / atol 1e-9, the true residuals on the
+    single-device operator, the host set-up seconds a rank; K4 on every
+    rank's packed cells of every level against its plain version, timed at
+    slab 0's packed cell count. Returns K4's launches in the two solves (all
+    ranks) and its timed record."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import ReductionControl, assemble_rhs_adaptive, solve_cg
+    from deal_and_ceed_on_gpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    per_rank = spawn(_adaptive_dist_rank, ADAPTIVE_DIST_RANKS, args=(DEVICE, ADAPTIVE_DIST_ROUNDS, CARD),
+                     backend="gloo", device=DEVICE, timeout=400)
+    wall = time.perf_counter() - t0
+    m = _adaptive_main("f64")
+    space, op, mg = m["space"], m["op"], m["mg"]
+    b = assemble_rhs_adaptive(space, 1.0)
+    x_ref, info = solve_cg(op.vmult, b, ReductionControl(400, tolerance=0.0, reduction=1e-10), diag=mg.vcycle)
+    it_ref, x_ref = int(info["n_iterations"]), x_ref.cpu().numpy()
+    r0 = per_rank[0]
+    print(f"phase 45: ball rounds {ADAPTIVE_DIST_ROUNDS} ({space.n_dofs} DoFs) on {ADAPTIVE_DIST_RANKS} gloo ranks "
+          f"({wall:.1f} s with start-up): {r0['n_levels']} levels on K4, SIGMA {r0['n_sigma']} DoFs, "
+          f"{r0['cells']} packed cells a rank; host set-up s a rank " + "; ".join(
+              ", ".join(f"{k} {v:.2f}" for k, v in r["setup_s"].items()) for r in per_rank) + f" [{CARD}]")
+    print(f"phase 45: K4 on every rank's packed cells of every level (rank 0: {[c[0] for c in r0['checks']]}) agrees "
+          f"with its plain version from NaN-filled outputs, worst rel {max(_worst(r['checks']) for r in per_rank):.3e}")
+    ok = True
+    for name in ("cg", "mg"):
+        x = r0[name]["x"]
+        xt = torch.as_tensor(x, device=DEVICE)
+        res = float(torch.linalg.vector_norm(b - op.vmult(xt)) / torch.linalg.vector_norm(b))
+        err = float((np.abs(x - x_ref) - 1e-7 * np.abs(x_ref)).max())
+        rel = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+        its = {r[name]["it"] for r in per_rank}
+        k4 = [r[name]["counts"]["k4"] for r in per_rank]
+        ms = [1e3 * r[name]["solve_s"] / max(r[name]["it"], 1) for r in per_rank]
+        print(f"phase 45: {'merged CG' if name == 'cg' else 'MG-CG'}: iterations {its}"
+              + (f" (single-device MG-CG {it_ref})" if name == "mg" else "")
+              + f", true rel res {res:.3e}, against the single-device MG-CG solution: max rel diff {rel:.2e} "
+              f"(rtol 1e-7, atol 1e-9), ms an iteration a rank " + " ".join(f"{v:.2f}" for v in ms) + f", K4 launches a rank {k4} "
+              f"[{CARD}]")
+        ok = ok and len(its) == 1 and res <= 1.2e-10 and all(k4) and bool(np.isfinite(x).all())
+        if name == "mg":
+            ok = ok and abs(r0[name]["it"] - it_ref) <= 1 and err <= 1e-9
+    if not ok:
+        raise AssertionError("phase 45: the distributed adaptive solves missed the single-device ones, their residual "
+                             "or K4")
+    launches = sum(r[name]["counts"]["k4"] for r in per_rank for name in ("cg", "mg"))
+    return launches, r0.get("k4")
+
+
+def _amr_dist_rank(rank, device, card):
+    """A rank of phase 46: ``amr_loop_distributed`` at ``drivers/amr``'s
+    defaults with ``precond="mg"`` on 4 ranks; the history and the
+    launches; then K4 on the rank's packed cells of the last step against
+    its plain version, timed on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from deal_and_ceed_on_gpu_torch.drivers.amr import gaussian_source
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.parallel import (AdaptivePartition, DistAdaptivePoisson, SlabComm,
+                                                     amr_loop_distributed)
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    _reset_counts()
+    hist = amr_loop_distributed(BrickMesh((4, 4, 4)), 2, 4, f=gaussian_source(), n_steps=3, theta=0.5,
+                                reduction=1e-10, precond="mg", device=device, keep_solutions=False)
+    out = dict(hist=[{k: h[k] for k in ("n_cells", "n_dofs", "n_iterations", "eta")} for h in hist],
+               counts=_counts())
+    op = DistAdaptivePoisson(AdaptivePartition(hist[-1]["space"], 4), SlabComm(4, device))
+    out["checks"] = _k4_level_checks([op.kernel])
+    dist.barrier()
+    if rank == 0:
+        out["k4_timed"] = _k4_time(op.kernel, "f64", f"at a rank's packed adaptive cells (the AMR loop's last step, "
+                                   f"slab 0 of 4, dead cells included) [{card}]", phase="phase 46")
+    dist.barrier()
+    return out
+
+
+def phase46_amr_dist():
+    """The distributed AMR loop at ``drivers/amr``'s defaults (base 4^3, Q2,
+    3 steps, theta 0.5, the source at 0.8, 1e-10) with ``precond="mg"`` on 4
+    gloo ranks against ``AMR_GOLDEN["mg"]`` (cells and DoFs exact,
+    iterations +-1, estimates 1e-8), the same history on every rank, K4
+    launched on every rank, K4 on every rank's packed cells of the last
+    step against its plain version. Returns K4's record: its launches (all
+    ranks), timed at rank 0's packed cells."""
+    from deal_and_ceed_on_gpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    per_rank = spawn(_amr_dist_rank, 4, args=(DEVICE, CARD), backend="gloo", device=DEVICE, timeout=300)
+    print(f"phase 46: amr_loop_distributed on 4 gloo ranks in {time.perf_counter() - t0:.1f} s (start-up included) "
+          f"[{CARD}]")
+    _check_amr("phase 46: amr_loop_distributed", "mg", per_rank[0]["hist"])
+    k4 = [r["counts"]["k4"] for r in per_rank]
+    if not (all(r["hist"] == per_rank[0]["hist"] for r in per_rank) and all(k4)):
+        raise AssertionError(f"phase 46: the ranks' histories differ or K4 did not launch on every rank: {k4}")
+    print(f"phase 46: the same history on every rank, K4 launches a rank {k4}; K4 on every rank's packed cells of "
+          f"the last step ({[r['checks'][0][0] for r in per_rank]}) agrees with its plain version from NaN-filled "
+          f"outputs, worst rel {max(_worst(r['checks']) for r in per_rank):.3e}")
+    return dict(launches=sum(k4), **per_rank[0]["k4_timed"])
+
+
 def main():
     global CARD
     smi = phase0_device()
@@ -2931,6 +3622,11 @@ def main():
     k2_shard_launches = phase39_dryrun_checks()
     dist_ranks, k1_shard_launches = phase40_main_path(single_main)
     phase41_per_rank_timing(dist_ranks)
+    k1_dryrun, k4_dryrun = phase42_dryrun_checks()
+    phase43_fdm_cycle33()
+    k1_mg26 = phase44_mg_cycle26()
+    k4_rank_launches, k4_rank = phase45_adaptive_dist()
+    k4_amr = phase46_amr_dist()
     import torch
 
     records = [
@@ -3099,6 +3795,25 @@ def main():
             **k2_shard[label],
         }
         for label, _, _ in PRECISIONS
+    ]
+    # slice G2's paths, a record each: the launches of all ranks of that
+    # phase, the times at rank 0's shape there
+    records += [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"deal_and_ceed_on_gpu_torch/csrc/{'stencil' if name.startswith('stencil') else 'general'}.cu",
+            "replaces": ("deal_and_ceed_on_gpu_tpu/ops/pallas_stencil.py:443" if name.startswith("stencil")
+                         else "deal_and_ceed_on_gpu_tpu/ops/pallas_general.py:59"),
+            **record,
+        }
+        for name, record in (
+            ("stencil_k1_shard_mg_dryrun_f64", k1_dryrun),  # phase 42's 4 x 2 MG-CG
+            ("general_k4_dryrun_f64", k4_dryrun),  # phase 42's adaptive CG and MG-CG, 2 x 2 x 2 MG-CG, AMR loop
+            ("stencil_k1_shard_mg26_f64", k1_mg26),  # phase 44's cycle-26 MG-CG, by level too
+            ("general_k4_adaptive_rank_f64", dict(launches=k4_rank_launches, **k4_rank)),  # phase 45's solves
+            ("general_k4_amr_rank_f64", k4_amr),  # phase 46's AMR loop
+        )
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

@@ -27,7 +27,17 @@ from ..mesh import BrickMesh
 from ..utils.logging import rank0_print as pcout
 from .bp5 import resolve_device
 
-__all__ = ["run", "main"]
+__all__ = ["gaussian_source", "run", "main"]
+
+
+def gaussian_source(center=(0.8, 0.8, 0.8), width=0.01):
+    """The loop's right-hand side ``f(x) = exp(-|x - center|^2 / width)``."""
+    c = np.asarray(center, dtype=np.float64)
+
+    def f(x):
+        return np.exp(-((x - c) ** 2).sum(axis=-1) / width)
+
+    return f
 
 
 def run(base=4, degree=2, steps=3, theta=0.5, center=(0.8, 0.8, 0.8), width=0.01, precond="none",
@@ -35,16 +45,11 @@ def run(base=4, degree=2, steps=3, theta=0.5, center=(0.8, 0.8, 0.8), width=0.01
     """The loop of :func:`main`; prints the history table and returns the
     history (``adaptive.amr_loop``'s dicts)."""
     dev = resolve_device(device)
-    c = np.asarray(center, dtype=np.float64)
-
-    def f(x):
-        return np.exp(-((x - c) ** 2).sum(axis=-1) / width)
-
-    pcout(f"AMR: Q{degree}, base {base}^3, source at {tuple(float(v) for v in c)}")
+    pcout(f"AMR: Q{degree}, base {base}^3, source at {tuple(float(v) for v in center)}")
     hist = amr_loop(
         BrickMesh((base,) * 3),
         degree,
-        f=f,
+        f=gaussian_source(center, width),
         n_steps=steps,
         theta=theta,
         precond=precond,

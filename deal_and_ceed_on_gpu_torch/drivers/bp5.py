@@ -38,8 +38,10 @@ torch versions of the kernels (the test path).
 
 Distributed (``--shards PZxPY[xPX]``, ``run_cycle_distributed``): the mesh
 is cut into blocks, one a rank (``parallel/``), and pcg-standard,
-pcg-merged and vmult run on every rank's block, with the JAX driver's
-per-rank lines (DoFs a rank, DoF/s a rank). The backend ``stencil`` runs K1
+pcg-merged, fdm-direct (the distributed FDM solve, ``parallel.DistFDM``:
+all-to-all transposes within the ranks' lines) and vmult run on every
+rank's block, with the JAX driver's per-rank lines (DoFs a rank, DoF/s a
+rank). The backend ``stencil`` runs K1
 in shard mode (``parallel.DistStencilOperator``, overlapped halo
 exchange; ``--no-overlap`` exchanges after the apply), the others ``parallel.DistOperator``. ``--dist-backend``: the
 ``torch.distributed`` backend, ``nccl`` (one card a rank; more ranks than
@@ -61,7 +63,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..fe_space import FESpace
+from ..fe_space import FESpace, resolve_device
 from ..mesh import BrickMesh
 from ..models import PoissonOperator, assemble_rhs, l2_norm_function
 from ..solvers import (
@@ -107,18 +109,6 @@ class BP5Config:
     # distributed stencil (--shards): send the shared planes' partials before
     # the full apply (True) or exchange the planes after it (False)
     overlap: bool = True
-
-
-def resolve_device(name: str) -> torch.device:
-    """The requested device; a CUDA request without a card raises."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name!r} requested but CUDA is not available; the port "
-            "never falls back to the CPU silently (pass --device cpu to run "
-            "the plain torch versions)"
-        )
-    return dev
 
 
 def _throughput_lines(label, n_dofs, times, iters, n_ranks=1):
@@ -347,24 +337,29 @@ def run_cycle(cycle: int, cfg: BP5Config | None = None, **overrides):
     return results
 
 
-DIST_MODES = ("pcg-standard", "pcg-merged", "vmult")
+DIST_MODES = ("pcg-standard", "pcg-merged", "fdm-direct", "vmult")
 
 
 def run_cycle_distributed(cycle: int, pz: int, py: int = 1, cfg: BP5Config | None = None, px: int = 1,
                           comm=None, **overrides):
     """One BP5 cycle on this rank's block of a ``pz x py x px`` partition
-    (JAX ``drivers/bp5.py:492-640``; its ``fdm-direct`` and
-    ``--write-solution`` are not ported here). Called by every rank of the
-    process group, with this rank's device as ``cfg.device`` (or a
-    ``ShardComm``). Returns the per-mode throughputs a rank, ``n_iterations``
-    and ``finite`` per mode, ``ms_per_iteration`` per solve mode (this rank's
-    wall clock), ``coherent`` (the shared planes of the last solution
-    bitwise equal on every pair of sharers) and, on rank 0, ``l2_norm`` of
-    the solution assembled from the blocks."""
+    (JAX ``drivers/bp5.py:492-640``; its ``--write-solution`` is not ported
+    here). Called by every rank of the process group, with this rank's
+    device as ``cfg.device`` (or a ``ShardComm``). ``fdm-direct`` is the
+    distributed FDM solve (``parallel.DistFDM``, eight all-to-alls an
+    apply; ``pz x py`` partitions), its true residual taken on rank 0 by the
+    single-device operator of ``cfg.backend`` on the assembled solution.
+    Returns the per-mode throughputs a rank, ``n_iterations`` and ``finite``
+    per mode, ``ms_per_iteration`` per solve mode (this rank's wall clock;
+    fdm-direct: one apply), ``coherent`` (the shared planes of the last
+    solution bitwise equal on every pair of sharers) and, on rank 0,
+    ``l2_norm`` of the solution assembled from the blocks and
+    ``true_rel_res`` of fdm-direct."""
     import torch.distributed as dist
 
     from ..parallel import (
         BlockPartition,
+        DistFDM,
         DistOperator,
         DistStencilOperator,
         ShardComm,
@@ -402,9 +397,10 @@ def run_cycle_distributed(cycle: int, pz: int, py: int = 1, cfg: BP5Config | Non
     norm_b = float(torch.linalg.vector_norm(b_global))
     b = torch.as_tensor(part.block(b_global.cpu().numpy().reshape(part.global_grid_shape), comm.rank),
                         device=device)
-    del b_global
+    if comm.rank != 0 or "fdm-direct" not in cfg.modes:
+        del b_global  # rank 0 keeps it for fdm-direct's true residual
     control = IterationNumberControl(cfg.n_iterations, 1e-6 * norm_b)
-    results = {"n_iterations": {}, "finite": {}, "ms_per_iteration": {}}
+    results = {"n_iterations": {}, "finite": {}, "ms_per_iteration": {}, "true_rel_res": {}}
     solution = None
 
     def fence(x):
@@ -428,6 +424,34 @@ def run_cycle_distributed(cycle: int, pz: int, py: int = 1, cfg: BP5Config | Non
         results["n_iterations"][label] = iters[-1]
         results["finite"][label] = bool(torch.isfinite(x).all())
         results["ms_per_iteration"][label] = 1e3 * min(times) / max(iters[-1], 1)
+        solution = x
+
+    if "fdm-direct" in cfg.modes:
+        # the distributed exact FDM solve: one apply, eight all-to-alls
+        fdm = DistFDM(part, comm, dtype, rule=cfg.rule, n_q=cfg.n_q)
+        x = fdm.solve_direct(b)
+        times = []
+        for _ in range(cfg.n_repetitions):
+            fence(x)
+            t = Timer().start()
+            x = fdm.solve_direct(b)
+            t.stop(fence=x)
+            times.append(t.elapsed)
+        blocks = comm.gather_blocks(x)
+        if comm.rank == 0:
+            x_global = torch.as_tensor(part.assemble(blocks).reshape(-1), device=device)
+            op_chk = PoissonOperator(gspace, backend=cfg.backend)
+            rel = float(torch.linalg.vector_norm(b_global - op_chk.vmult(x_global)) / norm_b)
+            results["true_rel_res"]["fdm-direct"] = rel
+            del op_chk, x_global, b_global
+            for t in times:
+                pcout(f"   FDM direct solve in time {t:.6f} (rel res {rel:.2e})")
+        best = min(times)
+        pcout(f"fdm-direct {n_dofs // n_ranks} {n_dofs / best / n_ranks:.6g}")
+        pcout("")
+        results["fdm-direct"] = n_dofs / best / n_ranks
+        results["finite"]["fdm-direct"] = bool(torch.isfinite(x).all())
+        results["ms_per_iteration"]["fdm-direct"] = 1e3 * best
         solution = x
 
     if "vmult" in cfg.modes:

@@ -21,7 +21,19 @@ from .basis import Basis1D
 from .geometry import Geometry
 from .mesh import BrickMesh
 
-__all__ = ["FESpace"]
+__all__ = ["FESpace", "resolve_device"]
+
+
+def resolve_device(name) -> torch.device:
+    """The requested device; a CUDA request without a card raises."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(name)!r} requested but CUDA is not available; the port "
+            "never falls back to the CPU silently (pass device='cpu', or --device "
+            "cpu, to run the plain torch versions)"
+        )
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)

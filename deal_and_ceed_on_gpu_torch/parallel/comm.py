@@ -13,7 +13,18 @@ axis, and does
   ``(from_prev, from_next)`` (None where there is no neighbour), or a
   pending handle with ``async_op=True`` (issued before a kernel launch,
   waited after it);
-- ``allreduce_sum_(t)``: the all-reduce of a small tensor of scalars.
+- ``allreduce_sum_(t)``: the all-reduce of a small tensor of scalars (or
+  of the adaptive operator's shared-surface buffer);
+- ``all_gather(t)``: every rank's copy of a small tensor (the multigrid
+  coarse solves);
+- ``all_to_all(axis, chunks)``: the exchange of one chunk with every rank
+  of this rank's *line* along ``axis`` (the ranks that share the other
+  block coordinates; the distributed FDM's transposes), by point-to-point
+  messages within the group.
+
+:class:`SlabComm` is the 1-D communicator of the adaptive partition
+(``parallel/dist_adaptive.py``): a rank's slab index and the all-reduce and
+all-gather above, no neighbours.
 
 Backends, named by the caller and never switched:
 
@@ -24,7 +35,10 @@ Backends, named by the caller and never switched:
   point-to-point for CUDA tensors: the halo planes of CUDA tensors go
   through pinned host buffers (a device-to-host copy before the send, a
   host-to-device copy after the receive). Its all-reduce of CUDA tensors
-  exists (it copies through the host itself) and is used as it is.
+  exists (it copies through the host itself) and is used as it is; the
+  all-gather and the all-to-all chunks go through pinned host buffers as
+  the planes do. The choice follows the backend and the tensor's device,
+  never a failure.
 
 ``init_shards(pz, py, px, backend, device)`` joins the group of a
 ``torchrun`` launch (``env://``); ``spawn(fn, n, ...)`` starts ``n`` ranks
@@ -35,6 +49,7 @@ driver and the tests) and returns what each rank's ``fn`` returned.
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 import tempfile
 import traceback
@@ -42,9 +57,10 @@ import traceback
 import torch
 import torch.distributed as dist
 
+from ..fe_space import resolve_device
 from .partition import BlockPartition
 
-__all__ = ["ShardComm", "init_shards", "spawn", "BACKENDS"]
+__all__ = ["ShardComm", "SlabComm", "init_shards", "rank_device", "spawn", "BACKENDS"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -75,8 +91,69 @@ class _Pending:
         return self._finish(self._recv)
 
 
-class ShardComm:
-    """This rank's place in a partition and its two collectives.
+class _Collectives:
+    """The collectives every communicator of the port has: the all-reduce
+    and the all-gather over ``group``, with gloo's CUDA tensors staged
+    through pinned host buffers."""
+
+    def _setup(self, device, group, n_ranks: int):
+        self.group = group
+        self.device = torch.device(device)
+        self.backend = dist.get_backend(group)
+        if dist.get_world_size(group) != n_ranks:
+            raise ValueError(f"the group has {dist.get_world_size(group)} ranks, the partition {n_ranks}")
+        self.rank = dist.get_rank(group)
+        self._tags = itertools.count()  # exchange sequence numbers: message tags
+        self._pinned = {}
+
+    def _global(self, r: int) -> int:
+        return r if self.group is None else dist.get_global_rank(self.group, r)
+
+    def _host(self, t: torch.Tensor, slot) -> torch.Tensor:
+        """A pinned host buffer of ``t``'s shape and dtype (cached per slot)."""
+        key = (slot, tuple(t.shape), t.dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._pinned[key] = buf
+        return buf
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` travels through host buffers (gloo and a CUDA tensor)."""
+        return self.backend == "gloo" and t.device.type == "cuda"
+
+    def allreduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group, in place; every rank gets the same
+        bits."""
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``[n_ranks, *t.shape]``: every rank's ``t`` in group rank order,
+        on every rank (the same bits everywhere)."""
+        t = t.contiguous()
+        n = dist.get_world_size(self.group)
+        if self._staged(t):
+            src = self._host(t, "gather-in")
+            src.copy_(t)
+            outs = [self._host(t, ("gather-out", k)) for k in range(n)]
+            dist.all_gather(outs, src, group=self.group)
+            return torch.stack(outs).to(t.device)
+        outs = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(outs, t, group=self.group)
+        return torch.stack(outs)
+
+    def gather_object(self, obj):
+        """Every rank's picklable ``obj`` on group rank 0 (rank order),
+        None on the others."""
+        n = dist.get_world_size(self.group)
+        objs = [None] * n if self.rank == 0 else None
+        dist.gather_object(obj, objs, dst=self._global(0), group=self.group)
+        return objs
+
+
+class ShardComm(_Collectives):
+    """This rank's place in a partition and its collectives.
 
     ``group``: the process group (None: the default group); ranks of the
     partition are the group's ranks in partition order. ``device``: where
@@ -85,15 +162,19 @@ class ShardComm:
 
     def __init__(self, part: BlockPartition, device, group=None):
         self.part = part
-        self.group = group
-        self.device = torch.device(device)
-        self.backend = dist.get_backend(group)
-        if dist.get_world_size(group) != part.n_shards:
-            raise ValueError(f"the group has {dist.get_world_size(group)} ranks, the partition {part.n_shards}")
-        self.rank = dist.get_rank(group)
+        self._setup(device, group, part.n_shards)
         self.coords = part.coords(self.rank)
-        self._seq = 0
-        self._pinned = {}
+
+    def with_partition(self, part: BlockPartition) -> "ShardComm":
+        """This rank's comm on another partition of the same ``pz x py x
+        px`` layout (a multigrid level): the same group, message tags and
+        host buffers."""
+        if (part.pz, part.py, part.px) != (self.part.pz, self.part.py, self.part.px):
+            raise ValueError("with_partition: the partition's layout differs from this comm's")
+        c = ShardComm.__new__(ShardComm)
+        c.__dict__.update(self.__dict__)
+        c.part = part
+        return c
 
     # ------------------------------------------------------------------ #
     def neighbours(self, axis: int) -> tuple[int | None, int | None]:
@@ -111,18 +192,6 @@ class ShardComm:
                 out.append(None)
         return out[0], out[1]
 
-    def _global(self, r: int) -> int:
-        return r if self.group is None else dist.get_global_rank(self.group, r)
-
-    def _host(self, t: torch.Tensor, slot) -> torch.Tensor:
-        """A pinned host buffer of ``t``'s shape and dtype (cached per slot)."""
-        key = (slot, tuple(t.shape), t.dtype)
-        buf = self._pinned.get(key)
-        if buf is None:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._pinned[key] = buf
-        return buf
-
     def exchange(self, axis: int, lo_plane: torch.Tensor, hi_plane: torch.Tensor, async_op: bool = False):
         """Send ``lo_plane`` to the previous rank along ``axis`` and
         ``hi_plane`` to the next; receive the previous rank's upper plane
@@ -130,9 +199,8 @@ class ShardComm:
         where there is no neighbour. Every rank of the group calls it, in
         the same order."""
         prev, nxt = self.neighbours(axis)
-        seq = self._seq
-        self._seq += 1
-        staged = self.backend == "gloo" and lo_plane.device.type == "cuda"
+        seq = next(self._tags)
+        staged = self._staged(lo_plane)
         sends, recvs = [], {}
         for peer, plane, side, tag in ((prev, lo_plane, "prev", 2 * seq), (nxt, hi_plane, "next", 2 * seq + 1)):
             if peer is None:
@@ -194,30 +262,97 @@ class ShardComm:
     def gather_blocks(self, x: torch.Tensor):
         """Every rank's block of ``x`` as numpy arrays on group rank 0 (rank
         order), None on the others."""
-        blocks = [None] * self.part.n_shards if self.rank == 0 else None
-        dist.gather_object(x.cpu().numpy(), blocks, dst=self._global(0), group=self.group)
-        return blocks
+        return self.gather_object(x.cpu().numpy())
 
-    def allreduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the group, in place; every rank gets the same
-        bits."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
-        return t
+    # ------------------------------------------------------------------ #
+    def line(self, axis: int) -> list[int]:
+        """The group ranks of this rank's line along ``axis`` (0 = z: the
+        ranks of this ``(iy, ix)``; 1 = y: of this ``(iz, ix)``; 2 = x), in
+        the order of the axis coordinate."""
+        n = (self.part.pz, self.part.py, self.part.px)[axis]
+        out = []
+        for k in range(n):
+            c = list(self.coords)
+            c[axis] = k
+            out.append(self.part.rank(*c))
+        return out
+
+    def all_to_all(self, axis: int, chunks):
+        """Send ``chunks[k]`` to the k-th rank of this rank's line along
+        ``axis`` and return what each sent here, in line order (a list;
+        ``chunks`` itself on an axis that is not partitioned). A chunk that
+        comes back has the shape of the one sent to its sender. Every rank
+        of the group calls it at the same point of its program. The line's
+        ranks trade their chunks by point-to-point messages in the comm's
+        own group (``batch_isend_irecv`` with nccl): no process group is
+        created, since ``new_group`` is collective over every process of
+        the job, which ranks working on a subgroup cannot all call."""
+        line = self.line(axis)
+        chunks = [c.contiguous() for c in chunks]
+        if len(chunks) != len(line):
+            raise ValueError(f"all_to_all: {len(chunks)} chunks for a line of {len(line)} ranks")
+        if len(line) == 1:
+            return chunks
+        pos = line.index(self.rank)
+        seq = next(self._tags)
+        staged = self._staged(chunks[0])
+        sends, recvs = [], []
+        for k, peer in enumerate(line):
+            if k == pos:
+                continue
+            c = chunks[k]
+            if staged:
+                buf = self._host(c, ("a2a-send", k, seq % 2))
+                buf.copy_(c)
+                c = buf
+            recv = self._host(c, ("a2a-recv", k, seq % 2)) if staged else torch.empty_like(c)
+            sends.append((peer, c, 2 * seq))
+            recvs.append((peer, recv, 2 * seq))
+        for w in self._p2p(sends, recvs):
+            w.wait()
+        out = [r.to(chunks[0].device) if staged else r for _, r, _ in recvs]
+        out.insert(pos, chunks[pos])
+        return out
+
+
+class SlabComm(_Collectives):
+    """The 1-D communicator of an owned-slab partition (the adaptive
+    meshes, ``parallel/dist_adaptive.py``): this rank's slab index ``rank``
+    of ``n_shards``, the all-reduce, the all-gather and the gather to rank
+    0; no neighbours, no planes. A new partition on the same group (an AMR
+    step) takes a new ``SlabComm``; it creates no group."""
+
+    def __init__(self, n_shards: int, device, group=None):
+        self.n_shards = n_shards
+        self._setup(device, group, n_shards)
+
+
+def rank_device(comm=None, device=None) -> torch.device:
+    """The device of a rank's operator: ``comm.device`` when there is a
+    comm, else ``device``, by default ``cuda`` (``resolve_device``: a CUDA
+    device without a card raises)."""
+    return comm.device if comm is not None else resolve_device("cuda" if device is None else device)
 
 
 def init_shards(pz: int, py: int = 1, px: int = 1, backend: str = "nccl", device: str | None = None):
     """Join the process group of a ``torchrun`` launch (``env://``: RANK,
     WORLD_SIZE, MASTER_ADDR, MASTER_PORT) for a ``pz x py x px`` partition;
-    returns ``(rank, device)``. With nccl a rank takes card ``LOCAL_RANK``;
-    ``device`` overrides (gloo ranks sharing ``cuda:0``, or ``cpu``)."""
+    returns ``(rank, device)``. With no ``device`` a rank takes card
+    ``LOCAL_RANK`` (nccl), or ``LOCAL_RANK`` modulo the card count (gloo:
+    ranks may share a card), and raises when there is no card; ``device``
+    overrides (``cuda:0`` for every gloo rank, or ``cpu``)."""
     n = pz * py * px
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError("init_shards: no CUDA card; the port never falls back to the CPU silently "
+                           "(pass device='cpu' with the gloo backend)")
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method="env://")
     if dist.get_world_size() != n:
         raise ValueError(f"{dist.get_world_size()} ranks for a {pz}x{py}x{px} partition")
     rank = dist.get_rank()
     if device is None:
-        device = f"cuda:{int(os.environ.get('LOCAL_RANK', rank))}" if backend == "nccl" else "cpu"
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = f"cuda:{local if backend == 'nccl' else local % torch.cuda.device_count()}"
     dev = torch.device(device)
     _check_backend(backend, n, dev)
     if dev.type == "cuda":

@@ -24,7 +24,7 @@ import torch
 from ..basis import Basis1D
 from ..ops.banded import BandedTables, banded_apply, banded_tables_np, element_tables_np
 from ..ops.stencil import identity_mask
-from .comm import ShardComm
+from .comm import ShardComm, rank_device
 from .dist_operator import halo_combine
 from .partition import BlockPartition
 
@@ -61,7 +61,7 @@ class DistBandedOperator:
         self.part, self.comm, self.kind, self.dtype = part, comm, kind, dtype
         self.stream_dtype = dtype if stream_dtype is None else stream_dtype
         self.coords = comm.coords if comm is not None else tuple(coords or (0, 0, 0))
-        self.device = comm.device if comm is not None else torch.device(device or "cpu")
+        self.device = rank_device(comm, device)
         iz, iy, _ = self.coords
         p = part.degree
         basis = Basis1D.make(p, p + 2 if n_q is None else n_q, rule)

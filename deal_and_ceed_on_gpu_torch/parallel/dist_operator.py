@@ -32,7 +32,7 @@ import torch
 from ..fe_space import FESpace
 from ..models.operator_base import MatrixFreeOperator
 from ..models.poisson import PoissonOperator
-from .comm import ShardComm
+from .comm import ShardComm, rank_device
 from .partition import BlockPartition
 
 __all__ = ["DistOperator", "DistPoissonOperator", "halo_combine", "overlap_exchange"]
@@ -125,7 +125,8 @@ class DistOperator:
 
     ``comm``: the rank's :class:`ShardComm` (its coordinates and device), or
     None with ``coords`` and ``device`` for an apply without exchange (one
-    rank's partial sums). The other parameters are those of the local
+    rank's partial sums; ``device`` defaults to ``cuda`` and raises without
+    a card). The other parameters are those of the local
     operator: ``op_cls(space, backend=..., **op_kwargs)`` on the block's
     ``FESpace`` (``rule``, ``n_q``, ``dtype``). Vectors are the rank's ghosted
     block ``local_grid_shape``, or ``[nc, ...]`` for nc components that share
@@ -158,7 +159,7 @@ class DistOperator:
                              "for graded and mapped meshes")
         self.part, self.comm, self.backend = part, comm, backend
         self.coords = comm.coords if comm is not None else tuple(coords or (0, 0, 0))
-        device = comm.device if comm is not None else torch.device(device or "cpu")
+        device = rank_device(comm, device)
         self.space = FESpace.create(part.local_mesh, part.degree, n_q=n_q, rule=rule, dtype=dtype, device=device)
         # the local operator has no constraint handling: the masks are the rank's
         op = op_cls(self.space, backend=backend, **op_kwargs)

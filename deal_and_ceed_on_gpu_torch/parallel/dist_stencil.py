@@ -39,7 +39,7 @@ import torch
 
 from ..basis import Basis1D
 from ..ops.stencil import StencilTables, identity_mask, plane_partial, stencil_apply, stencil_tables_np
-from .comm import ShardComm
+from .comm import ShardComm, rank_device
 from .dist_operator import halo_combine, overlap_exchange
 from .partition import BlockPartition
 
@@ -75,7 +75,7 @@ class DistStencilOperator:
         self.part, self.comm, self.overlap, self.dtype = part, comm, overlap, dtype
         self.stream_dtype = dtype if stream_dtype is None else stream_dtype
         self.coords = comm.coords if comm is not None else tuple(coords or (0, 0, 0))
-        self.device = comm.device if comm is not None else torch.device(device or "cpu")
+        self.device = rank_device(comm, device)
         iz, iy, _ = self.coords
         p = part.degree
         basis = Basis1D.make(p)

@@ -35,26 +35,34 @@ from ..fe_space import FESpace
 from ..ops.separable import _axis_tables
 from ..ops.sum_factorization import sweep
 
-__all__ = ["FDMSolver"]
+__all__ = ["FDMSolver", "axis_eigen"]
+
+
+def axis_eigen(mesh, basis):
+    """The per-axis generalized eigenproblems ``A1 V = B V Lambda`` of the
+    interior 1D tables (host float64, grid axes z, y, x): ``(evals,
+    evecs)``, each a list of three. ``B`` is the pointwise weight at GLL
+    collocation and the banded 1D mass matrix for Gauss rules;
+    ``V^T B V = I``."""
+    tabs = _axis_tables(mesh, basis)
+    evecs, evals = [], []
+    for ax in (0, 1, 2):  # z, y, x grid axes
+        A1 = tabs[ax]["A1"][1:-1, 1:-1]  # interior block
+        if basis.collocation:
+            B = np.diag(tabs[ax]["d"][1:-1])
+        else:
+            B = tabs[ax]["B"][1:-1, 1:-1]
+        lam, V = scipy.linalg.eigh(A1, B)  # V^T B V = I
+        evals.append(lam)
+        evecs.append(V)
+    return evals, evecs
 
 
 class FDMSolver:
     def __init__(self, space: FESpace):
         self.space = space
         t0 = time.perf_counter()
-        tabs = _axis_tables(space.mesh, space.basis)
-        evecs, evals = [], []
-        for ax in (0, 1, 2):  # z, y, x grid axes
-            A1 = tabs[ax]["A1"][1:-1, 1:-1]  # interior block
-            # value factor: pointwise weights at GLL collocation, the banded
-            # 1D mass matrix for Gauss rules
-            if space.basis.collocation:
-                B = np.diag(tabs[ax]["d"][1:-1])
-            else:
-                B = tabs[ax]["B"][1:-1, 1:-1]
-            lam, V = scipy.linalg.eigh(A1, B)  # V^T B V = I
-            evals.append(lam)
-            evecs.append(V)
+        evals, evecs = axis_eigen(space.mesh, space.basis)
         self.setup_s = {"eigh": time.perf_counter() - t0}  # host tables and eigh
         lz, ly, lx = evals
         inv = 1.0 / (lz[:, None, None] + ly[None, :, None] + lx[None, None, :])

@@ -159,7 +159,10 @@ def test_import_leaves_jax_and_triton_out():
         "deal_and_ceed_on_gpu_torch.ops.stencil, deal_and_ceed_on_gpu_torch.utils.convert, "
         "deal_and_ceed_on_gpu_torch.utils.cuda_build, deal_and_ceed_on_gpu_torch.ops.cg, "
         "deal_and_ceed_on_gpu_torch.ops.copy, deal_and_ceed_on_gpu_torch.solvers.cg_fused, "
-        "deal_and_ceed_on_gpu_torch.scripts.exp_solver_budget; "
+        "deal_and_ceed_on_gpu_torch.scripts.exp_solver_budget, deal_and_ceed_on_gpu_torch.parallel, "
+        "deal_and_ceed_on_gpu_torch.parallel.comm, deal_and_ceed_on_gpu_torch.parallel.dist_fdm, "
+        "deal_and_ceed_on_gpu_torch.parallel.dist_multigrid, deal_and_ceed_on_gpu_torch.parallel.dist_adaptive, "
+        "deal_and_ceed_on_gpu_torch.parallel.dist_adaptive_mg, deal_and_ceed_on_gpu_torch.parallel.dist_amr; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', "
         "'deal_and_ceed_on_gpu_tpu')]; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -168,14 +168,14 @@ def test_dist_operator_partials_sum_to_global_apply(cls):
         want = gop_cls(gs, backend="stencil").vmult(torch.tensor(ug.reshape(-1))).numpy().reshape(ug.shape)
 
         def make(iz, iy):
-            d = DistStencilOperator(part, None, torch.float64, operator=op_name, coords=(iz, iy, 0))
+            d = DistStencilOperator(part, None, torch.float64, operator=op_name, coords=(iz, iy, 0), device="cpu")
             return d.vmult, d.tables.identity
     elif cls == "banded":
         gs = pt.FESpace.create(mesh, p, n_q=p + 2, rule="gauss", dtype=torch.float64, device="cpu")
         want = pt.PoissonOperator(gs, backend="banded").vmult(torch.tensor(ug.reshape(-1))).numpy().reshape(ug.shape)
 
         def make(iz, iy):
-            d = DistBandedOperator(part, None, torch.float64, coords=(iz, iy, 0))
+            d = DistBandedOperator(part, None, torch.float64, coords=(iz, iy, 0), device="cpu")
             return d.vmult, d.tables.identity
     else:
         rule, n_q = ("gauss_lobatto", None) if cls == "separable" else ("gauss", p + 2)
@@ -185,7 +185,7 @@ def test_dist_operator_partials_sum_to_global_apply(cls):
 
         def make(iz, iy):
             d = DistOperator(part, None, pt.PoissonOperator, torch.float64, backend=cls, rule=rule, n_q=n_q,
-                             coords=(iz, iy, 0))
+                             coords=(iz, iy, 0), device="cpu")
             return d.vmult, part.ident(iz, iy)
     got = _host_combine(part, _partials(part, ug, make), gid, ug)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
@@ -347,3 +347,26 @@ def test_plane_partial_on_card_matches_plain(cuda_device, dtype, n_el, p, phys, 
             assert float((got.double() - st.apply_plain(slab, sub).double()).abs().max()) <= tol
             plane = st.plane_partial(u, t, axis, side)
             assert float((plane.double() - want.select(axis, 0 if side == 0 else t.shape[axis] - 1)).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("cls", ["operator", "stencil", "banded"])
+def test_rank_operator_defaults_to_cuda_and_raises_without_a_card(monkeypatch, cls):
+    """With no comm and no device a rank's operator is built on ``cuda``:
+    without a card it raises and never drops to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    part = BlockPartition(pt.BrickMesh((2, 2, 4)), 2, 2)
+    make = {"operator": lambda: DistOperator(part, None, coords=(0, 0, 0)),
+            "stencil": lambda: DistStencilOperator(part, None, torch.float64, coords=(0, 0, 0)),
+            "banded": lambda: DistBandedOperator(part, None, torch.float64, coords=(0, 0, 0))}[cls]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+
+
+def test_init_shards_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    """``init_shards`` with gloo and no device takes a card (``LOCAL_RANK``
+    modulo the card count): without one it raises before joining a group."""
+    from deal_and_ceed_on_gpu_torch.parallel import init_shards
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        init_shards(1, backend="gloo")
