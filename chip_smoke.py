@@ -8,7 +8,8 @@ anything does not build, launch, agree or converge. Phases:
 
 0. the card: torch/CUDA versions and ``nvidia-smi`` name and power limit;
 1. build K1 (``csrc/stencil.cu``), K2 (``csrc/banded.cu``), K3
-   (``csrc/qgrid.cu``), K4 (``csrc/general.cu``), K5 (``csrc/cg.cu``) and K6
+   (``csrc/qgrid.cu``, and ``csrc/qgrid_bf16.cu`` with bf16 coefficient
+   planes), K4 (``csrc/general.cu``), K5 (``csrc/cg.cu``) and K6
    (``csrc/copy.cu``), one ``nvcc`` each, started together; print the build
    times and ptxas usage;
 2. K1 (``csrc/stencil.cu`` on ``csrc/stencil_tile.cuh``) against its plain
@@ -226,7 +227,31 @@ anything does not build, launch, agree or converge. Phases:
 46. ``amr_loop_distributed`` at ``drivers/amr``'s defaults with
     ``precond="mg"`` on 4 ranks against ``AMR_GOLDEN["mg"]``; K4 on every
     rank's packed cells of the last step against its plain version, timed
-    at rank 0's.
+    at rank 0's;
+47. slice H, K3 with bf16 coefficient planes (``csrc/qgrid_bf16.cu``): the
+    ptxas registers of its 48 instantiations (fails if one is missing,
+    spills or keeps a stack frame); every p = 1..8, q = p+1..p+3 on phase
+    6's bricks, diag3 and full6 with and without the value table, raw and
+    constrained, against its plain version from NaN-filled outputs (1e-5 of
+    max|out|) and against the f32-plane kernel (bf16 rounding, 8e-3); the
+    52^3 full6 (sine-mapped) and diag3 (graded) vmults of
+    ``scripts/bench_general --coef-dtype bfloat16`` (K3 must have launched),
+    and K3 at both shapes timed beside its plain version and the bound, with
+    f32 planes beside it;
+48. the native set-up library (``csrc/fem_setup.cpp``, built by the host
+    compiler; fails unless ``native.available()``): the large-mesh dof map,
+    the boundary mask and the multiplicity against numpy; the native .vtr
+    writer byte-identical to the Python one (step-64 refine 2 written by
+    ``--vtu`` at its golden, and 3.9M points); the .vts, .vtu and .pvtr
+    writers on card tensors, read back;
+49. ``utils/profiling`` in a fresh child process: a Chrome trace of 10 K1
+    applies (the profiler's device time beside CUDA events'), ``op_stats``
+    and ``roofline``;
+50. host memory: the sine-mapped 32^3 operator's host set-up in two child
+    processes, with the allocator tuning and opted out;
+51. bp5's ``--backend auto``: its resolution at every cycle 7..40 against
+    ``AUTO_THRESHOLDS`` (the H100 sweep's) and for a Gauss rule, then one
+    f64 run at cycle 10 against the cycle-10 goldens.
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -240,6 +265,11 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+# the card's data-sheet rates (NVIDIA H100 80GB HBM3, 700 W) and the
+# profiler helper: one source, the port's utils/profiling.py
+from deal_and_ceed_on_gpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS
+from deal_and_ceed_on_gpu_torch.utils.profiling import busy_profile as _profile
 
 # Golden values of the JAX reference, computed on the CPU under x64 with
 #   deal_and_ceed_on_gpu_tpu.drivers.bp5.run_cycle(10, BP5Config(
@@ -309,12 +339,10 @@ K3_TOL = {"f64": 1e-12, "f32": 1e-5}  # of max|want|
 # and 11 in y exceed every tile width), mx and my below the tile width, two
 # or three z ranges, and a 1-element brick
 K3_SWEEP_SHAPES = ((9, 4, 3), (2, 11, 5), (1, 1, 1))
-K3_INSTANTIATIONS = 2 * 8 * 3 * 2  # qgrid_kernel<T, P, Q, FULL6>: f64/f32, p = 1..8, q = p+1..p+3, full6 or not
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; f64 67
-# TFLOP/s (its tensor cores; 34 outside them), f32 67 TFLOP/s outside the
-# tensor cores (what an exact f32 computation can use)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f64": 67e12, "f32": 67e12, "bf16": 67e12}
+# qgrid_kernel<T, CT, P, Q, FULL6> of csrc/qgrid.cu: (f64, f64) / (f32, f32),
+# p = 1..8, q = p+1..p+3, full6 or not; csrc/qgrid_bf16.cu: (f32, bf16)
+K3_INSTANTIATIONS = 2 * 8 * 3 * 2
+K3_BF16_INSTANTIATIONS = 8 * 3 * 2
 
 
 def phase0_device():
@@ -340,8 +368,8 @@ def phase1_build():
         t0 = time.perf_counter()
         return build_library(source), time.perf_counter() - t0
 
-    sources = {"K1": stencil.SOURCE, "K2": banded.SOURCE, "K3": qgrid.SOURCE, "K4": general.SOURCE,
-               "K5": cg.SOURCE, "K6": copy.SOURCE}
+    sources = {"K1": stencil.SOURCE, "K2": banded.SOURCE, "K3": qgrid.SOURCE, "K3 bf16": qgrid.SOURCE_BF16,
+               "K4": general.SOURCE, "K5": cg.SOURCE, "K6": copy.SOURCE}
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(timed, sources.values()))
     for name, (lib, seconds) in zip(sources, builds):
@@ -676,16 +704,17 @@ def _k3_bound_ms(tables, label):
     import math as m
 
     size = 8 if label == "f64" else 4
+    csize = tables.coef_dtype.itemsize  # the planes' storage: 2 bytes with bf16 planes
     n, nq = m.prod(tables.shape), m.prod(tables.q_shape)
     planes = {0: 0, 1: 0, 2: 3, 3: 6}[tables.grad_kind] + (1 if tables.val_kind == 2 else 0)
     p1, q = tables.p + 1, tables.q
     n_el = m.prod(tables.n_elements)
     flops = n_el * (4 * (2 * q * p1**3 + 3 * q**2 * p1**2 + 4 * q**3 * p1) + 4 * q**3)
-    n_bytes = (2 * n + planes * nq) * size
+    n_bytes = 2 * n * size + planes * nq * csize
     return (*_bound_ms(n_bytes, flops, label), n_bytes)
 
 
-def _k3_time(tables, label, tag):
+def _k3_time(tables, label, tag, phase="phase 6"):
     """K3 against its plain version (raw and constrained) at a main shape,
     timed beside the plain version and the bound; returns its record."""
     from deal_and_ceed_on_gpu_torch.ops.qgrid import qgrid_apply, qgrid_apply_reference
@@ -695,7 +724,7 @@ def _k3_time(tables, label, tag):
     ms = _time_ms(lambda: qgrid_apply(u, tables, True))
     plain_ms = _time_ms(lambda: qgrid_apply_reference(u, tables, True), n=5)
     bound_ms, bound_by, ideal = _k3_bound_ms(tables, label)
-    print(f"phase 6: {tag} grid {tables.shape} q grid {tables.q_shape} {label}: max abs err {err:.3e} (rel "
+    print(f"{phase}: {tag} grid {tables.shape} q grid {tables.q_shape} {label}: max abs err {err:.3e} (rel "
           f"{rel:.3e}); K3 {ms:.4f} ms ({ideal / ms / 1e6:.1f} GB/s of ideal traffic), plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f} % reached)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -754,7 +783,7 @@ def phase6_k3_vs_plain():
     from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, HelmholtzOperator
     from deal_and_ceed_on_gpu_torch.ops import qgrid
 
-    _ptxas("phase 6", "K3", qgrid.SOURCE, r"qgrid_kernelI([df])Li(\d+)ELi(\d+)ELb([01])E", K3_INSTANTIATIONS,
+    _ptxas("phase 6", "K3", qgrid.SOURCE, r"qgrid_kernelI([df])[df]Li(\d+)ELi(\d+)ELb([01])E", K3_INSTANTIATIONS,
            _ptxas_pq)
     _k3_sweep()
     dtypes = {"f64": torch.float64, "f32": torch.float32}
@@ -875,41 +904,6 @@ def phase11_profile():
     _profile(f"phase 11: {n_it} plain-CG iterations, refine {STEP64_MAIN} f64 on K3", n_it,
              lambda: solve_cg(op.vmult, b, control)[0])
 
-
-def _profile(tag, n_it, solve, repeats=1):
-    """Run ``solve`` once to warm up, then ``repeats`` times under
-    ``torch.profiler``; print each run's wall time, the device's busy time
-    and share (and their ranges), and the device time per iteration of the
-    last run's eight costliest kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    solve()
-    torch.cuda.synchronize()
-    readings = []
-    for _ in range(repeats):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            solve()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device-side events only (the CPU ops that launched them carry the
-        # same device time again)
-        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy = sum(t for _, t, _ in rows) / 1e6
-        readings.append((wall, busy))
-        print(f"{tag} under the profiler: wall {wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (busy share "
-              f"{busy / wall:.3f}; the profiler's own host cost makes the idle share an upper bound)")
-    head = tag.split(":")[0]
-    if repeats > 1:
-        shares = [b / w for w, b in readings]
-        print(f"{head}: over {repeats} profiles: wall {min(w for w, _ in readings) * 1e3:.3f}-"
-              f"{max(w for w, _ in readings) * 1e3:.3f} ms, device busy {min(b for _, b in readings) * 1e3:.3f}-"
-              f"{max(b for _, b in readings) * 1e3:.3f} ms, busy share {min(shares):.3f}-{max(shares):.3f}")
-    for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
-        print(f"{head}:   {t / 1e3 / n_it:8.4f} ms/iteration  {n:5d} calls  {key[:90]}")
 
 def _bound_ms(n_bytes, flops, label):
     """The least time for ``n_bytes`` of traffic and ``flops`` operations
@@ -3576,6 +3570,338 @@ def phase46_amr_dist():
     return dict(launches=sum(k4), **per_rank[0]["k4_timed"])
 
 
+# slice H: K3 with bf16 coefficient planes, native set-up and VTK output,
+# the profiler, host memory and bp5's auto backend (phases 47-51)
+K3_BF16_ROUNDING = 8e-3  # of max|out|: bf16 planes against f32 planes (bf16 keeps 8 bits)
+K3_BF16_MODES = (("diag3", None), ("diag3", "table"), ("full6", None), ("full6", "table"))
+HOST_MEMORY_MAPPED = 32  # phase 50: the sine-mapped 32^3 set-up (912,673 DoFs at p = 3)
+HOST_MEMORY_CHILD = """
+import json, sys, time
+import torch
+import deal_and_ceed_on_gpu_torch as pt
+from deal_and_ceed_on_gpu_torch.models import assemble_rhs
+from deal_and_ceed_on_gpu_torch.utils import host_memory
+m = int(sys.argv[1])
+seconds = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    space = pt.FESpace.create(pt.BrickMesh((m, m, m)).deform(*pt.sine_map(0.05)), 3, dtype=torch.float64, device="cuda")
+    op = pt.PoissonOperator(space, backend="general")
+    b = assemble_rhs(space, 1.0)
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+    del space, op, b
+print(json.dumps({"tuned": host_memory._done, "seconds": seconds}))
+"""
+
+
+PROFILER_CHILD = """
+import json
+import torch
+from deal_and_ceed_on_gpu_torch import BrickMesh, FESpace, PoissonOperator
+from deal_and_ceed_on_gpu_torch.utils import profiling
+from deal_and_ceed_on_gpu_torch.utils.timer import cuda_time_ms
+space = FESpace.create(BrickMesh.bp5_cycle(20), 5, dtype=torch.float64, device="cuda")
+op = PoissonOperator(space, backend="stencil")
+u = torch.randn(space.n_dofs, dtype=torch.float64, device="cuda")
+op.vmult(u)
+torch.cuda.synchronize()
+with profiling.trace(name="phase49") as prof:
+    for _ in range(10):
+        op.vmult(u)
+    torch.cuda.synchronize()
+events = json.loads(prof.trace_path.read_text())["traceEvents"]
+print(json.dumps({
+    "trace": str(prof.trace_path), "bytes": prof.trace_path.stat().st_size, "events": len(events),
+    "device_us": sum(e.self_device_time_total for e in prof.key_averages()),
+    "events_ms": cuda_time_ms(lambda: op.vmult(u), 10),
+    "stats": profiling.op_stats(op.vmult, u, n_warmup=2, n_iter=10, work_items=space.n_dofs),
+    "roofline": profiling.roofline(space.n_dofs, 5, 8), "rates": profiling.CARD_RATES,
+}))
+"""
+
+
+def _ptxas_k3_bf16(args):
+    """The report line and entry of a K3 bf16-plane instantiation (P, Q, FULL6)."""
+    p, q, full6 = args
+    return f"f32/bf16 {'full6' if full6 == '1' else 'const/diag3/value'}", f"{p}/{q}"
+
+
+def _k3_rounding(u, narrow, wide, label, constrained):
+    """K3 with bf16 planes against K3 with the f32 planes they were rounded
+    from: within bf16 rounding (``K3_BF16_ROUNDING`` of max|out|)."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.qgrid import qgrid_apply
+
+    a, b = qgrid_apply(u, narrow, constrained), qgrid_apply(u, wide, constrained)
+    torch.cuda.synchronize()
+    rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+    if not rel <= K3_BF16_ROUNDING:
+        raise AssertionError(f"{label}: bf16 planes are {rel:.3e} of max|out| off the f32 planes")
+    return rel
+
+
+def _k3_bf16_sweep():
+    """K3 with bf16 planes against its plain version on every built (p, q)
+    in diag3 and full6, with and without the value table, raw and
+    constrained, from NaN-filled outputs (``_k3_compare``, 1e-5 of
+    max|out|), on K3_SWEEP_SHAPES; and against the f32-plane kernel."""
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import Basis1D, BrickMesh, Geometry
+    from deal_and_ceed_on_gpu_torch.ops.qgrid import QGridTables, qgrid_tables_np
+
+    worst, worst_round, n = 0.0, 0.0, 0
+    for p in range(1, 9):
+        for q in (p + 1, p + 2, p + 3):
+            basis = Basis1D.make(p, q, "gauss")
+            for elements in K3_SWEEP_SHAPES:
+                mesh = BrickMesh(elements, upper=(1.0, 0.9, 1.2))
+                geo = Geometry.from_mesh(mesh, basis)
+                for i, (grad, val) in enumerate(K3_BF16_MODES):
+                    tabs = qgrid_tables_np(mesh, basis, *_k3_specs(mesh, geo, grad, val, np.random.default_rng(p + i)))
+                    narrow = QGridTables.from_numpy(tabs, torch.float32, DEVICE, coef_dtype=torch.bfloat16)
+                    wide = QGridTables.from_numpy(tabs, torch.float32, DEVICE)
+                    for constrained in (False, True):
+                        _, rel, u = _k3_compare(narrow, "f32", constrained, seed=i)
+                        worst = max(worst, rel)
+                        worst_round = max(worst_round, _k3_rounding(u, narrow, wide, "phase 47", constrained))
+                        n += 1
+    print(f"phase 47: K3 with bf16 planes agrees with its plain version on {n} cases (p = 1..8, q = p+1..p+3, "
+          f"diag3 / full6 with and without the value table, raw and constrained, NaN-filled outputs): worst rel "
+          f"err {worst:.3e} (bound {K3_TOL['f32']:g}); against the f32 planes {worst_round:.3e} (bound "
+          f"{K3_BF16_ROUNDING:g})")
+
+
+def phase47_k3_bf16():
+    """K3 with bf16 coefficient planes (csrc/qgrid_bf16.cu): its ptxas
+    report, the sweep, then the 52^3 full6 (sine-mapped) and diag3 (graded)
+    vmults of ``scripts/bench_general --coef-dtype bfloat16`` with their K3
+    launches, and K3 at both shapes timed beside the plain version and the
+    bound, with f32 planes beside it; returns the records (mapped, graded)."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import FESpace, PoissonOperator
+    from deal_and_ceed_on_gpu_torch.ops import qgrid
+    from deal_and_ceed_on_gpu_torch.scripts.bench_general import bench_mesh, run
+
+    _ptxas("phase 47", "K3 bf16", qgrid.SOURCE_BF16, r"qgrid_kernelIf13__nv_bfloat16Li(\d+)ELi(\d+)ELb([01])E",
+           K3_BF16_INSTANTIATIONS, _ptxas_k3_bf16)
+    _k3_bf16_sweep()
+    records = {}
+    for kind in ("mapped", "graded"):
+        qgrid.LAUNCHES = 0
+        out = run(MAPPED_VMULT, ("float32",), backends=("qgrid",), bp3_elements=0, device=DEVICE, mesh=kind,
+                  coef_dtype="bfloat16")
+        launches = qgrid.LAUNCHES
+        tp = out[(f"{kind} p3 qgrid bfloat16", "float32")]
+        print(f"phase 47: bench_general --mesh {kind} --coef-dtype bfloat16: {tp / 1e9:.4f} GDoF/s, K3 launches "
+              f"{launches} [{CARD}]")
+        if launches == 0 or not tp > 0:
+            raise AssertionError(f"phase 47: the {kind} bf16-plane vmult never launched K3")
+        space = FESpace.create(bench_mesh(kind, MAPPED_VMULT), 3, n_q=4, rule="gauss", dtype=torch.float32,
+                               device=DEVICE)
+        narrow = PoissonOperator(space, backend="qgrid", coef_dtype=torch.bfloat16)._qgrid
+        wide = PoissonOperator(space, backend="qgrid")._qgrid
+        mode = "full6" if kind == "mapped" else "diag3"
+        rec = _k3_time(narrow, "f32", f"{kind} {MAPPED_VMULT}^3 {mode} bf16 planes [{CARD}]", phase="phase 47")
+        u = torch.randn(narrow.shape, dtype=torch.float32, device=DEVICE)
+        rel = _k3_rounding(u, narrow, wide, "phase 47", True)
+        f32 = _k3_time(wide, "f32", f"{kind} {MAPPED_VMULT}^3 {mode} f32 planes [{CARD}]", phase="phase 47")
+        print(f"phase 47: {kind} {mode}: bf16 planes {rec['ms']:.4f} ms against f32 planes {f32['ms']:.4f} ms "
+              f"in this call; outputs {rel:.3e} of max|out| apart")
+        records[kind] = dict(launches=launches, **rec)
+        del space, narrow, wide
+    return records["mapped"], records["graded"]
+
+
+def phase48_native_vtk():
+    """The native set-up library on the card's machine (built from the
+    checkout's csrc/fem_setup.cpp; fails if unavailable): the dof map of a
+    large mesh (its native branch), the boundary mask and the multiplicity
+    against numpy; the native .vtr writer byte-identical to the Python
+    one; step-64 refine 2 with --vtu on the card at its golden; the .vts,
+    .vtu and .pvtr writers on card tensors, read back."""
+    import struct
+    from pathlib import Path
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from deal_and_ceed_on_gpu_torch import AdaptiveMesh, AdaptiveSpace, BrickMesh, FESpace, sine_map
+    from deal_and_ceed_on_gpu_torch.drivers import step64
+    from deal_and_ceed_on_gpu_torch.parallel import BlockPartition
+    from deal_and_ceed_on_gpu_torch.utils import native, vtk
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("phase 48: the native set-up library did not build or load on the card's machine")
+    print(f"phase 48: native library {native.build_library().name} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    mesh, p = BrickMesh((32, 32, 32)), 5  # 7.1M entries: mesh.element_dof_map's native branch
+    got = mesh.element_dof_map(p)
+    with mock.patch.object(native, "element_dof_map", return_value=None):
+        want = mesh.element_dof_map(p)
+    nx, ny, nz = mesh.n_nodes(p)
+
+    def shared(n):  # 2 on the nodes two elements of an axis share
+        c = np.ones(n)
+        c[p:n - 1:p] = 2.0
+        return c
+
+    mult = np.einsum("k,j,i->kji", shared(nz), shared(ny), shared(nx)).reshape(-1)
+    ok = (np.array_equal(got, want) and np.array_equal(native.boundary_mask(nx, ny, nz), mesh.boundary_dof_mask(p))
+          and np.array_equal(native.dof_multiplicity(*mesh.n_elements, p), mult.astype(np.float32)))
+    print(f"phase 48: native dof map ({got.shape}), boundary mask and multiplicity at 32^3 p = 5 equal numpy's: {ok}")
+    if not ok:
+        raise AssertionError("phase 48: the native set-up disagrees with numpy")
+    out = Path("build") / "vtk_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    r = step64.run(2, use_merged=True, device=DEVICE, vtu_path=str(out / "step64.vtr"))
+    _check_golden("phase 48: step-64 --vtu, K3 f64 merged CG", r, 2, 0)
+    space = r["space"]
+    xs, ys, zs = space.mesh.node_coords_1d(space.degree, space.basis.nodes)
+    vtk._write_vtr_py(out / "step64_py.vtr", xs, ys, zs, r["x"].cpu().numpy().reshape(space.grid_shape))
+    same = (out / "step64.vtr").read_bytes() == (out / "step64_py.vtr").read_bytes()
+    big = FESpace.create(BrickMesh((MAPPED_VMULT,) * 3), 3, dtype=torch.float64, device=DEVICE)
+    u = torch.randn(big.n_dofs, dtype=torch.float64, device=DEVICE)
+    t0 = time.perf_counter()
+    vtk.write_solution_vtr(out / "big.vtr", big, u)
+    t_native = time.perf_counter() - t0
+    xs, ys, zs = big.mesh.node_coords_1d(3, big.basis.nodes)
+    t0 = time.perf_counter()
+    vtk._write_vtr_py(out / "big_py.vtr", xs, ys, zs, u.cpu().numpy().reshape(big.grid_shape))
+    t_py = time.perf_counter() - t0
+    same = same and (out / "big.vtr").read_bytes() == (out / "big_py.vtr").read_bytes()
+    print(f"phase 48: the native .vtr writer's files equal the Python writer's (step-64 refine 2, and "
+          f"{big.n_dofs} points: native {t_native:.3f} s, Python {t_py:.3f} s): {same}")
+    if not same:
+        raise AssertionError("phase 48: the native .vtr writer's bytes differ from the Python writer's")
+
+    def values_of(path, n_blobs):
+        body = Path(path).read_bytes().split(b'<AppendedData encoding="raw">\n_', 1)[1]
+        blobs, pos = [], 0
+        for _ in range(n_blobs):
+            (nb,) = struct.unpack_from("<Q", body, pos)
+            blobs.append(body[pos + 8: pos + 8 + nb])
+            pos += 8 + nb
+        return blobs
+
+    mapped = FESpace.create(BrickMesh((4, 4, 4)).deform(*sine_map(0.05)), 2, dtype=torch.float64, device=DEVICE)
+    um = torch.randn(mapped.n_dofs, dtype=torch.float64, device=DEVICE)
+    vtk.write_solution_vtr(out / "mapped.vts", mapped, um)
+    vals, pts = values_of(out / "mapped.vts", 2)
+    ok = (np.array_equal(np.frombuffer(vals), um.cpu().numpy())
+          and np.array_equal(np.frombuffer(pts).reshape(-1, 3), mapped.node_coords()))
+    amesh = AdaptiveMesh.refine(BrickMesh((2, 2, 2)), (0, 5))
+    aspace = AdaptiveSpace(amesh, 2, device=DEVICE)
+    ua = torch.randn(aspace.n_dofs, dtype=torch.float64, device=DEVICE)
+    vtk.write_solution_vtu(out / "adaptive.vtu", aspace, ua)
+    blobs = values_of(out / "adaptive.vtu", 5)
+    # the file's conforming values are summed on the host in the JAX package's order: an ulp from the card's
+    ok = ok and np.allclose(np.frombuffer(blobs[0]), aspace.distribute(ua).cpu().numpy(), rtol=1e-14, atol=1e-15) \
+        and len(blobs[4]) == amesh.n_cells * 8
+    part = BlockPartition(BrickMesh((3, 4, 5)), 2, 2, 2)
+    g = np.random.default_rng(3).standard_normal(part.global_grid_shape)
+    vtk.write_solution_pvtr(str(out / "blocks.pvtr"), part, torch.as_tensor(part.to_blocks(g), device=DEVICE))
+    recon = np.zeros(part.global_grid_shape)
+    for k in range(part.n_shards):
+        piece = Path(f"{out / 'blocks'}_{k}.vtr").read_text(errors="ignore")
+        x0, x1, y0, y1, z0, z1 = (int(v) for v in piece.split('Piece Extent="')[1].split('"')[0].split())
+        recon[z0:z1 + 1, y0:y1 + 1, x0:x1 + 1] = np.frombuffer(values_of(f"{out / 'blocks'}_{k}.vtr", 1)[0]).reshape(
+            z1 - z0 + 1, y1 - y0 + 1, x1 - x0 + 1)
+    ok = ok and np.array_equal(recon, g)
+    print(f"phase 48: .vts (mapped 4^3), .vtu (adaptive, {amesh.n_cells} cells) and .pvtr (2 x 2 blocks) from card "
+          f"tensors read back: {ok}")
+    if not ok:
+        raise AssertionError("phase 48: a VTK writer's file does not hold its values")
+
+
+def phase49_profiler():
+    """``utils/profiling`` on the card, in a fresh child process as a user
+    would call it (``PROFILER_CHILD``): ``trace`` writes a Chrome trace of 10
+    K1 applies at cycle 20, ``op_stats`` and ``roofline`` return their keys.
+    The profiler's device time is printed beside CUDA events' time of the
+    same apply; where the profiler records none (CUPTI on the card's machine
+    is not guaranteed), the CUDA events stand and the phase says so."""
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-c", PROFILER_CHILD], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 49: the profiler child failed:\n{proc.stdout}{proc.stderr}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"phase 49: trace {Path(r['trace']).name} ({r['bytes']} bytes, {r['events']} events), profiler device time "
+          f"{r['device_us']:.1f} us over 10 K1 applies, CUDA events {r['events_ms']:.4f} ms an apply; op_stats "
+          f"{r['stats']}; roofline f64 ({r['rates']}) {r['roofline']} [{CARD}]")
+    if r["device_us"] == 0:
+        print("phase 49: the profiler recorded no device time in this process: the CUDA events' time stands")
+    if not (r["bytes"] > 0 and r["events"] > 0 and r["events_ms"] > 0
+            and set(r["stats"]) == {"best_s", "mean_s", "n_iter", "items_per_s"}
+            and set(r["roofline"]) == {"bandwidth_bound_gdofs", "compute_bound_gdofs"}):
+        raise AssertionError("phase 49: the profiler helpers did not trace or time the card")
+
+
+def phase50_host_memory():
+    """The host set-up of the sine-mapped 32^3 operator and right-hand side
+    (``FESpace``, ``PoissonOperator`` on ``general``, ``assemble_rhs``,
+    three times in a process) in two child processes: with the package's
+    allocator tuning and opted out (``DCG_TORCH_MALLOPT=0``)."""
+    import os
+    from pathlib import Path
+
+    from deal_and_ceed_on_gpu_torch.utils.host_memory import OPT_OUT
+
+    out = {}
+    for name, flag in (("tuned", "1"), ("opted out", "0")):
+        env = dict(os.environ, **{OPT_OUT: flag})
+        proc = subprocess.run([sys.executable, "-c", HOST_MEMORY_CHILD, str(HOST_MEMORY_MAPPED)], env=env,
+                              cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 50: the {name} child failed:\n{proc.stdout}{proc.stderr}")
+        out[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"phase 50: host set-up of the sine-mapped {HOST_MEMORY_MAPPED}^3 operator and right-hand side, "
+              f"{name} (tuned: {out[name]['tuned']}): " + ", ".join(f"{t:.3f}" for t in out[name]["seconds"])
+              + f" s [{CARD}]")
+    if not (out["tuned"]["tuned"] and not out["opted out"]["tuned"]):
+        raise AssertionError("phase 50: the allocator tuning did not follow its opt-out")
+    return out
+
+
+def phase51_auto():
+    """bp5's ``--backend auto``: the resolution at every swept cycle's size
+    against ``AUTO_THRESHOLDS`` (and ``general`` for a Gauss rule), then one
+    f64 run at cycle 10 against the cycle-10 goldens."""
+    import dataclasses
+
+    from deal_and_ceed_on_gpu_torch import BrickMesh
+    from deal_and_ceed_on_gpu_torch.drivers.bp5 import AUTO_THRESHOLDS, BP5Config, resolve_backend, run_cycle
+    from deal_and_ceed_on_gpu_torch.ops import stencil
+
+    for (dtype, stream), thresh in AUTO_THRESHOLDS.items():
+        cfg = BP5Config(dtype=dtype, stream_dtype=stream, backend="auto")
+        for cycle in range(7, 41):
+            mesh = BrickMesh.bp5_cycle(cycle)
+            want = "stencil" if mesh.n_dofs(DEGREE) >= thresh else "separable"
+            if resolve_backend(cfg, mesh) != want:
+                raise AssertionError(f"phase 51: auto at cycle {cycle} {dtype}/{stream} did not pick {want}")
+        if resolve_backend(dataclasses.replace(cfg, rule="gauss"), BrickMesh.bp5_cycle(10)) != "general":
+            raise AssertionError("phase 51: auto with a Gauss rule did not pick general")
+    stencil.LAUNCHES = 0
+    r = run_cycle(GOLDEN_CYCLE, backend="auto", device=DEVICE, dtype="float64", modes=("pcg-merged",),
+                  n_repetitions=1)
+    it, l2 = r["n_iterations"]["pcg-merged"], r["l2_norm"]
+    rel = abs(l2 - GOLDEN_L2) / GOLDEN_L2
+    print(f"phase 51: auto's thresholds {AUTO_THRESHOLDS}; cycle {GOLDEN_CYCLE} f64 --backend auto: {it} iterations "
+          f"(golden {GOLDEN_ITERATIONS}), L2 norm {l2:.15g} (rel {rel:.2e}, bound {GOLDEN_L2_RTOL:g}), K1 launches "
+          f"{stencil.LAUNCHES}")
+    if abs(it - GOLDEN_ITERATIONS) > 1 or not rel <= GOLDEN_L2_RTOL:
+        raise AssertionError("phase 51: the auto run missed the cycle-10 goldens")
+
+
 def main():
     global CARD
     smi = phase0_device()
@@ -3627,6 +3953,11 @@ def main():
     k1_mg26 = phase44_mg_cycle26()
     k4_rank_launches, k4_rank = phase45_adaptive_dist()
     k4_amr = phase46_amr_dist()
+    k3_bf16, k3_bf16_diag3 = phase47_k3_bf16()
+    phase48_native_vtk()
+    phase49_profiler()
+    phase50_host_memory()
+    phase51_auto()
     import torch
 
     records = [
@@ -3814,6 +4145,18 @@ def main():
             ("general_k4_adaptive_rank_f64", dict(launches=k4_rank_launches, **k4_rank)),  # phase 45's solves
             ("general_k4_amr_rank_f64", k4_amr),  # phase 46's AMR loop
         )
+    ]
+    # slice H: K3 with bf16 planes on bench_general's 52^3 vmults (launches
+    # of that run, times at its shape)
+    records += [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/qgrid_bf16.cu",
+            "replaces": "deal_and_ceed_on_gpu_tpu/ops/pallas_qgrid.py:347",
+            **record,
+        }
+        for name, record in (("qgrid_k3_bf16coef_f32", k3_bf16), ("qgrid_k3_bf16coef_diag3_f32", k3_bf16_diag3))
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

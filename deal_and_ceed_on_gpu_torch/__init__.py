@@ -33,7 +33,16 @@ Layer map:
                                scripts/bench_solvers_r3.py, scripts/bench_adaptive.py
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
+Importing the package raises glibc's allocator thresholds
+(``utils/host_memory.py``, as the JAX package does); set
+``DCG_TORCH_MALLOPT=0`` before the import to opt out.
 """
+
+from .utils.host_memory import tune_host_allocator as _tune_host_allocator
+
+# large-buffer reuse on hosts where fresh pages fault in slowly; before the
+# big host tables are built
+_tune_host_allocator()
 
 from .basis import Basis1D, gauss_lobatto_points, gauss_points
 from .fe_space import FESpace

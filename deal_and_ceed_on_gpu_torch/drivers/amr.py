@@ -8,8 +8,10 @@ history table (cells, DoFs, CG iterations, global estimate). Every solve
 applies the operator through K4 on the card (``AdaptivePoissonOperator``
 on ``auto``) and, with ``--precond mg|mg-ir``, every multigrid level too.
 
-``--device`` defaults to ``cuda`` and raises when no card is present;
-``--device cpu`` runs the plain torch versions (the test path).
+``--write-solution PATH.vtu`` writes the last step's solution as a VTK
+unstructured grid (``utils/vtk.write_solution_vtu``). ``--device`` defaults
+to ``cuda`` and raises when no card is present; ``--device cpu`` runs the
+plain torch versions (the test path).
 
 Run: ``python -m deal_and_ceed_on_gpu_torch.drivers.amr --base 4 --steps 3
 --precond mg``.
@@ -41,9 +43,10 @@ def gaussian_source(center=(0.8, 0.8, 0.8), width=0.01):
 
 
 def run(base=4, degree=2, steps=3, theta=0.5, center=(0.8, 0.8, 0.8), width=0.01, precond="none",
-        dtype="float64", reduction=None, device="cuda"):
-    """The loop of :func:`main`; prints the history table and returns the
-    history (``adaptive.amr_loop``'s dicts)."""
+        dtype="float64", reduction=None, device="cuda", write_solution=None):
+    """The loop of :func:`main`; prints the history table, writes the last
+    step's solution to ``write_solution`` (a ``.vtu``) if given, and
+    returns the history (``adaptive.amr_loop``'s dicts)."""
     dev = resolve_device(device)
     pcout(f"AMR: Q{degree}, base {base}^3, source at {tuple(float(v) for v in center)}")
     hist = amr_loop(
@@ -63,6 +66,11 @@ def run(base=4, degree=2, steps=3, theta=0.5, center=(0.8, 0.8, 0.8), width=0.01
             f"{k:>4} {h['n_cells']:>8} {h['n_dofs']:>9} "
             f"{h['n_iterations']:>7} {h['eta']:>12.4e}"
         )
+    if write_solution:
+        from ..utils.vtk import write_solution_vtu
+
+        write_solution_vtu(write_solution, hist[-1]["space"], hist[-1]["x"])
+        pcout(f"solution written to {write_solution}")
     return hist
 
 
@@ -94,18 +102,14 @@ def main(argv=None):
         "--write-solution",
         metavar="PATH.vtu",
         default=None,
-        help="write the final step's solution as a VTK unstructured grid (not ported yet)",
+        help="write the final step's solution as a VTK unstructured grid",
     )
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.write_solution:
-        raise NotImplementedError(
-            "--write-solution needs utils/vtk.py, which the port does not have yet "
-            "(ROADMAP.md queue 1, slice H: the auxiliary modules)"
-        )
     run(
         base=args.base, degree=args.degree, steps=args.steps, theta=args.theta, center=args.center,
         width=args.width, precond=args.precond, dtype=args.dtype, reduction=args.reduction, device=args.device,
+        write_solution=args.write_solution,
     )
 
 

@@ -18,6 +18,11 @@ Throughput = DoFs * iterations / wall_time, max over repetitions
 Backends: ``stencil`` (K1), ``banded`` (K2), ``qgrid`` (K3), ``general``
 (K4), and the plain torch ``separable``, ``structured`` and ``gather`` (the
 indexed ``local_to_global`` transfer with the deterministic sorted scatter).
+``auto`` picks one a cycle by the JAX driver's policy (``resolve_backend``):
+``general`` for a Gauss rule or a mesh that is not a uniform brick, else
+``stencil`` from ``AUTO_THRESHOLDS`` DoFs on (per dtype and stream dtype,
+from an H100 sweep, ``scripts/sweep_auto.py``) and ``separable`` below; it
+prints ``backend auto -> <name>``.
 
 The vmult mode chains ``v <- A v`` with ``1/lambda_est`` folded into the
 operator tables (``fold_scale``), so every step is one pure apply and f32
@@ -41,7 +46,10 @@ is cut into blocks, one a rank (``parallel/``), and pcg-standard,
 pcg-merged, fdm-direct (the distributed FDM solve, ``parallel.DistFDM``:
 all-to-all transposes within the ranks' lines) and vmult run on every
 rank's block, with the JAX driver's per-rank lines (DoFs a rank, DoF/s a
-rank). The backend ``stencil`` runs K1
+rank). ``--write-solution PATH.pvtr`` writes the pcg-merged solution as one
+``.vtr`` piece a rank plus a ``.pvtr`` master
+(``utils/vtk.write_solution_pvtr``; rank 0 gathers the blocks and writes
+the files). The backend ``stencil`` runs K1
 in shard mode (``parallel.DistStencilOperator``, overlapped halo
 exchange; ``--no-overlap`` exchanges after the apply), the others ``parallel.DistOperator``. ``--dist-backend``: the
 ``torch.distributed`` backend, ``nccl`` (one card a rank; more ranks than
@@ -78,17 +86,28 @@ from ..solvers import (
 from ..utils.logging import rank0_print as pcout
 from ..utils.timer import Timer
 
-__all__ = ["BP5Config", "run_cycle", "run_cycle_distributed", "run", "main", "DEFAULT_MODES", "PORTED_MODES",
-           "BACKENDS", "resolve_device"]
+__all__ = ["AUTO_THRESHOLDS", "BP5Config", "run_cycle", "run_cycle_distributed", "run", "main", "DEFAULT_MODES",
+           "PORTED_MODES", "BACKENDS", "resolve_backend", "resolve_device"]
 
 # the JAX driver's default modes (drivers/bp5.py BP5Config.modes)
 DEFAULT_MODES = ("pcg-standard", "pcg-merged", "vmult")
 # every mode of the JAX driver
 PORTED_MODES = DEFAULT_MODES + ("pcg-fused", "fdm-direct", "pcg-ir", "pcg-mg")
 # stencil: K1; banded: K2; qgrid: K3; general: K4; separable / structured /
-# gather: plain torch
-BACKENDS = ("stencil", "banded", "qgrid", "general", "separable", "structured", "gather")
+# gather: plain torch; auto: one of them a cycle (resolve_backend)
+BACKENDS = ("stencil", "banded", "qgrid", "general", "separable", "structured", "gather", "auto")
 DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
+# --backend auto on a uniform GLL brick: K1 (stencil) from this many DoFs,
+# separable below, per (dtype, stream dtype). From scripts/sweep_auto.py on an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit, cycles 7..40 (1,936 to
+# 131,892,801 DoFs): K1's apply is 4.5-20x faster than separable's at every
+# cycle in f64, f32 and bf16-streamed vectors, so every threshold is 0 (K1
+# at every size); the TPU's 6M / 4M thresholds do not carry over.
+AUTO_THRESHOLDS = {
+    ("float64", None): 0,
+    ("float32", None): 0,
+    ("float32", "bfloat16"): 0,
+}
 
 
 @dataclasses.dataclass
@@ -109,6 +128,28 @@ class BP5Config:
     # distributed stencil (--shards): send the shared planes' partials before
     # the full apply (True) or exchange the planes after it (False)
     overlap: bool = True
+
+
+def resolve_backend(cfg: "BP5Config", mesh: BrickMesh) -> str:
+    """``cfg.backend``, or for ``auto`` the JAX driver's policy
+    (``drivers/bp5.py:125-143``): ``general`` (K4) for a Gauss rule or a
+    mesh that is not a uniform brick, else ``stencil`` (K1) at or above the
+    DoF threshold of ``AUTO_THRESHOLDS`` for the dtype and stream dtype
+    (the stream dtype counts with f32 compute only) and ``separable``
+    below it."""
+    if cfg.backend != "auto":
+        return cfg.backend
+    if cfg.rule != "gauss_lobatto" or not mesh.is_uniform:
+        return "general"
+    stream = cfg.stream_dtype if cfg.dtype == "float32" else None
+    return "stencil" if mesh.n_dofs(cfg.degree) >= AUTO_THRESHOLDS[(cfg.dtype, stream)] else "separable"
+
+
+def _resolve(cfg: "BP5Config", mesh: BrickMesh) -> "BP5Config":
+    backend = resolve_backend(cfg, mesh)
+    if cfg.backend == "auto":
+        pcout(f"   backend auto -> {backend}")
+    return dataclasses.replace(cfg, backend=backend)
 
 
 def _throughput_lines(label, n_dofs, times, iters, n_ranks=1):
@@ -189,6 +230,7 @@ def run_cycle(cycle: int, cfg: BP5Config | None = None, **overrides):
     # dtype goes to pcg-ir's f32 inner operator only
     stream = stream32 if stream32 is not None and dtype == torch.float32 else dtype
     mesh = BrickMesh.bp5_cycle(cycle)
+    cfg = _resolve(cfg, mesh)
     space = FESpace.create(
         mesh, cfg.degree, n_q=cfg.n_q, rule=cfg.rule, dtype=dtype, device=device
     )
@@ -341,10 +383,12 @@ DIST_MODES = ("pcg-standard", "pcg-merged", "fdm-direct", "vmult")
 
 
 def run_cycle_distributed(cycle: int, pz: int, py: int = 1, cfg: BP5Config | None = None, px: int = 1,
-                          comm=None, **overrides):
+                          comm=None, write_solution: str | None = None, **overrides):
     """One BP5 cycle on this rank's block of a ``pz x py x px`` partition
-    (JAX ``drivers/bp5.py:492-640``; its ``--write-solution`` is not ported
-    here). Called by every rank of the process group, with this rank's
+    (JAX ``drivers/bp5.py:492-640``). With ``write_solution`` (a
+    ``.pvtr`` path) rank 0 writes the pcg-merged solution there, one
+    ``.vtr`` piece a rank beside it (``utils/vtk.write_solution_pvtr``).
+    Called by every rank of the process group, with this rank's
     device as ``cfg.device`` (or a ``ShardComm``). ``fdm-direct`` is the
     distributed FDM solve (``parallel.DistFDM``, eight all-to-alls an
     apply; ``pz x py`` partitions), its true residual taken on rank 0 by the
@@ -373,9 +417,10 @@ def run_cycle_distributed(cycle: int, pz: int, py: int = 1, cfg: BP5Config | Non
         raise ValueError(f"distributed modes are {DIST_MODES}; not ported: {sorted(unknown)}")
     dtype = DTYPES[cfg.dtype]
     stream = dtype if cfg.stream_dtype is None else DTYPES[cfg.stream_dtype]
+    mesh = BrickMesh.bp5_cycle(cycle)
+    cfg = _resolve(cfg, mesh)
     if stream != dtype and cfg.backend != "stencil":
         raise ValueError("distributed --stream-dtype needs --backend stencil")
-    mesh = BrickMesh.bp5_cycle(cycle)
     part = BlockPartition(mesh, cfg.degree, pz, py, px)
     if comm is None:
         comm = ShardComm(part, resolve_device(cfg.device))
@@ -425,6 +470,18 @@ def run_cycle_distributed(cycle: int, pz: int, py: int = 1, cfg: BP5Config | Non
         results["finite"][label] = bool(torch.isfinite(x).all())
         results["ms_per_iteration"][label] = 1e3 * min(times) / max(iters[-1], 1)
         solution = x
+        if label == "pcg-merged" and write_solution:
+            # one .vtr piece a rank + the .pvtr master (the reference's
+            # per-rank VTU + PVTU record, step-64/step-64.cu:560-588)
+            blocks = comm.gather_blocks(x.to(dtype))
+            if comm.rank == 0:
+                from ..utils.vtk import write_solution_pvtr
+
+                flat = np.zeros(part.flat_grid_shape)
+                for r, blk in enumerate(blocks):
+                    flat[part._block_slices(r)] = blk
+                write_solution_pvtr(write_solution, part, flat)
+                pcout(f"   wrote {write_solution} (+ per-shard pieces)")
 
     if "fdm-direct" in cfg.modes:
         # the distributed exact FDM solve: one apply, eight all-to-alls
@@ -495,7 +552,7 @@ def run_cycle_distributed(cycle: int, pz: int, py: int = 1, cfg: BP5Config | Non
     return results
 
 
-def _rank_main(rank, cycles, shards, cfg, dist_backend):
+def _rank_main(rank, cycles, shards, cfg, dist_backend, write_solution=None):
     """A driver rank (``parallel.spawn``): its device, then the cycles."""
     import torch
 
@@ -503,14 +560,15 @@ def _rank_main(rank, cycles, shards, cfg, dist_backend):
     if torch.device(cfg.device).type == "cuda":
         cfg = dataclasses.replace(cfg, device=f"cuda:{rank % torch.cuda.device_count()}")
         torch.cuda.set_device(torch.device(cfg.device))
-    return [run_cycle_distributed(c, pz, py, cfg, px) for c in cycles]
+    return [run_cycle_distributed(c, pz, py, cfg, px, write_solution=write_solution) for c in cycles]
 
 
 def run_distributed(cycle_min: int, cycle_max: int, shards, cfg: BP5Config, dist_backend: str = "nccl",
-                    timeout: float = 3600.0):
+                    timeout: float = 3600.0, write_solution: str | None = None):
     """The distributed cycles on ``pz x py x px`` ranks: under ``torchrun``
     (``RANK`` set) in this process, else on ranks the driver starts. Returns
-    the ranks' results (this rank's alone under torchrun)."""
+    the ranks' results (this rank's alone under torchrun). ``write_solution``:
+    see ``run_cycle_distributed`` (each cycle writes the same path)."""
     import os
 
     from ..parallel import init_shards, spawn
@@ -520,10 +578,11 @@ def run_distributed(cycle_min: int, cycle_max: int, shards, cfg: BP5Config, dist
     if "RANK" in os.environ:
         _, device = init_shards(pz, py, px, dist_backend,
                                 None if dist_backend == "nccl" else str(resolve_device(cfg.device)))
-        return [run_cycle_distributed(c, pz, py, dataclasses.replace(cfg, device=str(device)), px) for c in cycles]
+        return [run_cycle_distributed(c, pz, py, dataclasses.replace(cfg, device=str(device)), px,
+                                      write_solution=write_solution) for c in cycles]
     resolve_device(cfg.device)
-    return spawn(_rank_main, pz * py * px, args=(cycles, shards, cfg, dist_backend), backend=dist_backend,
-                 device=cfg.device, timeout=timeout)
+    return spawn(_rank_main, pz * py * px, args=(cycles, shards, cfg, dist_backend, write_solution),
+                 backend=dist_backend, device=cfg.device, timeout=timeout)
 
 
 def run(cycle_min=7, cycle_max=40, cfg: BP5Config | None = None):
@@ -543,7 +602,8 @@ def main(argv=None):
         "--backend", default="stencil", choices=BACKENDS,
         help="stencil: the K1 CUDA kernel (GLL collocation, uniform brick); banded: K2; "
         "qgrid: K3 (--rule gauss); general: K4; separable / structured / gather (indexed "
-        "local_to_global, sorted scatter): plain torch",
+        "local_to_global, sorted scatter): plain torch; auto: stencil from the H100 sweep's DoF "
+        "threshold, separable below it, general for --rule gauss",
     )
     ap.add_argument("--rule", default="gauss_lobatto", choices=["gauss_lobatto", "gauss"])
     ap.add_argument(
@@ -562,6 +622,9 @@ def main(argv=None):
                     "card or run on the CPU)")
     ap.add_argument("--no-overlap", dest="overlap", action="store_false",
                     help="distributed stencil: exchange the shared planes after the apply, not its partials before")
+    ap.add_argument("--write-solution", default=None, metavar="PATH.pvtr",
+                    help="distributed runs: write the pcg-merged solution as one .vtr piece a rank plus a .pvtr "
+                    "master at this path")
     args = ap.parse_args(argv)
     cfg = BP5Config(
         degree=args.degree,
@@ -581,7 +644,8 @@ def main(argv=None):
         if set(cfg.modes) - set(DIST_MODES):
             cfg = dataclasses.replace(cfg, modes=tuple(m for m in cfg.modes if m in DIST_MODES))
             pcout(f"distributed runs take the modes {', '.join(DIST_MODES)}; running {', '.join(cfg.modes)}")
-        run_distributed(args.cycle_min, args.cycle_max, (pz, py, px), cfg, args.dist_backend)
+        run_distributed(args.cycle_min, args.cycle_max, (pz, py, px), cfg, args.dist_backend,
+                        write_solution=args.write_solution)
     else:
         run(args.cycle_min, args.cycle_max, cfg)
 

@@ -18,8 +18,10 @@ diagonal), ``fdm`` (the Poisson fast-diagonalization solve,
 ``solvers/multigrid.py``, every level a ``HelmholtzOperator`` on the
 driver's backend: K3 on every level with ``qgrid``); ``fdm`` and ``mg`` run
 plain CG only (merged CG takes a diagonal), as in the JAX driver.
-``--device`` defaults to ``cuda`` and raises without a card; ``--device
-cpu`` runs the plain versions. Not ported yet: the ``.vtr`` output (slice H).
+``--vtu PATH`` writes the merged run's solution as a VTK rectilinear grid
+(``utils/vtk.write_solution_vtr``; the JAX driver's flag, a ``.vtr`` despite
+its name). ``--device`` defaults to ``cuda`` and raises without a card;
+``--device cpu`` runs the plain versions.
 
 Run: ``python -m deal_and_ceed_on_gpu_torch.drivers.step64 --refine 4``.
 """
@@ -54,8 +56,10 @@ def run(
     max_steps: int = 2000,
     precond: str = "none",
     device: str = "cuda",
+    vtu_path: str | None = None,
 ):
-    """One solve. Returns ``n_iterations``, ``l2_norm``, the solution ``x``,
+    """One solve; with ``vtu_path`` the solution is written there as a
+    ``.vtr`` (``utils/vtk.write_solution_vtr``). Returns ``n_iterations``, ``l2_norm``, the solution ``x``,
     the ``space``, ``seconds``, the solve's wall time (fenced with
     ``torch.cuda.synchronize`` on the card), and ``setup_s``, the
     preconditioner's set-up seconds (host ``eigh`` for fdm; levels, coarse
@@ -107,6 +111,11 @@ def run(
     pcout(f"  Solved in {it} iterations.")
     norm = float(l2_norm_function(space, x))
     pcout(f"  solution norm: {norm:.12g}")
+    if vtu_path:
+        from ..utils.vtk import write_solution_vtr
+
+        write_solution_vtr(vtu_path, space, x)
+        pcout(f"  wrote {vtu_path}")
     return {"n_iterations": it, "l2_norm": norm, "x": x, "space": space, "seconds": timer.elapsed,
             "setup_s": setup_s}
 
@@ -125,6 +134,7 @@ def main(argv=None):
         help="none = the reference's DiagonalMatrix(1.0); jacobi = the true diagonal; "
         "fdm / mg = fast diagonalization / multigrid (plain CG only)",
     )
+    ap.add_argument("--vtu", default=None, help="write the merged run's solution to this .vtr file")
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
     for use_merged in (False, True):
@@ -134,6 +144,7 @@ def main(argv=None):
         run(
             n_refine=args.refine, degree=args.degree, dtype=args.dtype, backend=args.backend,
             use_merged=use_merged, precond=args.precond, device=args.device,
+            vtu_path=args.vtu if use_merged else None,
         )
 
 

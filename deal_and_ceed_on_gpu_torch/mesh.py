@@ -204,8 +204,16 @@ class BrickMesh:
         """``local_to_global``: int32 ``[n_cells, (p+1)^3]`` map from cell-local
         lexicographic DoF index to global DoF (reference L-1 table,
         ``bp5/fe_evaluation_gl.h:135-152``). The structured path never
-        materializes it; tests and host-side assembly use it."""
+        materializes it; the gather backend, tests and host-side assembly
+        use it. Large meshes (more than 2^22 entries) take the native C++
+        routine (``utils/native.py``) when it is available, the same table."""
         p = degree
+        if self.n_cells * (p + 1) ** 3 > 1 << 22:
+            from .utils import native
+
+            out = native.element_dof_map(*self.n_elements, p)
+            if out is not None:
+                return out
         nx, ny, nz = self.n_nodes(p)
         mx, my, mz = self.n_elements
         lx = np.arange(p + 1)

@@ -19,7 +19,9 @@ reference's ``LocalPoissonOperator`` + ``PoissonOperator``
 - ``qgrid``: K3 (``ops/qgrid.py``), any Gauss-type rule (q = p+1, p+2), grad
   ``const`` on a uniform brick, ``diag3`` on a graded one, ``full6`` on a
   mapped one (weightless coefficients, ``merged_coef_full / w3d``); the JAX
-  ``backend="pallas_qgrid"``;
+  ``backend="pallas_qgrid"``. ``coef_dtype=torch.bfloat16`` stores the
+  diag3 / full6 planes in bf16 beside f32 vectors (the JAX
+  ``pallas_opts=dict(coef_stream_dtype=jnp.bfloat16)``);
 - ``banded``: K2 (``ops/banded.py``, ``kind="stiffness"``), the seven-sweep
   banded Kronecker kernel on a uniform or graded brick, any rule (BP3/BP4:
   Gauss q = p+2); the JAX ``backend="pallas"`` on a non-collocated basis;
@@ -60,14 +62,18 @@ class PoissonOperator(MatrixFreeOperator):
         space: FESpace,
         backend: str = "structured",
         stream_dtype: torch.dtype | None = None,
+        coef_dtype: torch.dtype | None = None,
     ):
         super().__init__(space, backend, stream_dtype)
+        if coef_dtype is not None and backend != "qgrid":
+            raise ValueError(f"coef_dtype is K3's (backend='qgrid'), not {backend!r}'s")
         geo = space.geometry
         if backend == "qgrid":
             from ..ops.qgrid import QGridTables
 
             self._qgrid = QGridTables.create(
-                space.mesh, space.basis, space.dtype, grad=grad_spec(geo, weighted=False), device=space.device
+                space.mesh, space.basis, space.dtype, grad=grad_spec(geo, weighted=False), device=space.device,
+                coef_dtype=coef_dtype,
             )
             return
         if backend == "general":

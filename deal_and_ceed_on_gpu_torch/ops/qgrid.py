@@ -25,14 +25,23 @@ element ``(ez, ey, ex)``, q point ``(rz, ry, rx)`` at ``[ez*q+rz, ey*q+ry,
 ex*q+rx]``. That is the TPU's ``[K, ZQ, YQ, MXQ]`` without its block and
 128-lane padding (``utils/convert.qgrid_tables_from_jax`` slices it).
 
-``qgrid_apply`` launches the CUDA kernel (``csrc/qgrid.cu``: even-odd
-sweeps in registers, the 1D ``S``/``D``/``w`` tables passed by value with
-each launch from host memory, ``S_host``/``D_host``/``w_host``; symmetric
-rules only, ``QGridTables.symmetric``) for a CUDA tensor and calls the
-plain version ``qgrid_apply_reference`` for a CPU tensor; ``LAUNCHES`` counts kernel launches. ``constrained=True`` is the
-operator's ``vmult``: ``M A M`` plus identity rows on the six boundary
-faces, in the one launch. f32 products in the plain version run in full
-f32 (``sum_factorization.sweep`` scopes ``full_f32`` to each product).
+``qgrid_apply`` launches the CUDA kernel (``csrc/qgrid_kernel.cuh``:
+even-odd sweeps in registers, the 1D ``S``/``D``/``w`` tables passed by
+value with each launch from host memory, ``S_host``/``D_host``/``w_host``;
+symmetric rules only, ``QGridTables.symmetric``) for a CUDA tensor and calls
+the plain version ``qgrid_apply_reference`` for a CPU tensor; ``LAUNCHES``
+counts kernel launches. ``constrained=True`` is the operator's ``vmult``:
+``M A M`` plus identity rows on the six boundary faces, in the one launch.
+f32 products in the plain version run in full f32
+(``sum_factorization.sweep`` scopes ``full_f32`` to each product).
+
+The coefficient stream may be stored narrower than the vectors: f32
+vectors with bf16 planes (``coef_dtype=torch.bfloat16``, the JAX layout's
+``coef_stream_dtype``) halve the bytes of the planes, the widest stream of
+a mapped apply; the kernel widens each value to f32 where it reads it
+(``csrc/qgrid_bf16.cu``, a library of its own), the plain version widens
+the tables and runs the f32 apply. The pairs are (f64, f64), (f32, f32)
+and (f32, bf16); f64 vectors with bf16 planes raise.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from .sum_factorization import sweep
 __all__ = [
     "LAUNCHES",
     "SOURCE",
+    "SOURCE_BF16",
     "QGridTables",
     "qgrid_apply",
     "qgrid_apply_reference",
@@ -57,6 +67,7 @@ __all__ = [
 ]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "qgrid.cu"
+SOURCE_BF16 = SOURCE.with_name("qgrid_bf16.cu")  # f32 vectors, bf16 coefficient planes
 MAX_DEGREE = 8
 Q_OFFSETS = (1, 2, 3)  # q - p of the rules the kernel is built for
 
@@ -68,6 +79,19 @@ _GRAD_PLANES = {2: 3, 3: 6}
 LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float64: 0, torch.float32: 1}
+_COEF_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
+# (vectors, coefficient planes) -> the library and its launcher
+_PAIRS = {
+    (torch.float64, torch.float64): (SOURCE, "qgrid_apply_launch"),
+    (torch.float32, torch.float32): (SOURCE, "qgrid_apply_launch"),
+    (torch.float32, torch.bfloat16): (SOURCE_BF16, "qgrid_bf16_apply_launch"),
+}
+
+
+def _check_pair(dtype: torch.dtype, coef_dtype: torch.dtype) -> None:
+    if (dtype, coef_dtype) not in _PAIRS:
+        raise ValueError(f"qgrid: vectors {dtype} with coefficient planes {coef_dtype}: the pairs are f64/f64, "
+                         "f32/f32 and f32/bf16 (f64 vectors with bf16 planes are no configuration of the kernel)")
 
 
 def _to_qgrid(tab: np.ndarray, n_elements, q: int) -> np.ndarray:
@@ -84,7 +108,9 @@ def qgrid_tables_np(mesh, basis, grad=None, val=None) -> dict:
     ``grad = (mode, data)`` with mode ``const`` (three scalars in x, y, z
     order), ``diag3`` (``[E, n_q, 3]``) or ``full6`` (``[E, n_q, 6]``), and
     ``val = (mode, data)`` with mode ``const`` (a scalar) or ``table``
-    (``[E, n_q]``); the data are weightless, as ``QGridLayout`` takes them."""
+    (``[E, n_q]``); the data are weightless, as ``QGridLayout`` takes them.
+    ``coef_dtype`` is None: the streams are stored at the vectors' dtype
+    unless ``QGridTables.from_numpy`` is told otherwise."""
     p, q = basis.degree, basis.n_q
     if not (1 <= p <= MAX_DEGREE and q - p in Q_OFFSETS):
         raise ValueError(f"qgrid kernel: built for p = 1..{MAX_DEGREE}, q - p in {Q_OFFSETS}; got p={p}, q={q}")
@@ -93,6 +119,7 @@ def qgrid_tables_np(mesh, basis, grad=None, val=None) -> dict:
         "S": np.asarray(basis.S, dtype=np.float64), "D": np.asarray(basis.D, dtype=np.float64),
         "w": np.asarray(basis.q_weights, dtype=np.float64),
         "grad_kind": 0, "val_kind": 0, "c_grad": (0.0, 0.0, 0.0), "c_val": 0.0, "C": None, "a_q": None,
+        "coef_dtype": None,
     }
     if grad is not None:
         mode, data = grad
@@ -135,7 +162,8 @@ def _block_matrix(m: int, p: int, M: np.ndarray) -> np.ndarray:
 class QGridTables:
     """K3's tables: the 1D tables in host memory (the only copy: the kernel
     takes them by value with each launch, the plain version builds its dense
-    matrices from them), the coefficient streams on the device.
+    matrices from them), the coefficient streams on the device, stored at
+    ``coef_dtype`` (the vectors' ``dtype``, or bf16 beside f32 vectors).
     ``fold_scale`` rescales the coefficients the kernel reads, in place."""
 
     p: int
@@ -152,12 +180,28 @@ class QGridTables:
     a_q: torch.Tensor | None  # [mz*q, my*q, mx*q]
     dtype: torch.dtype
     device: torch.device
+    coef_dtype: torch.dtype | None = None  # None: dtype
     _dense: dict = dataclasses.field(default_factory=dict, repr=False)
 
+    def __post_init__(self):
+        if self.coef_dtype is None:
+            self.coef_dtype = self.dtype
+        _check_pair(self.dtype, self.coef_dtype)
+
     @staticmethod
-    def from_numpy(tabs: dict, dtype: torch.dtype, device="cuda") -> "QGridTables":
+    def from_numpy(tabs: dict, dtype: torch.dtype, device="cuda", coef_dtype=None) -> "QGridTables":
+        """The tables of ``tabs`` (``qgrid_tables_np`` keys) on ``device``,
+        for vectors of ``dtype``; the streams stored at ``coef_dtype`` (a
+        torch dtype or its name; None: ``tabs["coef_dtype"]``, else
+        ``dtype``), rounded from float64 as the JAX layout rounds them."""
+        coef_dtype = coef_dtype or tabs.get("coef_dtype") or dtype
+        if isinstance(coef_dtype, str):
+            coef_dtype = getattr(torch, coef_dtype)
+        _check_pair(dtype, coef_dtype)
+
         def dev(a):
-            return None if a is None else torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype, device=device)
+            return None if a is None else torch.as_tensor(np.array(a, dtype=np.float64), dtype=coef_dtype,
+                                                          device=device)
 
         def host(a):
             return np.array(a, dtype=np.float64, order="C")
@@ -169,7 +213,7 @@ class QGridTables:
         return QGridTables(
             tabs["p"], tabs["q"], tuple(tabs["n_elements"]), host(tabs["S"]), host(tabs["D"]), host(tabs["w"]),
             int(tabs["grad_kind"]), int(tabs["val_kind"]), tuple(float(c) for c in tabs["c_grad"]),
-            float(tabs["c_val"]), dev(tabs["C"]), dev(tabs["a_q"]), dtype, device,
+            float(tabs["c_val"]), dev(tabs["C"]), dev(tabs["a_q"]), dtype, device, coef_dtype,
         )
 
     @property
@@ -179,8 +223,8 @@ class QGridTables:
         return is_symmetric_rule(self.S_host, self.D_host)
 
     @staticmethod
-    def create(mesh, basis, dtype: torch.dtype, grad=None, val=None, device="cuda") -> "QGridTables":
-        return QGridTables.from_numpy(qgrid_tables_np(mesh, basis, grad, val), dtype, device)
+    def create(mesh, basis, dtype: torch.dtype, grad=None, val=None, device="cuda", coef_dtype=None) -> "QGridTables":
+        return QGridTables.from_numpy(qgrid_tables_np(mesh, basis, grad, val), dtype, device, coef_dtype)
 
     @property
     def shape(self) -> tuple[int, int, int]:
@@ -194,12 +238,15 @@ class QGridTables:
         return (mz * self.q, my * self.q, mx * self.q)
 
     def fold_scale(self, s: float) -> None:
-        """``A <- s * A`` (identity rows of the constrained apply unaffected)."""
+        """``A <- s * A`` (identity rows of the constrained apply unaffected).
+        The streams are multiplied in their own dtype, ``s`` rounded to it
+        first, as the JAX layout multiplies them (a bf16 plane times a
+        Python float is a bf16 product there)."""
         self.c_grad = tuple(c * s for c in self.c_grad)
         self.c_val *= s
         for t in (self.C, self.a_q):
             if t is not None:
-                t.mul_(s)
+                t.mul_(float(torch.tensor(s, dtype=t.dtype)))
 
     def axis_matrix(self, axis: int, kind: str) -> torch.Tensor:
         """The plain version's node -> q matrix of grid axis ``axis`` (0 = z),
@@ -223,6 +270,7 @@ def _check(u: torch.Tensor, tables: QGridTables) -> int:
     code = _DTYPE_CODES.get(u.dtype)
     if code is None or u.dtype != tables.dtype:
         raise TypeError(f"qgrid: u is {u.dtype}, tables {tables.dtype}; float64 or float32, the same for both")
+    _check_pair(tables.dtype, tables.coef_dtype)
     if tuple(u.shape) != tables.shape:
         raise ValueError(f"qgrid: u has shape {tuple(u.shape)}, tables {tables.shape}")
     if u.device != tables.device:
@@ -238,8 +286,8 @@ def _check(u: torch.Tensor, tables: QGridTables) -> int:
     if tables.val_kind == 2 and (tables.a_q is None or tuple(tables.a_q.shape) != tables.q_shape):
         raise ValueError(f"qgrid: val table is not {list(tables.q_shape)}")
     streams = [t for t in (tables.C, tables.a_q) if t is not None]
-    if not all(t.is_contiguous() and t.dtype == u.dtype for t in [u, *streams]):
-        raise ValueError("qgrid: u and the tables must be contiguous and of u's dtype")
+    if not (u.is_contiguous() and all(t.is_contiguous() and t.dtype == tables.coef_dtype for t in streams)):
+        raise ValueError(f"qgrid: u and the tables must be contiguous, the tables of {tables.coef_dtype}")
     return code
 
 
@@ -254,9 +302,12 @@ def _face_mask(shape, device) -> torch.Tensor:
 def qgrid_apply_reference(u: torch.Tensor, tables: QGridTables, constrained: bool = False) -> torch.Tensor:
     """The plain torch version of K3: the same function with dense per-axis
     node -> q matrices (block-diagonal over elements) and one ``tensordot``
-    per axis and term, summed in the TPU kernel's order."""
+    per axis and term, summed in the TPU kernel's order. Narrower streams
+    (bf16 planes) are widened to ``u``'s dtype first."""
     _check(u, tables)
     t = tables
+    C = None if t.C is None else t.C.to(u.dtype)
+    a_q = None if t.a_q is None else t.a_q.to(u.dtype)
     gk, vk = t.grad_kind, t.val_kind
     face = _face_mask(t.shape, u.device) if constrained else None
     uin = u.masked_fill(face, 0) if constrained else u
@@ -278,9 +329,8 @@ def qgrid_apply_reference(u: torch.Tensor, tables: QGridTables, constrained: boo
             cx, cy, cz = t.c_grad
             fx, fy, fz = cx * gx, cy * gy, cz * gz
         elif gk == 2:
-            fx, fy, fz = t.C[0] * gx, t.C[1] * gy, t.C[2] * gz
+            fx, fy, fz = C[0] * gx, C[1] * gy, C[2] * gz
         else:
-            C = t.C
             fx = C[0] * gx + C[1] * gy + C[2] * gz
             fy = C[1] * gx + C[3] * gy + C[4] * gz
             fz = C[2] * gx + C[4] * gy + C[5] * gz
@@ -289,7 +339,7 @@ def qgrid_apply_reference(u: torch.Tensor, tables: QGridTables, constrained: boo
         u14 = bwd(fx, 2, "DW")
     if vk:
         v = fwd(ay, 2, "S")
-        fv = t.c_val * v if vk == 1 else t.a_q * v
+        fv = t.c_val * v if vk == 1 else a_q * v
         uv = bwd(fv, 2, "SW")
         u14 = uv if u14 is None else u14 + uv
     sA = bwd(u14, 1, "SW")
@@ -303,14 +353,16 @@ def qgrid_apply_reference(u: torch.Tensor, tables: QGridTables, constrained: boo
 
 
 _ARGTYPES = (
-    [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_double] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4 + [ctypes.c_double] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
 )
 
 
-def _launcher():
+def _launcher(dtype: torch.dtype, coef_dtype: torch.dtype):
+    """The launcher of the library that holds this pair's instantiations."""
     from ..utils.cuda_build import load_library
 
-    fn = load_library(SOURCE).qgrid_apply_launch
+    source, name = _PAIRS[(dtype, coef_dtype)]
+    fn = getattr(load_library(source), name)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -341,7 +393,7 @@ def qgrid_apply(u: torch.Tensor, tables: QGridTables, constrained: bool = False,
         out = torch.empty_like(u)
     elif out.data_ptr() == u.data_ptr():
         raise ValueError("qgrid: out aliases u (other blocks read the nodes a block writes)")
-    launch = _launcher()
+    launch = _launcher(tables.dtype, tables.coef_dtype)
     mx, my, mz = tables.n_elements
     cx, cy, cz = tables.c_grad
 
@@ -350,7 +402,7 @@ def qgrid_apply(u: torch.Tensor, tables: QGridTables, constrained: bool = False,
 
     with torch.cuda.device(u.device):
         rc = launch(
-            code, tables.p, tables.q, tables.grad_kind, tables.val_kind, int(constrained),
+            code, _COEF_CODES[tables.coef_dtype], tables.p, tables.q, tables.grad_kind, tables.val_kind, int(constrained),
             u.data_ptr(), out.data_ptr(), ptr(tables.C), ptr(tables.a_q), cx, cy, cz, tables.c_val, mx, my, mz,
             torch.cuda.current_stream(u.device).cuda_stream, tables.S_host.ctypes.data, tables.D_host.ctypes.data,
             tables.w_host.ctypes.data,

@@ -10,13 +10,20 @@ mapped case of its ``scripts/bench_qgrid.py``:
 - BP3 (p = 5, Gauss q = 7, uniform 32^3 brick) on ``general`` (K4, grad
   ``const``).
 
+``--mesh graded`` takes the graded brick of the JAX ``bench_qgrid.py``
+"graded" case instead (element widths ``0.6 + U[0, 1)`` from seed 7, the
+same on every axis): ``diag3`` tables on K3. ``--coef-dtype bfloat16``
+stores K3's planes in bf16 (the JAX ``bench_qgrid.py`` ``coef_sd``, its
+"mapped_bf16" case): f32 vectors only, so the f32 lines alone run.
+
 Each line is the best of 3 chained runs of ``--applies`` (50) applies, fenced with ``torch.cuda.synchronize``, after ``fold_scale(1 /
 max(|A u|, 1))`` so that every step is one pure apply; throughput = DoFs x
 applies / wall time. ``--split`` adds one ``general`` apply's split into
 gather, K4 and scatter (CUDA events). Run:
 ``python -m deal_and_ceed_on_gpu_torch.scripts.bench_general [--elements 52]
-[--bp3-elements 32] [--applies 50] [--split] [--device cpu]`` (the CPU runs
-the plain versions: a check of the script, not a measurement).
+[--bp3-elements 32] [--applies 50] [--split] [--mesh mapped|graded]
+[--coef-dtype bfloat16] [--device cpu]`` (the CPU runs the plain versions:
+a check of the script, not a measurement).
 """
 
 from __future__ import annotations
@@ -34,10 +41,24 @@ from ..models import PoissonOperator
 from ..ops import local_global as lg
 from ..utils.logging import rank0_print as pcout
 
-__all__ = ["apply_split_ms", "measure", "run"]
+__all__ = ["apply_split_ms", "bench_mesh", "measure", "run"]
 
 BACKENDS = ("structured", "general", "qgrid")
+MESHES = ("mapped", "graded")
 REPETITIONS = 3
+
+
+def bench_mesh(kind: str, n_elements: int) -> BrickMesh:
+    """The benchmark's brick of ``n_elements`` a side: ``mapped``
+    (``sine_map(0.05)``, full6 tables) or ``graded`` (the JAX
+    ``bench_qgrid.py`` widths ``0.6 + U[0, 1)`` from seed 7 on every axis,
+    diag3 tables)."""
+    if kind == "mapped":
+        return BrickMesh((n_elements,) * 3).deform(*sine_map(0.05))
+    if kind == "graded":
+        edges = np.cumsum(np.concatenate([[0.0], 0.6 + np.random.default_rng(7).random(n_elements)]))
+        return BrickMesh.graded(edges, edges, edges)
+    raise ValueError(f"mesh {kind!r}: expected one of {MESHES}")
 
 
 def _sync(device):
@@ -94,24 +115,30 @@ def apply_split_ms(op, n: int = 20) -> dict:
 
 
 def run(n_elements: int = 52, dtypes=("float64", "float32"), backends=BACKENDS, bp3_elements: int = 32,
-        n_applies: int = 50, split: bool = False, device="cuda") -> dict:
-    """The mapped vmult lines, then BP3 on ``general``; returns
-    ``{(case, dtype): DoF/s}`` (and ``{("split", dtype): {...}}``)."""
+        n_applies: int = 50, split: bool = False, device="cuda", mesh: str = "mapped",
+        coef_dtype: str | None = None) -> dict:
+    """The ``mesh`` vmult lines, then BP3 on ``general``; returns
+    ``{(case, dtype): DoF/s}`` (and ``{("split", dtype): {...}}``).
+    ``coef_dtype`` ("bfloat16") stores the ``qgrid`` backend's planes at
+    that dtype (f32 vectors only; its case is ``"<mesh> p3 qgrid
+    bfloat16"``)."""
     dev = resolve_device(str(device))
     pcout(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu (plain versions)'}")
     out = {}
-    mesh = BrickMesh((n_elements,) * 3).deform(*sine_map(0.05))
+    brick = bench_mesh(mesh, n_elements)
     for dtype in dtypes:
-        space = FESpace.create(mesh, 3, n_q=4, rule="gauss", dtype=DTYPES[dtype], device=dev)
+        space = FESpace.create(brick, 3, n_q=4, rule="gauss", dtype=DTYPES[dtype], device=dev)
         for backend in backends:
-            op = PoissonOperator(space, backend=backend)
+            narrow = coef_dtype is not None and backend == "qgrid"
+            op = PoissonOperator(space, backend=backend, **({"coef_dtype": DTYPES[coef_dtype]} if narrow else {}))
             tp = measure(op, n_applies)
-            out[(f"mapped p3 {backend}", dtype)] = tp
-            pcout(f"mapped p3 q4 {n_elements}^3 {backend:10s} {dtype}: {tp / 1e9:.4f} GDoF/s ({space.n_dofs} DoFs)")
+            name = f"{backend} {coef_dtype}" if narrow else backend
+            out[(f"{mesh} p3 {name}", dtype)] = tp
+            pcout(f"{mesh} p3 q4 {n_elements}^3 {name:10s} {dtype}: {tp / 1e9:.4f} GDoF/s ({space.n_dofs} DoFs)")
             if split and backend == "general" and dev.type == "cuda":
                 parts = apply_split_ms(op)
                 out[("split", dtype)] = parts
-                pcout("mapped p3 general apply split, ms: "
+                pcout(f"{mesh} p3 general apply split, ms: "
                       + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
             del op
         if bp3_elements:
@@ -129,10 +156,15 @@ def main(argv=None):
     ap.add_argument("--bp3-elements", type=int, default=32, help="elements per axis of the BP3 cube (0: skip)")
     ap.add_argument("--applies", type=int, default=50)
     ap.add_argument("--split", action="store_true", help="time gather, K4 and scatter of one general apply")
+    ap.add_argument("--mesh", default="mapped", choices=MESHES,
+                    help="mapped: sine_map(0.05), full6 tables; graded: random widths, diag3 tables")
+    ap.add_argument("--coef-dtype", default=None, choices=["bfloat16"],
+                    help="store K3's coefficient planes (the qgrid backend) at this dtype; f32 lines only")
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    return run(args.elements, bp3_elements=args.bp3_elements, n_applies=args.applies, split=args.split,
-               device=args.device)
+    dtypes = ("float32",) if args.coef_dtype else ("float64", "float32")
+    return run(args.elements, dtypes, bp3_elements=args.bp3_elements, n_applies=args.applies, split=args.split,
+               device=args.device, mesh=args.mesh, coef_dtype=args.coef_dtype)
 
 
 if __name__ == "__main__":

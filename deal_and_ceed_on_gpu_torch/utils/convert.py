@@ -9,7 +9,8 @@ multiple of 128, taps on the leading axis); the port's K1 takes unpadded
 tables of a JAX ``QGridLayout`` (``C [K, ZQ, YQ, MXQ]``, ``a_q [ZQ, YQ,
 MXQ]``) put element ``e``'s q points at ``e*q`` on every axis and pad the
 tail (z and y to whole blocks, x to 128 lanes); the port's K3 takes the
-same tables without the padding. The Helmholtz value table of a JAX stencil
+same tables without the padding, stored at the layout's
+``coef_stream_dtype``. The Helmholtz value table of a JAX stencil
 operator (``_a``, from ``StencilLayout.pad_node_field``) starts at the
 origin of an output-tile-aligned box; the fused CG state of the JAX
 ``CGFusedStep`` is ``[4, zt, yt, nxp]`` in the vector layout's padded
@@ -72,7 +73,11 @@ def cg_state_from_jax(s, p, real_shape) -> np.ndarray:
 def qgrid_tables_from_jax(layout) -> dict:
     """The port's K3 tables (``ops.qgrid.qgrid_tables_np`` keys, float64)
     from a JAX ``QGridLayout``: its streamed tables, read as numpy arrays
-    and cut to the real q grid, its const scalars and its basis."""
+    and cut to the real q grid, its const scalars and its basis, and the
+    storage dtype of its streams (``coef_dtype``: None when they are stored
+    at the vectors' dtype, else its name, "bfloat16" for
+    ``coef_stream_dtype=bfloat16``; the float64 copies hold the bf16 values
+    exactly, so ``QGridTables.from_numpy`` stores the same bits)."""
     mx, my, mz = layout.mesh.n_elements
     q = layout.q
     real = (slice(0, mz * q), slice(0, my * q), slice(0, mx * q))
@@ -88,6 +93,7 @@ def qgrid_tables_from_jax(layout) -> dict:
         "c_grad": tuple(layout.c_grad) if layout.c_grad is not None else (0.0, 0.0, 0.0),
         "c_val": float(layout.c_val) if layout.c_val is not None else 0.0,
         "C": cut(layout.C, (slice(None),)), "a_q": cut(layout.a_q),
+        "coef_dtype": None if layout.coef_dtype == layout.dtype else layout.coef_dtype.name,
     }
 
 

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "load_library", "source_digest"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "compile_library", "load_library", "source_digest"]
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -54,26 +54,34 @@ def source_digest(source: Path) -> str:
     ).hexdigest()[:16]
 
 
-def build_library(source: Path) -> Path:
-    """Compile ``source`` (if not built yet) and return the library path.
-    The ``nvcc`` output, ``-Xptxas -v`` included, is kept beside it as
-    ``<library>.log``."""
+def compile_library(compiler: list, source: Path, digest: str, build_dir: Path, timeout=None) -> Path:
+    """``<build_dir>/<source stem>-<digest>.so``, compiled by ``compiler +
+    ["-o", <library>, source]`` if it does not exist yet; the compiler's
+    output is kept beside it as ``<library>.log``. Raises ``RuntimeError``
+    if the compiler fails."""
     source = Path(source)
-    lib = BUILD_DIR / f"{source.stem}-{source_digest(source)}.so"
+    lib = Path(build_dir) / f"{source.stem}-{digest}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [*compiler, "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {source.name}:\n{proc.stdout}{proc.stderr}"
+            f"{Path(compiler[0]).name} failed ({proc.returncode}) on {source.name}:\n{proc.stdout}{proc.stderr}"
         )
     lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees no partial file
     return lib
+
+
+def build_library(source: Path) -> Path:
+    """Compile ``source`` (if not built yet) and return the library path.
+    The ``nvcc`` output, ``-Xptxas -v`` included, is kept beside it as
+    ``<library>.log``."""
+    return compile_library([_nvcc(), *NVCC_FLAGS], source, source_digest(source), BUILD_DIR)
 
 
 @functools.cache

@@ -99,26 +99,29 @@ def test_amr_loop_history_matches_jax(precond):
         ta.amr_loop(pt.BrickMesh((2, 2, 2)), 2, precond="jacobi", device="cpu")
 
 
-def test_driver_cli_on_cpu_matches_the_golden(capsys):
+def test_driver_cli_on_cpu_matches_the_golden(capsys, tmp_path):
     """``python -m deal_and_ceed_on_gpu_torch.drivers.amr --precond none
     --device cpu`` at its defaults prints the history table of
-    chip_smoke.AMR_GOLDEN (the JAX driver's values); --write-solution names
-    slice H; --device cuda without a card raises."""
+    chip_smoke.AMR_GOLDEN (the JAX driver's values); --write-solution writes
+    the last step's solution as a .vtu of its cells and DoFs."""
     import importlib.util
     from pathlib import Path
 
     spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    amr_t.main(["--precond", "none", "--device", "cpu"])
+    vtu = tmp_path / "out.vtu"
+    amr_t.main(["--precond", "none", "--device", "cpu", "--write-solution", str(vtu)])
     rows = re.findall(r"^\s+(\d+)\s+(\d+)\s+(\d+)\s+(\d+)\s+(\S+)$", capsys.readouterr().out, re.M)
     golden = chip_smoke.AMR_GOLDEN["none"]
     assert len(rows) == len(golden)
     for (_, cells, dofs, its, eta), (g_cells, g_dofs, g_its, g_eta) in zip(rows, golden):
         assert (int(cells), int(dofs)) == (g_cells, g_dofs) and abs(int(its) - g_its) <= 1
         assert abs(float(eta) - g_eta) <= 1e-4 * g_eta  # the table prints 5 digits
-    with pytest.raises(NotImplementedError, match="slice H"):
-        amr_t.main(["--device", "cpu", "--write-solution", "out.vtu"])
+    data = vtu.read_bytes()
+    g_cells, g_dofs = golden[-1][:2]
+    assert b'type="UnstructuredGrid"' in data
+    assert f'NumberOfPoints="{g_dofs}" NumberOfCells="{g_cells * 2**3}"'.encode() in data  # Q2: 2^3 sub-hexes
 
 
 def test_driver_cuda_raises_without_a_card(monkeypatch):

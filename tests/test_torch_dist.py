@@ -9,8 +9,9 @@ cell-loop backends, K4's ``general``, the overlapped ``separable``; the K1
 stencil with the overlapped exchange on and off (shared planes bitwise
 equal on both sharers); bf16-stored vectors inside iterative refinement to a
 true f64 residual of 1e-10; K2 (``dist_banded``), also with bf16 vectors;
-the bp5 driver's ``run_cycle_distributed`` and its lambda estimate on the
-distributed stencil. Tolerances: applies 1e-12 (f64), iterations +-1,
+the bp5 driver's ``run_cycle_distributed`` (with ``--write-solution``: one
+.vtr piece a rank and a .pvtr master, byte-identical to the JAX writer's)
+and its lambda estimate on the distributed stencil. Tolerances: applies 1e-12 (f64), iterations +-1,
 solutions 1e-10."""
 
 import numpy as np
@@ -102,7 +103,8 @@ def _run_case(rank, ranks, shards, n_el, spec, group):
         part = BlockPartition(pt.BrickMesh.bp5_cycle(spec["cycle"]), 5, *shards)
         comm = ShardComm(part, "cpu", group)
         cfg = BP5Config(dtype="float64", n_iterations=DRIVER_ITERATIONS, n_repetitions=1, device="cpu")
-        return run_cycle_distributed(spec["cycle"], shards[0], shards[1], cfg, shards[2], comm=comm)
+        return run_cycle_distributed(spec["cycle"], shards[0], shards[1], cfg, shards[2], comm=comm,
+                                     write_solution=spec.get("write_solution"))
     mesh = pt.BrickMesh(n_el)
     part = BlockPartition(mesh, P, *shards)
     comm = ShardComm(part, "cpu", group)
@@ -180,11 +182,20 @@ def _rank_main(rank, cases):
 
 
 @pytest.fixture(scope="module")
-def ranks():
+def pvtr_dir(tmp_path_factory):
+    """Where the driver case writes its solution (``--write-solution``)."""
+    return tmp_path_factory.mktemp("pvtr")
+
+
+@pytest.fixture(scope="module")
+def ranks(pvtr_dir):
     """What rank 0 of each case returned (its gathers hold every block)."""
     from deal_and_ceed_on_gpu_torch.parallel import spawn
 
-    return spawn(_rank_main, N_RANKS, args=(CASES,), backend="gloo", device="cpu", timeout=SPAWN_TIMEOUT)[0]
+    cases = dict(CASES)
+    n, shards, n_el, spec = cases["driver_2x2"]
+    cases["driver_2x2"] = (n, shards, n_el, dict(spec, write_solution=str(pvtr_dir / "bp5.pvtr")))
+    return spawn(_rank_main, N_RANKS, args=(cases,), backend="gloo", device="cpu", timeout=SPAWN_TIMEOUT)[0]
 
 
 # ----------------------------- JAX references ----------------------------- #
@@ -342,6 +353,43 @@ def test_driver_run_cycle_distributed_equals_single_device(ranks):
         assert got["n_iterations"][mode] == want["n_iterations"][mode]
     assert all(got["finite"].values()) and got["coherent"]
     np.testing.assert_allclose(got["l2_norm"], want["l2_norm"], rtol=1e-10)
+
+
+def test_driver_writes_the_pcg_merged_solution_as_pvtr(ranks, pvtr_dir, tmp_path):
+    """``run_cycle_distributed(write_solution=...)``: rank 0 writes the
+    pcg-merged solution as one .vtr piece a live rank plus the .pvtr master;
+    the pieces hold the global solution (its L2 norm the driver's), and the
+    files are the JAX writer's for the same blocks."""
+    import re
+    import struct
+
+    from deal_and_ceed_on_gpu_torch.models import l2_norm_function
+    from deal_and_ceed_on_gpu_tpu import BrickMesh as JMesh
+    from deal_and_ceed_on_gpu_tpu.parallel import BlockPartition as JPartition
+    from deal_and_ceed_on_gpu_tpu.utils.vtk import write_solution_pvtr
+
+    _, shards, _, spec = CASES["driver_2x2"]
+    mesh = pt.BrickMesh.bp5_cycle(spec["cycle"])
+    part = BlockPartition(mesh, 5, *shards)
+    master = pvtr_dir / "bp5.pvtr"
+    pieces = re.findall(r'<Piece Extent="([^"]+)" Source="([^"]+)"/>', master.read_text())
+    # mz = 1 on pz = 2: the upper blocks hold the top plane alone
+    assert [src for _, src in pieces] == [f"bp5_{k}.vtr" for k in range(part.n_shards)]
+    g = np.full(part.global_grid_shape, np.nan)
+    for ext, src in pieces:
+        x0, x1, y0, y1, z0, z1 = (int(v) for v in ext.split())
+        body = (pvtr_dir / src).read_bytes().split(b'<AppendedData encoding="raw">\n_', 1)[1]
+        (n,) = struct.unpack("<Q", body[:8])
+        g[z0:z1 + 1, y0:y1 + 1, x0:x1 + 1] = np.frombuffer(body[8:8 + n]).reshape(z1 - z0 + 1, y1 - y0 + 1, -1)
+    assert np.isfinite(g).all()
+    got = ranks["driver_2x2"][0] if isinstance(ranks["driver_2x2"], list) else ranks["driver_2x2"]
+    space = pt.FESpace.create(mesh, 5, dtype=torch.float64, device="cpu")
+    np.testing.assert_allclose(float(l2_norm_function(space, torch.as_tensor(g.reshape(-1)))), got["l2_norm"],
+                               rtol=1e-14)
+    jpart = JPartition(JMesh.bp5_cycle(spec["cycle"]), 5, pz=shards[0], py=shards[1], px=shards[2])
+    write_solution_pvtr(str(tmp_path / "bp5.pvtr"), jpart, jpart.to_blocks(g))
+    for name in ["bp5.pvtr"] + [src for _, src in pieces]:
+        assert (pvtr_dir / name).read_bytes() == (tmp_path / name).read_bytes(), name
 
 
 def test_dist_banded_bf16_vectors_apply_as_on_one_device(ranks):
