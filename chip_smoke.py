@@ -9,9 +9,10 @@ anything does not build, launch, agree or converge. Phases:
 0. the card: torch/CUDA versions and ``nvidia-smi`` name and power limit;
 1. build K1 (``csrc/stencil.cu``), K2 (``csrc/banded.cu``), K3
    (``csrc/qgrid.cu``, and ``csrc/qgrid_bf16.cu`` with bf16 coefficient
-   planes), K4 (``csrc/general.cu``), K5 (``csrc/cg.cu``) and K6
-   (``csrc/copy.cu``), one ``nvcc`` each, started together; print the build
-   times and ptxas usage;
+   planes), K4 (``csrc/general.cu``), K5 (``csrc/cg.cu``), K6
+   (``csrc/copy.cu``) and K7 / K8, the merged CG's update and seven-dot
+   passes (``csrc/cg_merged.cu``), one ``nvcc`` each, started together;
+   print the build times and ptxas usage;
 2. K1 (``csrc/stencil.cu`` on ``csrc/stencil_tile.cuh``) against its plain
    torch twin: the ptxas registers of each of its 144 instantiations, the
    shard mode's 48 among them (fails
@@ -24,8 +25,8 @@ anything does not build, launch, agree or converge. Phases:
    ``torch.matmul(U, A_loc)``;
 3. the main path: ``drivers/bp5.run_cycle`` at cycle 33 (12,468,001 DoFs,
    p = 5) with the stencil backend, pcg-standard + pcg-merged + vmult, in
-   f64, f32 and f32 with bf16 vectors; K1 must have launched, no result
-   may hold a NaN, and one f64 apply must match the separable backend;
+   f64, f32 and f32 with bf16 vectors; K1, K7 and K8 must have launched, no
+   result may hold a NaN, and one f64 apply must match the separable backend;
 4. f64 at cycle 10 against golden values of the JAX reference: the
    driver's tolerance solve (iterations +-1) and a solve converged to
    1e-12 (L2 norm to 1e-10);
@@ -251,7 +252,22 @@ anything does not build, launch, agree or converge. Phases:
     processes, with the allocator tuning and opted out;
 51. bp5's ``--backend auto``: its resolution at every cycle 7..40 against
     ``AUTO_THRESHOLDS`` (the H100 sweep's) and for a Gauss rule, then one
-    f64 run at cycle 10 against the cycle-10 goldens.
+    f64 run at cycle 10 against the cycle-10 goldens;
+52. K7 and K8 (``csrc/cg_merged.cu``): the ptxas registers of their 28 + 14
+    instantiations and the finisher's 2 (fails if one is missing, spills or
+    keeps a stack frame); K7 bitwise against ``merged_update_plain`` in every
+    mode and K8 + finisher against the plain dots and scalars to K5's
+    tolerances from a NaN-filled summary, with the identity or a diagonal,
+    no dot weight, a ``[nz, ny, 1]`` one (broadcast, as the solver does) or a
+    full one, f64 / f32 / bf16 and the mixed bf16 / f32 pair, at lengths 1,
+    31, 4097 and 1,000,003, a ``[3, n]`` vector, a block and views one
+    element off a 16-byte boundary (alike and unlike); then both at cycle 33
+    against their plain versions and timed by ``scripts/exp_solver_budget``
+    (lines (j) and (k)) beside the plain versions, the bound and, for K8,
+    ``torch.mm(V, V.T)``.
+
+The merged CG (``solve_cg_merged``) runs K7 and K8 wherever it runs: phases
+3, 8, 21, 29-30, 35 and 40 also fail if they were never launched there.
 
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -361,7 +377,7 @@ def phase0_device():
 
 
 def phase1_build():
-    from deal_and_ceed_on_gpu_torch.ops import banded, cg, copy, general, qgrid, stencil
+    from deal_and_ceed_on_gpu_torch.ops import banded, cg, cg_merged, copy, general, qgrid, stencil
     from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
 
     def timed(source):
@@ -369,7 +385,7 @@ def phase1_build():
         return build_library(source), time.perf_counter() - t0
 
     sources = {"K1": stencil.SOURCE, "K2": banded.SOURCE, "K3": qgrid.SOURCE, "K3 bf16": qgrid.SOURCE_BF16,
-               "K4": general.SOURCE, "K5": cg.SOURCE, "K6": copy.SOURCE}
+               "K4": general.SOURCE, "K5": cg.SOURCE, "K6": copy.SOURCE, "K7/K8": cg_merged.SOURCE}
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(timed, sources.values()))
     for name, (lib, seconds) in zip(sources, builds):
@@ -540,6 +556,23 @@ def phase2_kernel_vs_twin():
     return _k1_main("phase 2", "bp5")
 
 
+def _reset_merged():
+    from deal_and_ceed_on_gpu_torch.ops import cg_merged
+
+    cg_merged.UPDATE_LAUNCHES = cg_merged.DOTS_LAUNCHES = cg_merged.FINISH_LAUNCHES = 0
+
+
+def _merged_launches(tag):
+    """K7's and K8's launches since ``_reset_merged``; fails if either is 0."""
+    from deal_and_ceed_on_gpu_torch.ops import cg_merged
+
+    k7, k8 = cg_merged.UPDATE_LAUNCHES, cg_merged.DOTS_LAUNCHES
+    print(f"{tag}: K7 launches {k7}, K8 launches {k8} (finisher {cg_merged.FINISH_LAUNCHES})")
+    if k7 == 0 or k8 == 0:
+        raise AssertionError(f"{tag}: the merged CG never launched K7 and K8")
+    return k7, k8
+
+
 def phase3_main_path():
     import torch
 
@@ -547,10 +580,11 @@ def phase3_main_path():
     from deal_and_ceed_on_gpu_torch.drivers.bp5 import run_cycle
     from deal_and_ceed_on_gpu_torch.ops import stencil
 
-    launches, results = {}, {}
+    launches, results, merged = {}, {}, {}
     for label, dtype, stream in PRECISIONS:
         print(f"phase 3: main path, cycle {MAIN_CYCLE}, stencil backend, {label}")
         stencil.LAUNCHES = 0
+        _reset_merged()
         r = run_cycle(
             MAIN_CYCLE, backend="stencil", device=DEVICE, dtype=dtype, stream_dtype=stream,
             modes=("pcg-standard", "pcg-merged", "vmult"),
@@ -558,6 +592,7 @@ def phase3_main_path():
         )
         launches[label] = stencil.LAUNCHES
         results[label] = r
+        merged[label] = _merged_launches(f"phase 3: {label}")
         if launches[label] == 0:
             raise AssertionError(f"main path ({label}) never launched K1")
         if not all(r["finite"].values()) or not math.isfinite(r["l2_norm"]):
@@ -573,7 +608,7 @@ def phase3_main_path():
     print(f"phase 3: f64 apply, stencil vs separable: rel err {rel:.3e}")
     if not rel <= 1e-12:
         raise AssertionError(f"f64 stencil apply disagrees with separable: {rel:.3e}")
-    return launches, results
+    return launches, results, merged
 
 
 def _k1_bound_ms(n, p, label):
@@ -838,10 +873,13 @@ def phase8_main_path():
     """step-64 at full width on K3; returns K3's launches per precision."""
     launches = {"f64": 0}
     for merged in (False, True):
+        _reset_merged()
         r, n = _step64(STEP64_MAIN, use_merged=merged)
         launches["f64"] += n
         _check_golden(f"phase 8: K3 f64 {'merged' if merged else 'plain'} CG", r, STEP64_MAIN, 2)
         print(f"phase 8: K3 launches {n}, time to solution {r['seconds']:.4f} s")
+        if merged:
+            _merged_launches("phase 8: merged CG")
     # f32 to the reduction f32 can reach
     r, launches["f32"] = _step64(STEP64_MAIN, dtype="float32", rtol=1e-6)
     l2_g = STEP64_GOLDEN[STEP64_MAIN][2]
@@ -1457,6 +1495,7 @@ def phase21_main_path():
     best = {}
     for label, dtype, stream in PRECISIONS:
         banded.LAUNCHES, stencil.NC_LAUNCHES = 0, 0
+        _reset_merged()
         bps = ("bp1", "bp2", "bp3", "bp4", "bp5", "bp6") if stream is None else ("bp3", "bp6")
         modes = ("pcg-merged", "vmult") if stream is None else ("pcg-merged",)
         for bp in bps:
@@ -1469,6 +1508,7 @@ def phase21_main_path():
                 best[(bp, label, mode)] = r[mode]
         k2[label], k1nc[label] = banded.LAUNCHES, stencil.NC_LAUNCHES
         print(f"phase 21: {label}: K2 launches {k2[label]}, K1 launches with 3 components {k1nc[label]}")
+        _merged_launches(f"phase 21: {label}, {', '.join(bps)} pcg-merged")
         if k2[label] == 0 or k1nc[label] == 0:
             raise AssertionError(f"phase 21: the {label} main path never launched K2 or K1 with 3 components")
     # BP3 beside the plain separable comparator, in turns
@@ -2032,8 +2072,10 @@ def phase29_uniform_rows():
     from deal_and_ceed_on_gpu_torch.scripts.bench_solvers_r3 import ROWS, run_uniform
 
     stencil.LAUNCHES = 0
+    _reset_merged()
     r = run_uniform(R3_UNIFORM_CYCLE, "stencil", DEVICE, ROWS)
     launches = stencil.LAUNCHES
+    _merged_launches("phase 29: the Jacobi and IR rows")
     print(f"phase 29: uniform cycle {R3_UNIFORM_CYCLE} ({r['space'].n_dofs} DoFs, p = {DEGREE}) on K1, f64: K1 "
           f"launches {launches}")
     if r["space"].n_dofs != 1_056_321 or launches == 0:
@@ -2049,8 +2091,10 @@ def phase30_mapped_rows():
     from deal_and_ceed_on_gpu_torch.scripts.bench_solvers_r3 import run_case
 
     general.LAUNCHES = 0
+    _reset_merged()
     r = run_case(R3_MAPPED, "general", "gauss_lobatto", DEVICE, rows=tuple(R3_GOLDEN["mapped"]))
     launches = general.LAUNCHES
+    _merged_launches("phase 30: the Jacobi and IR rows")
     print(f"phase 30: sine-mapped {R3_MAPPED}^3 ({r['space'].n_dofs} DoFs, p = 3) on K4, f64: K4 launches {launches}")
     if r["space"].n_dofs != 912_673 or launches == 0:
         raise AssertionError("phase 30: wrong size or K4 never launched")
@@ -2218,9 +2262,12 @@ def phase35_adaptive_golden():
             raise AssertionError(f"phase 35: ball rounds {rounds} missed the JAX golden or never launched K4")
     for precond in AMR_GOLDEN:
         general.LAUNCHES = 0
+        _reset_merged()
         hist = amr.run(precond=precond, device=DEVICE)
         if general.LAUNCHES == 0:
             raise AssertionError(f"phase 35: drivers.amr --precond {precond} never launched K4")
+        if precond == "none":  # the adaptive merged CG
+            _merged_launches("phase 35: drivers.amr --precond none")
         _check_amr("phase 35: drivers.amr", precond, hist)
 
 
@@ -2584,16 +2631,18 @@ def _dryrun_spec(name):
 
 def _counts():
     """The distributed kernels' launch counters of this process."""
-    from deal_and_ceed_on_gpu_torch.ops import banded, general, stencil
+    from deal_and_ceed_on_gpu_torch.ops import banded, cg_merged, general, stencil
 
     return {"k1_shard": stencil.SHARD_LAUNCHES, "k1_plane": stencil.PLANE_LAUNCHES,
-            "k2_shard": banded.SHARD_LAUNCHES, "k4": general.LAUNCHES}
+            "k2_shard": banded.SHARD_LAUNCHES, "k4": general.LAUNCHES, "k7": cg_merged.UPDATE_LAUNCHES,
+            "k8": cg_merged.DOTS_LAUNCHES}
 
 
 def _reset_counts():
     from deal_and_ceed_on_gpu_torch.ops import banded, general, stencil
 
     stencil.SHARD_LAUNCHES = stencil.PLANE_LAUNCHES = banded.SHARD_LAUNCHES = general.LAUNCHES = 0
+    _reset_merged()
 
 
 def _dryrun_rank(rank, device):
@@ -2863,16 +2912,18 @@ def phase40_main_path(single):
         its = {m: {r[label]["n_iterations"][m] for r in per_rank} for m in ("pcg-standard", "pcg-merged")}
         k1 = [r[label]["counts"]["k1_shard"] for r in per_rank]
         plane = [r[label]["counts"]["k1_plane"] for r in per_rank]
+        k7, k8 = ([r[label]["counts"][k] for r in per_rank] for k in ("k7", "k8"))
         rel = abs(r0["l2_norm"] - want["l2_norm"]) / want["l2_norm"]
         # bf16 vectors: the shared planes' sums are rounded once, as the
         # single kernel's are, but at other points of the summation
         tol = {"f64": 1e-10, "f32": 5e-5, "bf16": 5e-3}[label]
         print(f"phase 40: {label}: iterations {its} (single-device {want['n_iterations']}), L2 norm "
               f"{r0['l2_norm']:.12g} (single-device {want['l2_norm']:.12g}, rel {rel:.2e}), shared planes bitwise "
-              f"{all(r[label]['coherent'] for r in per_rank)}, K1 launches per rank {k1}, plane partials {plane}")
+              f"{all(r[label]['coherent'] for r in per_rank)}, K1 launches per rank {k1}, plane partials {plane}, "
+              f"K7 {k7}, K8 {k8}")
         ok = (all(its[m] == {want["n_iterations"][m]} for m in its) and rel <= tol
               and all(r[label]["coherent"] and all(r[label]["finite"].values()) for r in per_rank)
-              and all(k1) and all(plane))
+              and all(k1) and all(plane) and all(k7) and all(k8))
         after = per_rank[0][label, "after"]
         its_after = {r[label, "after"]["n_iterations"]["pcg-merged"] for r in per_rank}
         rel_after = abs(after["l2_norm"] - want["l2_norm"]) / want["l2_norm"]
@@ -3902,13 +3953,179 @@ def phase51_auto():
         raise AssertionError("phase 51: the auto run missed the cycle-10 goldens")
 
 
+# K7 and K8 (csrc/cg_merged.cu): update_kernel<T, X, C, DIAG, MODE> for three
+# pairs x the diagonal or the identity x 4 modes, and the mixed pair with a
+# diagonal; dots_kernel<T, X, C, DIAG, W> likewise x a dot weight or not;
+# finish_kernel<C> for f64 and f32 sums
+K7_PATTERN = r"update_kernelI(ddd|fff|13__nv_bfloat16S1_f|13__nv_bfloat16ff)Lb([01])ELi(\d)E"
+K8_PATTERN = r"dots_kernelI(ddd|fff|13__nv_bfloat16S1_f|13__nv_bfloat16ff)Lb([01])ELb([01])E"
+K78_FINISH_PATTERN = r"finish_kernelI([df])E"
+K7_INSTANTIATIONS, K8_INSTANTIATIONS = 3 * 2 * 4 + 4, 3 * 2 * 2 + 2
+K78_PAIRS = {"ddd": "f64", "fff": "f32", "13__nv_bfloat16S1_f": "bf16", "13__nv_bfloat16ff": "mixed"}
+# (g and h, x d and diag, dots) of each pair
+K78_TYPES = {
+    "f64": ("float64", "float64", "float64"),
+    "f32": ("float32", "float32", "float32"),
+    "bf16": ("bfloat16", "bfloat16", "float32"),
+    "mixed": ("bfloat16", "float32", "float32"),
+}
+# lengths around K7's and K8's packs and blocks, a [3, n] vector and a block
+# [nz, ny, nx] (the distributed dot weight's shape)
+K78_SHAPES = ((1,), (31,), (4097,), (1_000_003,), (3, 4097), (9, 11, 13))
+K78_MODES = ("init", "plain", "two-step", "odd-stop", "no-x")
+
+
+def _k78_vectors(kind, shape, diag, seed):
+    """x, g, d, h and the diagonal (or None) of one pair on the card."""
+    import numpy as np
+    import torch
+
+    tg, tx, _ = (getattr(torch, t) for t in K78_TYPES[kind])
+    rng = np.random.default_rng(seed)
+
+    def vec(t, base=0.0):
+        return torch.as_tensor(base + rng.standard_normal(shape), device=DEVICE).to(t)
+
+    return vec(tx), vec(tg), vec(tx), vec(tg), (vec(tx, 2.0).abs() + 0.5 if diag else None)
+
+
+def _k8_check(d, g, h, m, w, dd, label):
+    """K8 + finisher from a NaN-filled summary against the plain dots and
+    scalars: the sums to K5's dot tolerance of |u| |v|, the scalars to 1e3
+    times it (relative); returns the max abs error of the sums."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.cg_merged import merged_dots, merged_dots_plain, merged_scalars_plain
+
+    got = merged_dots(d, g, h, m, w, dd, out=torch.full((11,), float("nan"), dtype=dd, device=DEVICE))
+    s = merged_dots_plain(d, g, h, m, w, dd)
+    want = torch.stack([*s, *merged_scalars_plain(s)])
+    torch.cuda.synchronize()
+    tol = K5_DOT_TOL["f64" if dd == torch.float64 else "f32"]
+    nd, ng, nh = (float(torch.linalg.vector_norm(v.to(dd))) for v in (d, g, h))
+    nm = 1.0 if m is None else float(m.abs().max())
+    scale = [nd * nh, nh * nh, ng * nh, ng * ng, nm * ng * nh, nm * nh * nh, nm * ng * ng]
+    err = [abs(float(a) - float(b)) for a, b in zip(got, want)]
+    ok = bool(torch.isfinite(got).all()) and all(e <= tol * max(sc, 1e-300) for e, sc in zip(err, scale))
+    ok = ok and all(e <= 1e3 * tol * max(abs(float(b)), 1e-300) for e, b in zip(err[7:], want[7:]))
+    if not ok:
+        raise AssertionError(f"K8 disagrees with its plain version ({label}): got {got.tolist()}, want "
+                             f"{want.tolist()}")
+    return max(err[:7])
+
+
+def _k7_check(x, g, d, h, m, scal, prev, mode, label):
+    """K7 on x, g and d in place against merged_update_plain on copies of
+    them, bitwise; returns the max abs difference (0)."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.cg_merged import merged_update, merged_update_plain
+
+    got, want = (x, g, d), [v.clone() for v in (x, g, d)]
+    merged_update(*got, h, m, scal, prev, mode)
+    merged_update_plain(*want, h, m, scal, prev, mode)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"K7 ({mode}) differs from its plain version ({label})")
+    return max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+
+
+def _k78_sweep():
+    """K7 in every mode bitwise and K8 to K5's tolerances on every pair, the
+    identity or a diagonal, each weight, every shape of K78_SHAPES and views
+    off a 16-byte boundary; returns the case count."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.cg_merged import merged_dots
+
+    n = 0
+    for kind, (_, _, dd) in K78_TYPES.items():
+        dd = getattr(torch, dd)
+        for diag in ((True,) if kind == "mixed" else (False, True)):
+            for k, shape in enumerate(K78_SHAPES):
+                x, g, d, h, m = _k78_vectors(kind, shape, diag, seed=k)
+                weights = [None, torch.ones(shape, dtype=dd, device=DEVICE)]
+                weights[1].reshape(-1)[::3] = 0  # a full weight with zeros
+                if len(shape) == 3:  # the distributed [nz, ny, 1] weight, broadcast once a solve
+                    row = torch.ones((*shape[:2], 1), dtype=dd, device=DEVICE)
+                    row[-1] = 0
+                    row[:, -1] = 0
+                    weights.append(torch.broadcast_to(row, shape).contiguous())
+                for w in weights:
+                    _k8_check(d, g, h, m, w, dd, f"{kind} {shape} diag={diag} weight={w is not None}")
+                    n += 1
+                scal, prev = merged_dots(d, g, h, m, None, dd), merged_dots(d, g, 2 * h, m, None, dd)
+                for mode in K78_MODES:
+                    _k7_check(x.clone(), g.clone(), d.clone(), h, m, scal, prev, mode, f"{kind} {shape} diag={diag}")
+                    n += 1
+            # views one element off a 16-byte boundary: alike (packs after a
+            # scalar head) and unlike (the scalar path)
+            x, g, d, h, m = _k78_vectors(kind, (4099,), diag, seed=99)
+            for off in ((1, 1, 1, 1, 1), (1, 0, 1, 0, 2)):
+                v = [t if t is None else t[o : o + 4097] for t, o in zip((x, g, d, h, m), off)]
+                _k8_check(v[2], v[1], v[3], v[4], None, dd, f"{kind} views at {off}")
+                scal = merged_dots(v[2], v[1], v[3], v[4], None, dd)
+                for mode in K78_MODES:
+                    bx, bg, bd = (t.clone() for t in (x, g, d))
+                    _k7_check(bx[off[0] : off[0] + 4097], bg[off[1] : off[1] + 4097], bd[off[2] : off[2] + 4097],
+                              v[3], v[4], scal, scal, mode, f"{kind} views at {off}")
+                n += 1 + len(K78_MODES)
+    return n
+
+
+def phase52_k7_k8():
+    """K7 and K8 against their plain versions, then timed at cycle 33;
+    returns their records per precision."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
+    from deal_and_ceed_on_gpu_torch.ops import cg_merged
+    from deal_and_ceed_on_gpu_torch.scripts.exp_solver_budget import merged_kernel_times
+
+    _ptxas("phase 52", "K7", cg_merged.SOURCE, K7_PATTERN, K7_INSTANTIATIONS,
+           lambda a: (f"{K78_PAIRS[a[0]]} diag={a[1]}", ("init", "x", "two-step", "no-x")[int(a[2])]))
+    _ptxas("phase 52", "K8", cg_merged.SOURCE, K8_PATTERN, K8_INSTANTIATIONS,
+           lambda a: (K78_PAIRS[a[0]], f"diag{a[1]}w{a[2]}"))
+    _ptxas("phase 52", "K7/K8 finisher", cg_merged.SOURCE, K78_FINISH_PATTERN, 2,
+           lambda a: ("sums", {"d": "f64", "f": "f32"}[a[0]]))
+    t0 = time.perf_counter()
+    n = _k78_sweep()
+    print(f"phase 52: K7 bitwise in every mode and K8 + finisher to K5's tolerances on {n} cases (f64 / f32 / bf16 / "
+          f"mixed, identity or diagonal, weights none / [nz, ny, 1] / full, lengths "
+          f"{', '.join(str(s) for s in K78_SHAPES)}, views off a 16-byte boundary) in {time.perf_counter() - t0:.1f} s")
+    n_dofs = BrickMesh.bp5_cycle(MAIN_CYCLE).n_dofs(DEGREE)
+    k7, k8 = {}, {}
+    for label, dtype, stream in PRECISIONS:
+        dd = getattr(torch, K78_TYPES[label][2])
+        x, g, d, h, _ = _k78_vectors(label, (n_dofs,), False, seed=33)
+        err8 = _k8_check(d, g, h, None, None, dd, f"cycle {MAIN_CYCLE} {label}")
+        scal = cg_merged.merged_dots(d, g, h, None, None, dd)
+        err7 = _k7_check(x, g, d, h, None, scal, scal, "plain", f"cycle {MAIN_CYCLE} {label}")
+        del x, g, d, h
+        t = merged_kernel_times(label, n_dofs, chain=50, device=DEVICE)
+        size = torch.empty((), dtype=getattr(torch, stream or dtype)).element_size()
+        b7, by7 = _bound_ms(7 * n_dofs * size, 6 * n_dofs, label)
+        b8, by8 = _bound_ms(3 * n_dofs * size, 8 * n_dofs, label)
+        k7[label] = dict(max_abs_err=err7, ms=1e3 * t["j"], plain_ms=1e3 * t["j_plain"], bound_ms=b7, bound_by=by7,
+                         library_ms=None)
+        k8[label] = dict(max_abs_err=err8, ms=1e3 * t["k"], plain_ms=1e3 * t["k_plain"], bound_ms=b8, bound_by=by8,
+                         library_ms=1e3 * t["k_torch"])
+        print(f"phase 52: cycle {MAIN_CYCLE} ({n_dofs} points) {label}: K7 (plain mode, identity) {k7[label]['ms']:.4f} "
+              f"ms ({100 * b7 / k7[label]['ms']:.1f} % of the bound {b7:.4f} ms, {by7}), plain "
+              f"{k7[label]['plain_ms']:.4f} ms, bitwise; K8 + finisher {k8[label]['ms']:.4f} ms ({100 * b8 / k8[label]['ms']:.1f} "
+              f"% of the bound {b8:.4f} ms, {by8}), plain {k8[label]['plain_ms']:.4f} ms, torch.mm(V, V.T) "
+              f"{k8[label]['library_ms']:.4f} ms, max abs err of the sums {err8:.3e} "
+              f"(scripts/exp_solver_budget lines (j), (k): fenced chains of 50, best of 3) [{CARD}]")
+    return k7, k8
+
+
 def main():
     global CARD
     smi = phase0_device()
     CARD = smi
     phase1_build()
     kernel = phase2_kernel_vs_twin()
-    launches, single_main = phase3_main_path()
+    launches, single_main, merged_launches = phase3_main_path()
     phase4_golden()
     phase5_timing()
     k3, k3_mapped = phase6_k3_vs_plain()
@@ -3958,6 +4175,7 @@ def main():
     phase49_profiler()
     phase50_host_memory()
     phase51_auto()
+    k7, k8 = phase52_k7_k8()
     import torch
 
     records = [
@@ -4157,6 +4375,21 @@ def main():
             **record,
         }
         for name, record in (("qgrid_k3_bf16coef_f32", k3_bf16), ("qgrid_k3_bf16coef_diag3_f32", k3_bf16_diag3))
+    ]
+    # K7 and K8: the counterparts of the JAX solver's XLA-fused passes (no
+    # pallas_call); launches of phase 3's main path, times at cycle 33
+    records += [
+        {
+            "name": f"cg_merged_{kind}_{label}",
+            "route": "cuda",
+            "source": "deal_and_ceed_on_gpu_torch/csrc/cg_merged.cu",
+            "replaces": replaces,
+            "launches": merged_launches[label][k],
+            **record[label],
+        }
+        for kind, k, record, replaces in (("update", 0, k7, "deal_and_ceed_on_gpu_tpu/solvers/cg_merged.py:239-260"),
+                                          ("dots", 1, k8, "deal_and_ceed_on_gpu_tpu/solvers/cg_merged.py:182-201"))
+        for label, _, _ in PRECISIONS
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

@@ -1,3 +1,3 @@
-from . import cg, copy, general, local_global, qgrid, separable, stencil, sum_factorization
+from . import cg, cg_merged, copy, general, local_global, qgrid, separable, stencil, sum_factorization
 
-__all__ = ["cg", "copy", "general", "local_global", "qgrid", "separable", "stencil", "sum_factorization"]
+__all__ = ["cg", "cg_merged", "copy", "general", "local_global", "qgrid", "separable", "stencil", "sum_factorization"]

@@ -14,8 +14,15 @@ the BP5 shape (``BrickMesh.bp5_cycle(cycle)``, p = 5, GLL), per precision:
       writes, beside the library call ``torch.mul(src, 2, out=dst)``
   (f) K1, the stencil apply (``ops/stencil.py``)
   (g) K1 with the value term (one more stream, a zero table)
-  (h) one pcg-merged iteration (``solve_cg_merged`` on K1)
+  (h) one pcg-merged iteration (``solve_cg_merged`` on K1, K7 and K8)
   (i) one pcg-fused iteration (``solve_cg_fused`` on K5, ``ops/cg.py``)
+  (j) K7, the merged CG's update pass (``ops/cg_merged.merged_update``,
+      identity diagonal): x, g, d updated in place from h (4 reads + 3
+      writes), beside its plain version, the torch update lines
+  (k) K8 and its finisher (``ops/cg_merged.merged_dots``): the seven sums
+      of d, g and h (3 reads) and the scalars, beside its plain version and
+      the library call ``torch.mm(V, V.T)`` on a stacked ``[3, n]`` of d, g
+      and h (every identity-diagonal dot in one call)
 
 GB/s figures count the bytes the pass must move (each vector once);
 "eff" marks the passes that torch runs as several launches. Run:
@@ -37,11 +44,13 @@ from ..drivers.bp5 import estimate_lambda_max, resolve_device
 from ..fe_space import FESpace
 from ..mesh import BrickMesh
 from ..models import PoissonOperator
+from ..ops.cg_merged import (SUMMARY, merged_dots, merged_dots_plain, merged_scalars_plain, merged_update,
+                              merged_update_plain)
 from ..ops.copy import copy_probe
 from ..ops.stencil import StencilTables, stencil_apply
 from ..solvers import IterationNumberControl, solve_cg_fused, solve_cg_merged
 
-__all__ = ["PRECISIONS", "main", "run"]
+__all__ = ["PRECISIONS", "main", "merged_kernel_times", "run"]
 
 DEGREE = 5
 # label -> (compute dtype, storage dtype)
@@ -70,6 +79,37 @@ def _per_call(fn, n, device, reps=3):
         _sync(device)
         best = min(best, time.perf_counter() - t0)
     return best / n
+
+
+def merged_kernel_times(label: str, n: int, chain: int = 100, device="cuda", seed: int = 0) -> dict:
+    """Seconds per call at ``n`` points of one precision: K7 in the plain
+    mode with the identity diagonal (``"j"``) and its plain version
+    (``"j_plain"``), K8 + finisher (``"k"``), its plain version
+    (``"k_plain"``) and ``torch.mm(V, V.T)`` on a stacked ``[3, n]`` of d,
+    g and h at the storage dtype (``"k_torch"``). The update's scalars are
+    fixed (alpha 1e-3, beta 0.5), so a chain stays bounded."""
+    device = torch.device(device)
+    cd, sd = PRECISIONS[label]
+    dd = cd  # dots at the compute dtype
+    rng = np.random.default_rng(seed)
+    x, g, d, h = (torch.as_tensor(rng.standard_normal(n), dtype=cd, device=device).to(sd) for _ in range(4))
+    scal = torch.ones(SUMMARY, dtype=dd, device=device)
+    scal[7:] = torch.tensor([1e-3, 0.5, 1.0, 2e-3], dtype=dd)
+    out = {
+        "j": _per_call(lambda: merged_update(x, g, d, h, None, scal, scal, "plain"), chain, device),
+        "j_plain": _per_call(lambda: merged_update_plain(x, g, d, h, None, scal, scal, "plain"), chain, device),
+    }
+    summary = torch.empty(SUMMARY, dtype=dd, device=device)
+
+    def plain_dots():
+        s = merged_dots_plain(d, g, h, None, None, dd)
+        return torch.stack([*s, *merged_scalars_plain(s)])
+
+    v = torch.stack([d, g, h])
+    out["k"] = _per_call(lambda: merged_dots(d, g, h, None, None, dd, out=summary), chain, device)
+    out["k_plain"] = _per_call(plain_dots, chain, device)
+    out["k_torch"] = _per_call(lambda: torch.mm(v, v.T), chain, device)
+    return out
 
 
 def run(label: str, cycle: int = 33, chain: int = 100, iterations: int = 150, device="cuda") -> dict:
@@ -163,9 +203,16 @@ def run(label: str, cycle: int = 33, chain: int = 100, iterations: int = 150, de
     control = IterationNumberControl(iterations, 0.0)
     dot_dtype = cd if sd != cd else None
     t = _per_call(lambda: solve_cg_merged(op.vmult, u, control, dot_dtype=dot_dtype), 1, device) / iterations
-    line("h", t, f"pcg-merged per iteration (K1 + torch ops): {t * 1e3:.4f} ms -> {n / t / 1e9:.2f} GDoF/s")
+    line("h", t, f"pcg-merged per iteration (K1, K7, K8): {t * 1e3:.4f} ms -> {n / t / 1e9:.2f} GDoF/s")
     t = _per_call(lambda: solve_cg_fused(op, u, control), 1, device) / iterations
     line("i", t, f"pcg-fused per iteration (K5): {t * 1e3:.4f} ms -> {n / t / 1e9:.2f} GDoF/s")
+
+    k = merged_kernel_times(label, n, chain, device)
+    out.update({key: k[key] for key in ("j_plain", "k_plain", "k_torch")})
+    line("j", k["j"], f"K7 update (4r+3w): {k['j'] * 1e3:.4f} ms -> {7 * n * isz / k['j'] / 1e9:.0f} GB/s; plain "
+         f"{k['j_plain'] * 1e3:.4f} ms")
+    line("k", k["k"], f"K8 dots + finisher (3r): {k['k'] * 1e3:.4f} ms -> {3 * n * isz / k['k'] / 1e9:.0f} GB/s; "
+         f"plain {k['k_plain'] * 1e3:.4f} ms; torch.mm(V, V.T) {k['k_torch'] * 1e3:.4f} ms")
     return out
 
 

@@ -11,10 +11,13 @@ reference's ``SolverCGFullMerge`` (``bp5/solver.h:15-542``). Per iteration:
    and ``beta = a (g.Mh + a h.Mh) / (g.Mg)`` (``bp5/solver.h:533``),
 4. the vector updates (the ``update_a*`` kernels, ``bp5/solver.h:48-140``).
 
-The updates and dots are torch ops here; their fused kernels are later
-work. Every scalar stays on the device; the loop reads the residual norm on
-the host once per iteration for the stopping test, so the iteration count
-is exactly that of the JAX ``while_loop``.
+Steps 4 and 2 are K7 and K8 (``ops/cg_merged.py``, ``csrc/cg_merged.cu``),
+step 3 K8's one-block finisher, so an iteration on the card is four
+launches: K7, the apply, K8 and the finisher. Every scalar stays on the
+device; the loop reads the residual norm on the host once per iteration for
+the stopping test, so the iteration count is exactly that of the JAX
+``while_loop``. On the CPU the wrappers run their plain versions, this
+solver's torch expressions before the kernels.
 
 ``deferred_x_update=True`` is the Kronbichler data-locality scheme
 (``OPTIMIZED_UPDATE``, ``bp5/solver.h:106-140,509-526``): x is touched only
@@ -38,7 +41,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .cg import safe_div
+from ..ops.cg_merged import S_RES, SUMMARY, merged_dots, merged_update, overlaps
 from .control import SolverControl
 
 __all__ = ["solve_cg_merged"]
@@ -66,78 +69,57 @@ def solve_cg_merged(
     sums the seven dots of an iteration in one all-reduce of the stacked
     seven, at ``dot_dtype`` (JAX's ``dot_weight`` / ``psum_axis``,
     ``cg_merged.py:67-68,112``); the initial residual norm is one more."""
-    dt = b.dtype
-    dd = dot_dtype or dt
-    w = None if dot_weight is None else dot_weight.to(dd)
+    dd = dot_dtype or b.dtype
+    # the kernels see flat contiguous vectors of b's shape: broadcast the
+    # weight and the diagonal once a solve
+    w = None if dot_weight is None else torch.broadcast_to(dot_weight.to(dd), b.shape).contiguous()
+    if diag is not None:
+        diag = torch.broadcast_to(diag, b.shape).contiguous()
 
-    def dot(u, v):
-        # over all entries: a [3, n] vector solves like a flat one
-        return torch.dot(u.reshape(-1), v.reshape(-1))
-
-    def wt(u):
-        return u if w is None else u * w
-
-    def reduce(*s):
-        if comm is None:
-            return s
-        return comm.allreduce_sum_(torch.stack(s)).unbind()
-
-    def dots7(d, g, h):
-        """The update_b seven-way reduction at the accumulation dtype. With
-        the identity diagonal the last three equal g.h, h.h and g.g."""
-        dq, gq, hq = d.to(dd), g.to(dd), h.to(dd)
-        hw = wt(hq)
-        dh, hh, gh, gg = dot(dq, hw), dot(hq, hw), dot(gq, hw), dot(gq, wt(gq))
-        if diag is None:
-            dh, hh, gh, gg = reduce(dh, hh, gh, gg)
-            return dh, hh, gh, gg, gh, hh, gg
-        mq = diag.to(dd)
-        mh = mq * hw
-        return reduce(dh, hh, gh, gg, dot(gq, mh), dot(hq, mh), dot(gq, mq * wt(gq)))
-
-    def mdiag(v):
-        return v if diag is None else diag * v
-
-    # init (bp5/solver.h:373-383): g = A x - b, short-circuit for x0 == None
+    # init (bp5/solver.h:373-383): g = A x - b, short-circuit for x0 == None;
+    # x, g and d are the solver's own: K7 updates them in place
     if x0 is None:
-        x = torch.zeros_like(b)
+        x = torch.zeros_like(b, memory_format=torch.contiguous_format)
         g = -b
     else:
-        x = x0
+        x = x0.clone(memory_format=torch.contiguous_format)
         g = A(x0) - b
-    gq = g.to(dd)
-    (gg0,) = reduce(dot(gq, wt(gq)))
+    g = g.contiguous()
+    gg0 = merged_dots(g, g, g, weight=w, dot_dtype=dd)[3]  # the rank's g.g
+    if comm is not None:
+        (gg0,) = comm.allreduce_sum_(torch.stack([gg0])).unbind()
     res0 = torch.sqrt(gg0)
-    d = -mdiag(g)  # update_a0 (bp5/solver.h:48-72)
+    # update_a0 (bp5/solver.h:48-72): d = -diag g, at torch's promotion of diag * g
+    d = torch.empty(b.shape, dtype=g.dtype if diag is None else torch.promote_types(g.dtype, diag.dtype),
+                    device=b.device)
+    merged_update(None, g, d, None, diag, None, None, "init")
 
-    alpha = beta = torch.zeros((), dtype=dd, device=b.device)
     res = res0
     it = 0
     res0_h = float(res0)
     if not control.continue_pred(it, res0_h, res0_h):
         return x, {"n_iterations": it, "res_norm": res, "res0": res0}
+    # x takes d's type: x + a d promotes it so in the first update
+    x = x.to(torch.promote_types(x.dtype, d.dtype))
+    prev = torch.zeros(SUMMARY, dtype=dd, device=b.device)  # alpha = beta = 0 before the first iteration
     while True:
         it += 1
-        alpha_prev, beta_prev = alpha, beta
         h = A(d)
-        s0, s1, s2, s3, s4, s5, s6 = dots7(d, g, h)
-        alpha = safe_div(s6, s0)
-        # reduction-free |g + alpha h|; clamp tiny negative roundoff
-        res = torch.sqrt(torch.clamp_min(s3 + 2.0 * alpha * s2 + alpha * alpha * s1, 0.0))
-        beta = safe_div(alpha * (s4 + alpha * s5), s6)
+        if not h.is_contiguous() or any(overlaps(h, v) for v in (x, g, d)):
+            h = h.clone(memory_format=torch.contiguous_format)  # K7 writes x, g and d while it reads h
+        scal = merged_dots(d, g, h, diag, w, dd, comm)
+        res = scal[S_RES]
         # the one host read per iteration: the stopping test
         will_stop = not control.continue_pred(it, float(res), res0_h)
-        a = alpha.to(dt)
-
         if not deferred_x_update:
-            x = x + a * d  # update_a<true> (bp5/solver.h:74-104)
+            mode = "plain"  # update_a<true> (bp5/solver.h:74-104)
         elif it % 2 == 0:
-            ratio = safe_div(alpha_prev, beta_prev).to(dt)
-            x = x + (a + ratio) * d + ratio * mdiag(g)
+            mode = "two-step"
         elif will_stop:
-            x = x + a * d  # complete through it on early exit (update_c)
-
-        g = g + a * h
-        d = beta.to(dt) * d - mdiag(g)
+            mode = "odd-stop"  # complete through it on early exit (update_c)
+        else:
+            mode = "no-x"
+        merged_update(x, g, d, h, diag, scal, prev, mode)
+        prev = scal
         if will_stop:
             return x, {"n_iterations": it, "res_norm": res, "res0": res0}
