@@ -22,18 +22,20 @@
 // once by one thread. The scalars come from the device summary that the
 // finisher wrote (alpha, beta) and from the previous iteration's (r).
 //
-// K8, the dots pass (dots_kernel): the seven sums of update_b at the dot
-// type C, d.h, h.h, g.h, g.g, g.(diag h), h.(diag h), g.diag.g, each product
-// weighted by the distributed solvers' dot weight where one is given; with
-// the identity diagonal only the first four (the finisher copies them into
-// the last three). Each block writes its partial sums into partials[block, 7].
-// The finisher (finish_kernel), one block, sums the partials in a fixed tree
-// and writes the summary [s0..s6, alpha, beta, res, ratio]: alpha = g.Mg /
-// d.h, the reduction-free residual sqrt(g.g + 2 alpha g.h + alpha^2 h.h),
-// beta = alpha (g.Mh + alpha h.Mh) / g.Mg and ratio = alpha / beta, each 0
-// where its divisor is 0 (the JAX solver's scalar recurrences). With an
-// all-reduce between ranks it first writes only the seven local sums; it then
-// runs again on the one reduced row, so every rank takes the same branch on
+// K8, the dots pass (dots_kernel), one launch: the seven sums of update_b at
+// the dot type C, d.h, h.h, g.h, g.g, g.(diag h), h.(diag h), g.diag.g, each
+// product weighted by the distributed solvers' dot weight where one is given;
+// with the identity diagonal only the first four (the last three are copies).
+// Each block writes its partial sums into partials[block, 7], fences, and
+// takes a ticket from an integer counter; the block that takes the last one
+// reads every row past L1, sums them in a fixed tree, writes the summary
+// [s0..s6, alpha, beta, res, ratio] and sets the counter back to 0 for the
+// next launch: alpha = g.Mg / d.h, the reduction-free residual sqrt(g.g + 2
+// alpha g.h + alpha^2 h.h), beta = alpha (g.Mh + alpha h.Mh) / g.Mg and ratio
+// = alpha / beta, each 0 where its divisor is 0 (the JAX solver's scalar
+// recurrences). With an all-reduce between ranks it writes only the seven
+// local sums; the finisher (finish_kernel, one thread) then writes the
+// scalars from the one reduced row, so every rank takes the same branch on
 // the same bits.
 //
 // What bounds them: memory traffic. K7 moves 7 vectors a point (4 reads, 3
@@ -42,7 +44,12 @@
 // a grid-stride loop over packs of 16-byte loads (V points a pack, V = 16 /
 // the narrowest element), a scalar head that brings every array onto a
 // 16-byte boundary where one offset does that for all of them, and a scalar
-// path where none does (views off a boundary by different amounts).
+// path where none does (views off a boundary by different amounts). K8's
+// pass is short (~22 us of traffic in bf16 at 12.5M points), so its fixed
+// costs count: one launch does the sums and the summary; its grid is one
+// whole wave at most (DOT_WAVE blocks, all resident at once); and each
+// thread issues U packs of every array (128-192 bytes) before its first FMA,
+// read-only loads that leave the vectors in L2 for K7, which reads them next.
 //
 // Rounding. K7 makes torch's roundings: each torch op of the plain version
 // rounds its result to its result type, computed in that type's op type
@@ -51,9 +58,11 @@
 // bit for bit. K8 sums in another order than torch.dot (its products
 // accumulate by FMA), so its sums agree to the dot type's rounding. The order
 // of every sum is fixed: a thread's points in a fixed order, a block's threads
-// in a fixed tree (warp shuffles, then the warps in order), the blocks in the
-// finisher's fixed tree; the block count depends only on n. No block adds
-// into memory another block writes, so the iteration counts do not drift.
+// in a fixed tree (warp shuffles, then the warps in order), the blocks' rows
+// in the last block's fixed tree; the block count depends only on n. The
+// ticket is the only atomic: no block adds a value into memory another block
+// writes, so two calls give the same bits and the iteration counts do not
+// drift.
 //
 // Types (vector storage T of g and h, X of x, d and diag; the dot type C):
 //   (double, double, double), (float, float, float),
@@ -66,19 +75,26 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace {
 
 // the summary's layout (ops/cg_merged.py restates it)
 constexpr int N_DOTS = 7, S_ALPHA = 7, S_BETA = 8, S_RES = 9, S_RATIO = 10;
-constexpr int UPDATE_THREADS = 256, DOTS_THREADS = 256, FINISH_THREADS = 256;
-// two resident blocks an SM at least: ptxas spills in some instantiations at
-// three or four (bf16 two-step, the mixed dots) and, with no bound given, at 48
-// registers in two; the identity-diagonal dots take 80 registers (three blocks)
+constexpr int UPDATE_THREADS = 256, DOTS_THREADS = 256;
+// K7: two resident blocks an SM at least: ptxas spills in some instantiations
+// at three or four (bf16 two-step) and, with no bound given, at 48 registers
+// in two
 constexpr int MIN_BLOCKS = 2;
-constexpr int MAX_DOT_BLOCKS = 1024;             // the rows of the partials, at most
-constexpr long long DOT_POINTS_PER_BLOCK = 2048; // a block's least share of n
+// K8: three resident blocks an SM in every instantiation (at most 80
+// registers; phase 52 of chip_smoke.py fails on a spill), so a grid of
+// DOT_WAVE blocks is one whole wave on the H100's 132 SMs. A constant, not
+// the device's count: the block count, and with it the order of the sums,
+// depends on n alone (ops/cg_merged.py restates both)
+constexpr int DOTS_MIN_BLOCKS = 3;
+constexpr int DOT_WAVE = 132 * DOTS_MIN_BLOCKS;   // the rows of the partials, at most
+constexpr long long DOT_POINTS_PER_BLOCK = 2048;  // a block's least share of n
 
 enum Mode { M_INIT = 0, M_X = 1, M_TWO_STEP = 2, M_NO_X = 3 };
 
@@ -250,9 +266,33 @@ struct DotsArgs {
   const T* h;
   const X* m;  // the diagonal, or null
   const C* w;  // the dot weight, or null
-  C* partials;  // [gridDim.x, 7]
+  C* partials;       // [gridDim.x, 7]
+  unsigned* ticket;  // 0 before and after every launch
+  C* out;            // the summary [11]; with scalars == 0 the seven sums [7]
   long long n, head;
+  int scalars;
 };
+
+// packs of every array a thread loads before its first FMA: 128-192 bytes
+// in flight a thread (3 resident blocks of 256 threads: ~100-150 KB an SM)
+template <typename T, typename X, typename C, bool DIAG, bool W>
+__host__ __device__ constexpr int dots_unroll() {
+  constexpr int trip = lanes<T, X>() * int(2 * sizeof(T) + (DIAG ? 2 : 1) * sizeof(X) + (W ? sizeof(C) : 0));
+  return trip <= 48 ? 4 : trip <= 96 ? 2 : 1;
+}
+
+// a pack by read-only 16-byte loads (ld.global.nc, no eviction hint: K7
+// reads the same vectors next and finds them in L2 where they fit)
+template <typename E, int V>
+__device__ __forceinline__ Pack<E, V> load_ro(const E* p) {
+  constexpr int WORDS = sizeof(Pack<E, V>) / 16;
+  uint4 w[WORDS];
+#pragma unroll
+  for (int i = 0; i < WORDS; ++i) w[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+  Pack<E, V> v;
+  memcpy(&v, w, sizeof(v));
+  return v;
+}
 
 template <bool DIAG, bool W, typename C>
 __device__ __forceinline__ void dots_point(C (&acc)[N_DOTS], C dq, C gq, C hq, C mq, C wq) {
@@ -270,18 +310,66 @@ __device__ __forceinline__ void dots_point(C (&acc)[N_DOTS], C dq, C gq, C hq, C
   }
 }
 
+// The block's sums of its threads' first K acc in a fixed order: each warp by
+// shuffles, then the warps in order; thread k < K returns sum k. Two calls
+// need a barrier between them (the second writes red, which the first reads).
+template <int K, typename C>
+__device__ __forceinline__ C block_sum(C (&acc)[N_DOTS], C (&red)[DOTS_THREADS / 32][N_DOTS]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[k] += __shfl_down_sync(0xffffffffu, acc[k], o);
+    if (lane == 0) red[warp][k] = acc[k];
+  }
+  __syncthreads();
+  C sum = C(0);
+  if (threadIdx.x < K) {
+#pragma unroll
+    for (int w = 0; w < DOTS_THREADS / 32; ++w) sum += red[w][threadIdx.x];
+  }
+  return sum;
+}
+
+// The scalars out[7..10] from the seven sums s, with torch's roundings
+// (separately rounded products and sums) and the zero-divisor rules.
+template <typename C>
+__device__ __forceinline__ void write_scalars(const C (&s)[N_DOTS], C* out) {
+  const C alpha = s[0] != C(0) ? s[6] / s[0] : C(0);
+  const C r2 = add_rn(add_rn(s[3], mul_rn(mul_rn(C(2), alpha), s[2])), mul_rn(mul_rn(alpha, alpha), s[1]));
+  const C beta = s[6] != C(0) ? mul_rn(alpha, add_rn(s[4], mul_rn(alpha, s[5]))) / s[6] : C(0);
+  out[S_ALPHA] = alpha;
+  out[S_BETA] = beta;
+  out[S_RES] = sqrt(r2 < C(0) ? C(0) : r2);  // torch.clamp_min: a NaN stays NaN
+  out[S_RATIO] = beta != C(0) ? alpha / beta : C(0);
+}
+
 template <typename T, typename X, typename C, bool DIAG, bool W>
-__global__ void __launch_bounds__(DOTS_THREADS, MIN_BLOCKS) dots_kernel(const DotsArgs<T, X, C> p) {
+__global__ void __launch_bounds__(DOTS_THREADS, DOTS_MIN_BLOCKS) dots_kernel(const DotsArgs<T, X, C> p) {
   static_assert(std::is_same<typename OpOf<T>::type, C>::value && std::is_same<typename OpOf<X>::type, C>::value,
                 "K8's types widen to the dot type");
-  constexpr int V = lanes<T, X>(), K = DIAG ? N_DOTS : 4, NW = DOTS_THREADS / 32;
-  __shared__ C red[NW][N_DOTS];
+  constexpr int V = lanes<T, X>(), K = DIAG ? N_DOTS : 4, U = dots_unroll<T, X, C, DIAG, W>();
+  __shared__ C red[DOTS_THREADS / 32][N_DOTS];
+  __shared__ C total[N_DOTS];
+  __shared__ bool last;
   C acc[N_DOTS];
 #pragma unroll
   for (int k = 0; k < N_DOTS; ++k) acc[k] = C(0);
   auto one = [&](long long i) {
     dots_point<DIAG, W>(acc, widen(p.d[i]), widen(p.g[i]), widen(p.h[i]), DIAG ? widen(p.m[i]) : C(0),
                         W ? p.w[i] : C(0));
+  };
+  auto pack = [&](long long i) {  // the V points at i, i a multiple of V past the head
+    const Pack<X, V> dv = load_ro<X, V>(p.d + i);
+    const Pack<T, V> gv = load_ro<T, V>(p.g + i), hv = load_ro<T, V>(p.h + i);
+    Pack<X, V> mv{};
+    Pack<C, V> wv{};
+    if (DIAG) mv = load_ro<X, V>(p.m + i);
+    if (W) wv = load_ro<C, V>(p.w + i);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      dots_point<DIAG, W>(acc, widen(dv.v[j]), widen(gv.v[j]), widen(hv.v[j]), DIAG ? widen(mv.v[j]) : C(0),
+                          W ? wv.v[j] : C(0));
   };
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nth = (long long)gridDim.x * blockDim.x;
@@ -292,86 +380,81 @@ __global__ void __launch_bounds__(DOTS_THREADS, MIN_BLOCKS) dots_kernel(const Do
     const long long head = p.head < n ? p.head : n;
     const long long packs = (n - head) / V;
     if (tid < head) one(tid);
-    for (long long k = tid; k < packs; k += nth) {
-      const long long i = head + k * V;
-      const Pack<X, V> dv = load<X, V>(p.d + i);
-      const Pack<T, V> gv = load<T, V>(p.g + i), hv = load<T, V>(p.h + i);
-      Pack<X, V> mv{};
-      Pack<C, V> wv{};
-      if (DIAG) mv = load<X, V>(p.m + i);
-      if (W) wv = load<C, V>(p.w + i);
+    // a thread's packs k = tid, tid + nth, ... in order: whole trips of U
+    // packs with every load issued before the first FMA, then one at a time
+    long long k = tid;
+#pragma unroll 1
+    for (; k + (U - 1) * nth < packs; k += U * nth) {
+      Pack<X, V> dv[U], mv[U];
+      Pack<T, V> gv[U], hv[U];
+      Pack<C, V> wv[U];
 #pragma unroll
-      for (int j = 0; j < V; ++j)
-        dots_point<DIAG, W>(acc, widen(dv.v[j]), widen(gv.v[j]), widen(hv.v[j]), DIAG ? widen(mv.v[j]) : C(0),
-                            W ? wv.v[j] : C(0));
+      for (int u = 0; u < U; ++u) {
+        const long long i = head + (k + u * nth) * V;
+        dv[u] = load_ro<X, V>(p.d + i);
+        gv[u] = load_ro<T, V>(p.g + i);
+        hv[u] = load_ro<T, V>(p.h + i);
+        if (DIAG) mv[u] = load_ro<X, V>(p.m + i);
+        if (W) wv[u] = load_ro<C, V>(p.w + i);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          dots_point<DIAG, W>(acc, widen(dv[u].v[j]), widen(gv[u].v[j]), widen(hv[u].v[j]),
+                              DIAG ? widen(mv[u].v[j]) : C(0), W ? wv[u].v[j] : C(0));
     }
+    for (; k < packs; k += nth) pack(head + k * V);
     for (long long i = head + packs * V + tid; i < n; i += nth) one(i);
   }
-  // the block's sums in a fixed order: each warp by shuffles, then the warps in order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc[k] += __shfl_down_sync(0xffffffffu, acc[k], o);
-    if (lane == 0) red[warp][k] = acc[k];
+  // the block's row, then its ticket: the row is visible to every block
+  // before the counter moves
+  const C row = block_sum<K>(acc, red);
+  if (threadIdx.x < K) {
+    p.partials[(long long)blockIdx.x * N_DOTS + threadIdx.x] = row;
+    __threadfence();
   }
   __syncthreads();
-  if (threadIdx.x < K) {
-    C sum = C(0);
-#pragma unroll
-    for (int w = 0; w < NW; ++w) sum += red[w][threadIdx.x];
-    p.partials[(long long)blockIdx.x * N_DOTS + threadIdx.x] = sum;
-  }
-}
-
-// ------------------------------------------------------------ finisher ----
-
-// One block: sums the first `cols` columns (4: the identity diagonal, whose
-// last three sums are copies; 7) of partials [rows, 7] in a fixed tree and
-// writes out[0..6]; with `scalars` also out[7..10] = alpha, beta, res, ratio,
-// with torch's roundings (separately rounded products and sums).
-template <typename C>
-__global__ void __launch_bounds__(FINISH_THREADS)
-finish_kernel(const C* __restrict__ partials, int rows, int cols, int scalars, C* __restrict__ out) {
-  __shared__ C red[N_DOTS][FINISH_THREADS];
-  const int t = threadIdx.x;
-  C acc[N_DOTS];
+  if (threadIdx.x == 0) last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block: every row, read past L1, in a fixed tree (a thread's rows
+  // in order, then block_sum)
+  __threadfence();
 #pragma unroll
   for (int k = 0; k < N_DOTS; ++k) acc[k] = C(0);
-  for (int r = t; r < rows; r += FINISH_THREADS) {
+  for (int r = threadIdx.x; r < (int)gridDim.x; r += DOTS_THREADS) {
 #pragma unroll
-    for (int k = 0; k < N_DOTS; ++k)
-      if (k < cols) acc[k] += partials[(long long)r * N_DOTS + k];
+    for (int k = 0; k < K; ++k) acc[k] += __ldcg(p.partials + (long long)r * N_DOTS + k);
   }
-#pragma unroll
-  for (int k = 0; k < N_DOTS; ++k) red[k][t] = acc[k];
+  const C sum = block_sum<K>(acc, red);
+  if (threadIdx.x < K) total[threadIdx.x] = sum;
   __syncthreads();
-  for (int w = FINISH_THREADS / 2; w > 0; w >>= 1) {
-    if (t < w) {
-#pragma unroll
-      for (int k = 0; k < N_DOTS; ++k) red[k][t] += red[k][t + w];
-    }
-    __syncthreads();
-  }
-  if (t != 0) return;
+  if (threadIdx.x != 0) return;
+  *p.ticket = 0u;  // the next launch on the stream (or a graph's replay) starts from 0
   C s[N_DOTS];
 #pragma unroll
-  for (int k = 0; k < N_DOTS; ++k) s[k] = red[k][0];
-  if (cols == 4) {  // the identity diagonal: g.Mh = g.h, h.Mh = h.h, g.Mg = g.g
+  for (int k = 0; k < N_DOTS; ++k) s[k] = k < K ? total[k] : C(0);
+  if (K == 4) {  // the identity diagonal: g.Mh = g.h, h.Mh = h.h, g.Mg = g.g
     s[4] = s[2];
     s[5] = s[1];
     s[6] = s[3];
   }
 #pragma unroll
-  for (int k = 0; k < N_DOTS; ++k) out[k] = s[k];
-  if (!scalars) return;
-  const C alpha = s[0] != C(0) ? s[6] / s[0] : C(0);
-  const C r2 = add_rn(add_rn(s[3], mul_rn(mul_rn(C(2), alpha), s[2])), mul_rn(mul_rn(alpha, alpha), s[1]));
-  const C beta = s[6] != C(0) ? mul_rn(alpha, add_rn(s[4], mul_rn(alpha, s[5]))) / s[6] : C(0);
-  out[S_ALPHA] = alpha;
-  out[S_BETA] = beta;
-  out[S_RES] = sqrt(r2 < C(0) ? C(0) : r2);  // torch.clamp_min: a NaN stays NaN
-  out[S_RATIO] = beta != C(0) ? alpha / beta : C(0);
+  for (int k = 0; k < N_DOTS; ++k) p.out[k] = s[k];
+  if (p.scalars) write_scalars(s, p.out);
+}
+
+// ------------------------------------------------------------ finisher ----
+
+// With an all-reduce between ranks: the scalars from the reduced seven sums
+// (one thread), into out [11] beside the sums.
+template <typename C>
+__global__ void finish_kernel(const C* __restrict__ sums, C* __restrict__ out) {
+  C s[N_DOTS];
+#pragma unroll
+  for (int k = 0; k < N_DOTS; ++k) out[k] = s[k] = sums[k];
+  write_scalars(s, out);
 }
 
 // ------------------------------------------------------------ launchers ----
@@ -446,31 +529,56 @@ cudaError_t update_types(int mode, void* x, void* g, void* d, const void* h, con
   return update_mode<T, X, C, true>(mode, x, g, d, h, m, scal, prev, n, st);
 }
 
+// K8's grid for n points: one block per DOT_POINTS_PER_BLOCK points, at most
+// one whole wave; it depends on n alone, so the order of the sums does too
+int dots_blocks(long long n) {
+  const long long b = (n + DOT_POINTS_PER_BLOCK - 1) / DOT_POINTS_PER_BLOCK;
+  return (int)(b < 1 ? 1 : b > DOT_WAVE ? DOT_WAVE : b);
+}
+
+// a K8 call's arrays as the C interface takes them
+struct DotsCall {
+  const void *d, *g, *h, *m, *w;
+  void *partials, *ticket, *out;
+  int scalars;
+  long long n;
+};
+
 template <typename T, typename X, typename C, bool DIAG, bool W>
-cudaError_t launch_dots(const void* d, const void* g, const void* h, const void* m, const void* w, void* partials,
-                        int blocks, long long n, cudaStream_t st) {
+cudaError_t launch_dots(const DotsCall& c, cudaStream_t st) {
   constexpr int V = lanes<T, X>();
-  DotsArgs<T, X, C> a{static_cast<const X*>(d), static_cast<const T*>(g), static_cast<const T*>(h),
-                      static_cast<const X*>(m), static_cast<const C*>(w), static_cast<C*>(partials), n, 0};
-  const void* ptrs[5] = {d, g, h, DIAG ? m : nullptr, W ? w : nullptr};
+  DotsArgs<T, X, C> a{static_cast<const X*>(c.d), static_cast<const T*>(c.g), static_cast<const T*>(c.h),
+                      static_cast<const X*>(c.m), static_cast<const C*>(c.w), static_cast<C*>(c.partials),
+                      static_cast<unsigned*>(c.ticket), static_cast<C*>(c.out), c.n, 0, c.scalars};
+  const void* ptrs[5] = {c.d, c.g, c.h, DIAG ? c.m : nullptr, W ? c.w : nullptr};
   const int sizes[5] = {(int)sizeof(X), (int)sizeof(T), (int)sizeof(T), (int)sizeof(X), (int)sizeof(C)};
   a.head = common_head(V, ptrs, sizes, 5);
-  dots_kernel<T, X, C, DIAG, W><<<blocks, DOTS_THREADS, 0, st>>>(a);
+  dots_kernel<T, X, C, DIAG, W><<<dots_blocks(c.n), DOTS_THREADS, 0, st>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, typename X, typename C>
-cudaError_t dots_types(const void* d, const void* g, const void* h, const void* m, const void* w, void* partials,
-                       int blocks, long long n, cudaStream_t st) {
+cudaError_t dots_types(const DotsCall& c, cudaStream_t st) {
   if constexpr (std::is_same<T, X>::value) {
-    if (m == nullptr)
-      return w ? launch_dots<T, X, C, false, true>(d, g, h, m, w, partials, blocks, n, st)
-               : launch_dots<T, X, C, false, false>(d, g, h, m, w, partials, blocks, n, st);
+    if (c.m == nullptr)
+      return c.w ? launch_dots<T, X, C, false, true>(c, st) : launch_dots<T, X, C, false, false>(c, st);
   } else {
-    if (m == nullptr) return cudaErrorInvalidValue;
+    if (c.m == nullptr) return cudaErrorInvalidValue;
   }
-  return w ? launch_dots<T, X, C, true, true>(d, g, h, m, w, partials, blocks, n, st)
-           : launch_dots<T, X, C, true, false>(d, g, h, m, w, partials, blocks, n, st);
+  return c.w ? launch_dots<T, X, C, true, true>(c, st) : launch_dots<T, X, C, true, false>(c, st);
+}
+
+// Runs launch() with `device` current (the stream's device), restoring the
+// caller's current device after.
+template <typename Launch>
+int on_device(int device, Launch launch) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = launch();
+  if (current != device) cudaSetDevice(current);
+  return (int)err;
 }
 
 }  // namespace
@@ -497,46 +605,49 @@ extern "C" int cg_merged_update_launch(int pair, int mode, void* x, void* g, voi
   }
 }
 
-// K8's block count for n points: the rows of its partials. It depends on n
-// alone, so the order of the sums does too.
-extern "C" int cg_merged_dots_blocks(long long n) {
-  const long long b = (n + DOT_POINTS_PER_BLOCK - 1) / DOT_POINTS_PER_BLOCK;
-  return (int)(b < 1 ? 1 : b > MAX_DOT_BLOCKS ? MAX_DOT_BLOCKS : b);
-}
+// K8's block count for n points: the rows of its partials (at most
+// DOT_WAVE). It depends on n alone, so the order of the sums does too.
+extern "C" int cg_merged_dots_blocks(long long n) { return dots_blocks(n); }
 
-// K8 on n points into partials [blocks, 7] at the dot type (blocks from
-// cg_merged_dots_blocks); m (the diagonal) and w (the dot weight, at the dot
-// type) may be null. Returns the cudaError_t of the launch.
+// K8 on n points, one launch: partials [>= cg_merged_dots_blocks(n), 7] at
+// the dot type as scratch, the ticket counter (an unsigned int, 0 before the
+// launch and again after it), and out: the summary [11], or with scalars = 0
+// the seven sums [7] (to be all-reduced, then finished by
+// cg_merged_finish_launch). m (the diagonal) and w (the dot weight, at the
+// dot type) may be null. The launch goes to `stream` of `device`. Returns the
+// cudaError_t of the launch.
 extern "C" int cg_merged_dots_launch(int pair, const void* d, const void* g, const void* h, const void* m,
-                                     const void* w, void* partials, int blocks, long long n, void* stream) {
-  if (n < 1 || blocks < 1 || blocks > MAX_DOT_BLOCKS) return (int)cudaErrorInvalidValue;
+                                     const void* w, void* partials, void* ticket, void* out, int scalars,
+                                     long long n, int device, void* stream) {
+  if (n < 1 || partials == nullptr || ticket == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
+  const DotsCall c{d, g, h, m, w, partials, ticket, out, scalars, n};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (pair) {
-    case 0: return (int)dots_types<double, double, double>(d, g, h, m, w, partials, blocks, n, st);
-    case 1: return (int)dots_types<float, float, float>(d, g, h, m, w, partials, blocks, n, st);
-    case 2: return (int)dots_types<__nv_bfloat16, __nv_bfloat16, float>(d, g, h, m, w, partials, blocks, n, st);
-    case 3: return (int)dots_types<__nv_bfloat16, float, float>(d, g, h, m, w, partials, blocks, n, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return on_device(device, [&]() {
+    switch (pair) {
+      case 0: return dots_types<double, double, double>(c, st);
+      case 1: return dots_types<float, float, float>(c, st);
+      case 2: return dots_types<__nv_bfloat16, __nv_bfloat16, float>(c, st);
+      case 3: return dots_types<__nv_bfloat16, float, float>(c, st);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }
 
-// The finisher: partials [rows, 7] at the dot type (dot_code 0 = f64, 1 =
-// f32), the first `cols` (4 or 7) columns summed, into out [7] or, with
-// `scalars`, out [11]. Returns the cudaError_t of the launch.
-extern "C" int cg_merged_finish_launch(int dot_code, const void* partials, int rows, int cols, int scalars,
-                                       void* out, void* stream) {
-  if (rows < 1 || (cols != 4 && cols != N_DOTS)) return (int)cudaErrorInvalidValue;
+// The finisher, after the all-reduce: the seven reduced sums [7] at the dot
+// type (dot_code 0 = f64, 1 = f32) into out [11] with the scalars. Returns
+// the cudaError_t of the launch.
+extern "C" int cg_merged_finish_launch(int dot_code, const void* sums, void* out, int device, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dot_code) {
-    case 0:
-      finish_kernel<double><<<1, FINISH_THREADS, 0, st>>>(static_cast<const double*>(partials), rows, cols,
-                                                          scalars, static_cast<double*>(out));
-      break;
-    case 1:
-      finish_kernel<float><<<1, FINISH_THREADS, 0, st>>>(static_cast<const float*>(partials), rows, cols, scalars,
-                                                         static_cast<float*>(out));
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return on_device(device, [&]() {
+    switch (dot_code) {
+      case 0:
+        finish_kernel<double><<<1, 1, 0, st>>>(static_cast<const double*>(sums), static_cast<double*>(out));
+        break;
+      case 1:
+        finish_kernel<float><<<1, 1, 0, st>>>(static_cast<const float*>(sums), static_cast<float*>(out));
+        break;
+      default: return cudaErrorInvalidValue;
+    }
+    return cudaGetLastError();
+  });
 }

@@ -5,23 +5,25 @@ solver's two XLA-fused passes (``deal_and_ceed_on_gpu_tpu/solvers/cg_merged.py``
 the updates at lines 239-260 and ``update_a0`` at 209, the seven dots at
 182-201) and of the CUDA original's ``update_a*`` / ``update_b`` kernels
 (``bp5/solver.h:48-336``). ``solvers/cg_merged.py`` runs an iteration as
-K7, the operator apply, K8 and its finisher.
+K7, the operator apply and K8 (and K8's finisher where ranks all-reduce).
 
 ``merged_update(x, g, d, h, diag, scal, prev, mode)`` is K7: it updates x,
 g and d in place (``mode`` one of ``MODES``; ``"init"`` only writes d =
 -diag g from g), reading h, the Jacobi ``diag`` (or None, the identity),
 this iteration's summary ``scal`` (alpha, beta) and, in ``"two-step"``, the
 previous one's ``prev`` (its alpha / beta). ``merged_dots(d, g, h, diag,
-weight, dot_dtype, comm)`` is K8 and its one-block finisher: it returns the
-summary ``[11]`` at the dot dtype, the seven sums of ``update_b`` (d.h,
+weight, dot_dtype, comm, out, workspace)`` is K8, one launch: it returns
+the summary ``[11]`` at the dot dtype, the seven sums of ``update_b`` (d.h,
 h.h, g.h, g.g, g.(diag h), h.(diag h), g.diag.g, each weighted by
 ``weight`` where given, summed over the ranks of ``comm`` where given)
 followed by alpha, beta, the reduction-free residual and alpha / beta
-(``S_ALPHA``, ...). CUDA tensors launch the kernels (``csrc/cg_merged.cu``)
-or raise; CPU tensors run the plain versions, the parent solver's torch
-expressions unchanged: ``merged_update_plain``, ``merged_dots_plain`` and
-``merged_scalars_plain``. ``UPDATE_LAUNCHES``, ``DOTS_LAUNCHES`` and
-``FINISH_LAUNCHES`` count kernel launches.
+(``S_ALPHA``, ...); with ``comm``, K8 writes the local sums and the
+one-thread finisher the scalars after the all-reduce. A ``DotsWorkspace``
+holds K8's scratch for a solve. CUDA tensors launch the kernels
+(``csrc/cg_merged.cu``) or raise; CPU tensors run the plain versions, the
+parent solver's torch expressions unchanged: ``merged_update_plain``,
+``merged_dots_plain`` and ``merged_scalars_plain``. ``UPDATE_LAUNCHES``,
+``DOTS_LAUNCHES`` and ``FINISH_LAUNCHES`` count kernel launches.
 
 Vectors are contiguous and of one shape (any: the kernels see a flat
 length). Their types: g and h at the right-hand side's storage type T, x,
@@ -44,6 +46,8 @@ from ..solvers.cg import safe_div
 
 __all__ = [
     "DOTS_LAUNCHES",
+    "DOTS_WAVE",
+    "DotsWorkspace",
     "FINISH_LAUNCHES",
     "MODES",
     "SOURCE",
@@ -53,6 +57,7 @@ __all__ = [
     "S_RATIO",
     "S_RES",
     "UPDATE_LAUNCHES",
+    "dots_blocks",
     "merged_dots",
     "merged_dots_plain",
     "merged_scalars_plain",
@@ -67,6 +72,9 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "cg_merged.cu"
 N_DOTS, S_ALPHA, S_BETA, S_RES, S_RATIO, SUMMARY = 7, 7, 8, 9, 10, 11
 # K7's modes -> the kernel's: plain and odd-stop are both x += a d
 MODES = {"init": 0, "plain": 1, "two-step": 2, "odd-stop": 1, "no-x": 3}
+# K8's grid (csrc/cg_merged.cu: DOT_WAVE, DOT_POINTS_PER_BLOCK): a block per
+# 2048 points, at most one whole wave of 3 blocks on each of 132 SMs
+DOTS_WAVE, DOT_POINTS_PER_BLOCK = 132 * 3, 2048
 
 # kernel launches (a run resets them to 0 to count its own)
 UPDATE_LAUNCHES = 0
@@ -87,6 +95,13 @@ def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
     lo, hi = a.data_ptr(), a.data_ptr() + a.numel() * a.element_size()
     blo, bhi = b.data_ptr(), b.data_ptr() + b.numel() * b.element_size()
     return a.numel() > 0 and b.numel() > 0 and blo < hi and lo < bhi
+
+
+def dots_blocks(n: int) -> int:
+    """K8's block count for n points, the rows of its partials: from n
+    alone (so the order of its sums is too), at most ``DOTS_WAVE``; the
+    kernel's own ``cg_merged_dots_blocks``."""
+    return max(1, min(-(-n // DOT_POINTS_PER_BLOCK), DOTS_WAVE))
 
 
 def _mdiag(diag, v):
@@ -164,11 +179,11 @@ def _library():
     lib.cg_merged_update_launch.restype = ctypes.c_int
     lib.cg_merged_dots_blocks.argtypes = [ctypes.c_longlong]
     lib.cg_merged_dots_blocks.restype = ctypes.c_int
-    lib.cg_merged_dots_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    lib.cg_merged_dots_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.cg_merged_dots_launch.restype = ctypes.c_int
-    lib.cg_merged_finish_launch.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_void_p]
+    lib.cg_merged_finish_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_void_p]
     lib.cg_merged_finish_launch.restype = ctypes.c_int
     return lib
 
@@ -255,51 +270,105 @@ def merged_update(x, g, d, h, diag, scal, prev, mode: str):
     UPDATE_LAUNCHES += 1
 
 
-def merged_dots(d, g, h, diag=None, weight=None, dot_dtype=None, comm=None, out=None):
-    """K8 and its finisher: the summary ``[11]`` at ``dot_dtype`` (default
-    g's type) — the seven sums (over ``comm``'s ranks where given) and the
-    scalars alpha, beta, res and alpha / beta. ``weight`` is at
-    ``dot_dtype`` and of the vectors' shape. Into ``out`` if given. CUDA
-    tensors launch the kernels (or raise), CPU tensors run the plain
-    versions."""
+class DotsWorkspace:
+    """K8's scratch for one solve on one stream, made once and passed to every
+    ``merged_dots`` call: ``partials`` ``[rows, 7]`` at the dot dtype (rows
+    >= ``dots_blocks(n)``; ``DOTS_WAVE``, enough for any n, by default), the
+    ticket counter ``ticket`` (int32, 0 between launches), ``sums`` ``[7]``
+    (the local sums before an all-reduce) and ``summaries`` ``[2, 11]``, which
+    the calls without an ``out`` fill in turn: a solve reads this iteration's
+    summary and the previous one's without allocating, and a returned summary
+    stays as it is until the second call after it. It also keeps the d, g,
+    diagonal and weight it was last called with, checked, and their
+    pointers."""
+
+    def __init__(self, dtype: torch.dtype, device, rows: int = DOTS_WAVE):
+        self.partials = torch.empty((rows, N_DOTS), dtype=dtype, device=device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        self.sums = torch.empty(N_DOTS, dtype=dtype, device=device)
+        self.summaries = torch.zeros((2, SUMMARY), dtype=dtype, device=device)
+        self._rows = self.summaries.unbind()
+        self._turn = 0
+        self._key = None  # (d, g, diag, weight, dot dtype) of the last checked call
+        self._launch = None  # that call's kernel arguments but h's, out's and the stream
+
+    def next_summary(self) -> torch.Tensor:
+        self._turn ^= 1
+        return self._rows[self._turn]
+
+
+def _check_workspace(ws, dd, g):
+    if not isinstance(ws, DotsWorkspace):
+        raise ValueError(f"cg dots: the workspace is a {type(ws).__name__}, not a DotsWorkspace")
+    if ws.partials.dtype != dd or ws.partials.device != g.device:
+        raise ValueError(f"cg dots: the workspace is {ws.partials.dtype} on {ws.partials.device}, want {dd} on "
+                         f"{g.device}")
+    if ws.partials.shape[0] < dots_blocks(g.numel()):
+        raise ValueError(f"cg dots: the workspace has {ws.partials.shape[0]} rows, {g.numel()} points need "
+                         f"{dots_blocks(g.numel())}")
+
+
+def _raw_stream(index):
+    """The current CUDA stream of device ``index``, as an int."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
+def merged_dots(d, g, h, diag=None, weight=None, dot_dtype=None, comm=None, out=None, workspace=None):
+    """K8 (and, with ``comm``, its finisher): the summary ``[11]`` at
+    ``dot_dtype`` (default g's type) — the seven sums (over ``comm``'s
+    ranks where given) and the scalars alpha, beta, res and alpha / beta.
+    ``weight`` is at ``dot_dtype`` and of the vectors' shape. Into ``out``
+    if given, else into the next of ``workspace``'s two summaries (a
+    ``DotsWorkspace`` of ``dot_dtype`` on g's device: a solve makes one and
+    passes it to every call; without one the call makes its own). With a
+    workspace, d, g, ``diag`` and ``weight`` are checked when they change,
+    h at every call. CUDA tensors launch the kernels (or raise), CPU
+    tensors run the plain versions."""
     global DOTS_LAUNCHES, FINISH_LAUNCHES
     dd = dot_dtype or g.dtype
-    pair = _check_vectors("cg dots", {"d": d, "g": g, "h": h, "diag": diag}, (), dd)
-    if weight is not None and (weight.shape != g.shape or weight.dtype != dd or weight.device != g.device
-                               or not weight.is_contiguous()):
-        raise ValueError(f"cg dots: the weight must be a contiguous {tuple(g.shape)} {dd} tensor on {g.device}")
+    ws = workspace
+    key = ws._key if isinstance(ws, DotsWorkspace) else None
+    if key is not None and key[0] is d and key[1] is g and key[2] is diag and key[3] is weight and key[4] == dd:
+        # the solve's own d, g, diag and weight, checked at an earlier call: h alone
+        if h.shape != g.shape or h.dtype != g.dtype or h.device != g.device or not h.is_contiguous():
+            raise ValueError(f"cg dots: h is a {tuple(h.shape)} {h.dtype} tensor on {h.device} (contiguous "
+                             f"{h.is_contiguous()}), want a contiguous {tuple(g.shape)} {g.dtype} one on {g.device}")
+    else:
+        pair = _check_vectors("cg dots", {"d": d, "g": g, "h": h, "diag": diag}, (), dd)
+        if weight is not None and (weight.shape != g.shape or weight.dtype != dd or weight.device != g.device
+                                   or not weight.is_contiguous()):
+            raise ValueError(f"cg dots: the weight must be a contiguous {tuple(g.shape)} {dd} tensor on {g.device}")
+        if ws is None:
+            ws = DotsWorkspace(dd, g.device)
+        else:
+            _check_workspace(ws, dd, g)
+        ws._key = (d, g, diag, weight, dd)
+        ws._launch = None if pair is None else (
+            pair, 0 if dd == torch.float64 else 1, g.device.index, d.data_ptr(), g.data_ptr(),
+            None if diag is None else diag.data_ptr(), None if weight is None else weight.data_ptr(),
+            ws.partials.data_ptr(), ws.ticket.data_ptr(), g.numel())
     if out is None:
-        out = torch.empty(SUMMARY, dtype=dd, device=g.device)
+        out = ws.next_summary()
     else:
         _check_summary("cg dots (out)", out, g, dd)
-    if g.device.type == "cpu":
+    if ws._launch is None:  # the CPU
         s = merged_dots_plain(d, g, h, diag, weight, dd, comm)
         return out.copy_(torch.stack([*s, *merged_scalars_plain(s)]))
     lib = _library()
-    n = g.numel()
-    code = 0 if dd == torch.float64 else 1
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        blocks = lib.cg_merged_dots_blocks(n)
-        partials = torch.empty((blocks, N_DOTS), dtype=dd, device=g.device)
-        rc = lib.cg_merged_dots_launch(pair, d.data_ptr(), g.data_ptr(), h.data_ptr(), ptr(diag), ptr(weight),
-                                       partials.data_ptr(), blocks, n, stream)
-        if rc == 0:
-            DOTS_LAUNCHES += 1
-            cols = N_DOTS if diag is not None else 4
-            if comm is None:
-                rc = lib.cg_merged_finish_launch(code, partials.data_ptr(), blocks, cols, 1, out.data_ptr(), stream)
-            else:
-                # the local sums, one all-reduce of the stacked seven, the scalars from the reduced row
-                sums = torch.empty(N_DOTS, dtype=dd, device=g.device)
-                rc = lib.cg_merged_finish_launch(code, partials.data_ptr(), blocks, cols, 0, sums.data_ptr(), stream)
-                if rc == 0:
-                    FINISH_LAUNCHES += 1
-                    comm.allreduce_sum_(sums)
-                    rc = lib.cg_merged_finish_launch(code, sums.data_ptr(), 1, N_DOTS, 1, out.data_ptr(), stream)
-            if rc == 0:
-                FINISH_LAUNCHES += 1
+    pair, code, index, d_ptr, g_ptr, m_ptr, w_ptr, partials, ticket, n = ws._launch
+    stream = _raw_stream(index)
+    sums = out if comm is None else ws.sums
+    rc = lib.cg_merged_dots_launch(pair, d_ptr, g_ptr, h.data_ptr(), m_ptr, w_ptr, partials, ticket,
+                                   sums.data_ptr(), int(comm is None), n, index, stream)
     if rc != 0:
         raise RuntimeError(f"cg dots kernel launch failed: cudaError {rc}")
+    DOTS_LAUNCHES += 1
+    if comm is not None:
+        # the local sums, one all-reduce of the stacked seven, the scalars from the reduced row
+        comm.allreduce_sum_(sums)
+        rc = lib.cg_merged_finish_launch(code, sums.data_ptr(), out.data_ptr(), index, stream)
+        if rc != 0:
+            raise RuntimeError(f"cg dots finisher launch failed: cudaError {rc}")
+        FINISH_LAUNCHES += 1
     return out

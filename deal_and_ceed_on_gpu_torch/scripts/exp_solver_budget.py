@@ -19,13 +19,17 @@ the BP5 shape (``BrickMesh.bp5_cycle(cycle)``, p = 5, GLL), per precision:
   (j) K7, the merged CG's update pass (``ops/cg_merged.merged_update``,
       identity diagonal): x, g, d updated in place from h (4 reads + 3
       writes), beside its plain version, the torch update lines
-  (k) K8 and its finisher (``ops/cg_merged.merged_dots``): the seven sums
-      of d, g and h (3 reads) and the scalars, beside its plain version and
-      the library call ``torch.mm(V, V.T)`` on a stacked ``[3, n]`` of d, g
-      and h (every identity-diagonal dot in one call)
+  (k) K8 (``ops/cg_merged.merged_dots`` on a ``DotsWorkspace``, as the
+      solver calls it): the seven sums of d, g and h (3 reads) and the
+      scalars, beside its plain version and the library call ``torch.mm(V,
+      V.T)`` on a stacked ``[3, n]`` of d, g and h (every identity-diagonal
+      dot in one call)
 
-GB/s figures count the bytes the pass must move (each vector once);
-"eff" marks the passes that torch runs as several launches. Run:
+K7 and K8 have two times each: the card's (CUDA events around a chain that
+the host queued while the card was held, ``utils/timer.cuda_time_ms``) and
+the host's a call (an unsynchronised chain, best of three). GB/s figures
+count the bytes the pass must move (each vector once); "eff" marks the
+passes that torch runs as several launches. Run:
 ``python -m deal_and_ceed_on_gpu_torch.scripts.exp_solver_budget [--cycle 33]
 [--chain 100] [--iterations 150] [--precisions bf16,f32,f64] [--device cpu]``
 (the CPU runs the kernels' plain versions: a check of the script, not a
@@ -44,11 +48,12 @@ from ..drivers.bp5 import estimate_lambda_max, resolve_device
 from ..fe_space import FESpace
 from ..mesh import BrickMesh
 from ..models import PoissonOperator
-from ..ops.cg_merged import (SUMMARY, merged_dots, merged_dots_plain, merged_scalars_plain, merged_update,
-                              merged_update_plain)
+from ..ops.cg_merged import (SUMMARY, DotsWorkspace, merged_dots, merged_dots_plain, merged_scalars_plain,
+                              merged_update, merged_update_plain)
 from ..ops.copy import copy_probe
 from ..ops.stencil import StencilTables, stencil_apply
 from ..solvers import IterationNumberControl, solve_cg_fused, solve_cg_merged
+from ..utils.timer import cuda_time_ms
 
 __all__ = ["PRECISIONS", "main", "merged_kernel_times", "run"]
 
@@ -81,13 +86,41 @@ def _per_call(fn, n, device, reps=3):
     return best / n
 
 
+def _host_per_call(fn, n, device, reps=3):
+    """Seconds the host takes per call of ``fn`` over an unsynchronised
+    chain of ``n`` calls, best of ``reps`` (the card drained before each)."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    _sync(device)
+    return best / n
+
+
+def _kernel_times(fn, n, device) -> tuple:
+    """(card, host) seconds per call of a one-launch ``fn``: CUDA events
+    around a chain of ``n`` queued while the card is held, best of 3, and
+    the host's unsynchronised chain; the card's is None on the CPU."""
+    host = _host_per_call(fn, n, device)
+    if device.type != "cuda":
+        return None, host
+    return 1e-3 * min(cuda_time_ms(fn, n, hold_s=2 * n * host + 1e-3) for _ in range(3)), host
+
+
 def merged_kernel_times(label: str, n: int, chain: int = 100, device="cuda", seed: int = 0) -> dict:
     """Seconds per call at ``n`` points of one precision: K7 in the plain
-    mode with the identity diagonal (``"j"``) and its plain version
-    (``"j_plain"``), K8 + finisher (``"k"``), its plain version
+    mode with the identity diagonal on the card (``"j"``) and on the host
+    (``"j_host"``), its plain version (``"j_plain"``), K8 on a workspace on
+    the card (``"k"``) and on the host (``"k_host"``), its plain version
     (``"k_plain"``) and ``torch.mm(V, V.T)`` on a stacked ``[3, n]`` of d,
-    g and h at the storage dtype (``"k_torch"``). The update's scalars are
-    fixed (alpha 1e-3, beta 0.5), so a chain stays bounded."""
+    g and h at the storage dtype (``"k_torch"``); the plain versions and
+    the library call as fenced chains. The update's scalars are fixed
+    (alpha 1e-3, beta 0.5), so a chain stays bounded. On the CPU the card's
+    times are None."""
     device = torch.device(device)
     cd, sd = PRECISIONS[label]
     dd = cd  # dots at the compute dtype
@@ -95,18 +128,18 @@ def merged_kernel_times(label: str, n: int, chain: int = 100, device="cuda", see
     x, g, d, h = (torch.as_tensor(rng.standard_normal(n), dtype=cd, device=device).to(sd) for _ in range(4))
     scal = torch.ones(SUMMARY, dtype=dd, device=device)
     scal[7:] = torch.tensor([1e-3, 0.5, 1.0, 2e-3], dtype=dd)
-    out = {
-        "j": _per_call(lambda: merged_update(x, g, d, h, None, scal, scal, "plain"), chain, device),
-        "j_plain": _per_call(lambda: merged_update_plain(x, g, d, h, None, scal, scal, "plain"), chain, device),
-    }
-    summary = torch.empty(SUMMARY, dtype=dd, device=device)
+    out = {}
+    out["j"], out["j_host"] = _kernel_times(lambda: merged_update(x, g, d, h, None, scal, scal, "plain"), chain,
+                                            device)
+    out["j_plain"] = _per_call(lambda: merged_update_plain(x, g, d, h, None, scal, scal, "plain"), chain, device)
+    ws = DotsWorkspace(dd, device)
 
     def plain_dots():
         s = merged_dots_plain(d, g, h, None, None, dd)
         return torch.stack([*s, *merged_scalars_plain(s)])
 
     v = torch.stack([d, g, h])
-    out["k"] = _per_call(lambda: merged_dots(d, g, h, None, None, dd, out=summary), chain, device)
+    out["k"], out["k_host"] = _kernel_times(lambda: merged_dots(d, g, h, None, None, dd, workspace=ws), chain, device)
     out["k_plain"] = _per_call(plain_dots, chain, device)
     out["k_torch"] = _per_call(lambda: torch.mm(v, v.T), chain, device)
     return out
@@ -208,11 +241,15 @@ def run(label: str, cycle: int = 33, chain: int = 100, iterations: int = 150, de
     line("i", t, f"pcg-fused per iteration (K5): {t * 1e3:.4f} ms -> {n / t / 1e9:.2f} GDoF/s")
 
     k = merged_kernel_times(label, n, chain, device)
-    out.update({key: k[key] for key in ("j_plain", "k_plain", "k_torch")})
-    line("j", k["j"], f"K7 update (4r+3w): {k['j'] * 1e3:.4f} ms -> {7 * n * isz / k['j'] / 1e9:.0f} GB/s; plain "
-         f"{k['j_plain'] * 1e3:.4f} ms")
-    line("k", k["k"], f"K8 dots + finisher (3r): {k['k'] * 1e3:.4f} ms -> {3 * n * isz / k['k'] / 1e9:.0f} GB/s; "
-         f"plain {k['k_plain'] * 1e3:.4f} ms; torch.mm(V, V.T) {k['k_torch'] * 1e3:.4f} ms")
+    out.update({key: k[key] for key in ("j_host", "j_plain", "k_host", "k_plain", "k_torch")})
+
+    def card(t, n_bytes):
+        return "not measured (no card)" if t is None else f"{t * 1e3:.4f} ms -> {n_bytes / t / 1e9:.0f} GB/s"
+
+    line("j", k["j"], f"K7 update (4r+3w): card {card(k['j'], 7 * n * isz)}; host {k['j_host'] * 1e3:.4f} ms a call; "
+         f"plain {k['j_plain'] * 1e3:.4f} ms")
+    line("k", k["k"], f"K8 dots (3r): card {card(k['k'], 3 * n * isz)}; host {k['k_host'] * 1e3:.4f} ms a call; plain "
+         f"{k['k_plain'] * 1e3:.4f} ms; torch.mm(V, V.T) {k['k_torch'] * 1e3:.4f} ms")
     return out
 
 

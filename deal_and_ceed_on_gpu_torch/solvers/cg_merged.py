@@ -12,11 +12,12 @@ reference's ``SolverCGFullMerge`` (``bp5/solver.h:15-542``). Per iteration:
 4. the vector updates (the ``update_a*`` kernels, ``bp5/solver.h:48-140``).
 
 Steps 4 and 2 are K7 and K8 (``ops/cg_merged.py``, ``csrc/cg_merged.cu``),
-step 3 K8's one-block finisher, so an iteration on the card is four
-launches: K7, the apply, K8 and the finisher. Every scalar stays on the
-device; the loop reads the residual norm on the host once per iteration for
-the stopping test, so the iteration count is exactly that of the JAX
-``while_loop``. On the CPU the wrappers run their plain versions, this
+and K8's last block does step 3, so an iteration on the card is three
+launches: K7, the apply and K8 (with a ``comm``, K8's one-thread finisher
+follows the all-reduce). K8's scratch and the summaries live in one
+``DotsWorkspace`` a solve. Every scalar stays on the device; the loop
+reads the residual norm on the host once per iteration for the stopping
+test, so the iteration count is exactly that of the JAX ``while_loop``. On the CPU the wrappers run their plain versions, this
 solver's torch expressions before the kernels.
 
 ``deferred_x_update=True`` is the Kronbichler data-locality scheme
@@ -41,7 +42,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..ops.cg_merged import S_RES, SUMMARY, merged_dots, merged_update, overlaps
+from ..ops.cg_merged import S_RES, SUMMARY, DotsWorkspace, merged_dots, merged_update, overlaps
 from .control import SolverControl
 
 __all__ = ["solve_cg_merged"]
@@ -85,7 +86,9 @@ def solve_cg_merged(
         x = x0.clone(memory_format=torch.contiguous_format)
         g = A(x0) - b
     g = g.contiguous()
-    gg0 = merged_dots(g, g, g, weight=w, dot_dtype=dd)[3]  # the rank's g.g
+    # K8's scratch and the two summaries the loop alternates as scal and prev
+    ws = DotsWorkspace(dd, b.device)
+    gg0 = merged_dots(g, g, g, weight=w, dot_dtype=dd, workspace=ws)[3]  # the rank's g.g
     if comm is not None:
         (gg0,) = comm.allreduce_sum_(torch.stack([gg0])).unbind()
     res0 = torch.sqrt(gg0)
@@ -107,7 +110,7 @@ def solve_cg_merged(
         h = A(d)
         if not h.is_contiguous() or any(overlaps(h, v) for v in (x, g, d)):
             h = h.clone(memory_format=torch.contiguous_format)  # K7 writes x, g and d while it reads h
-        scal = merged_dots(d, g, h, diag, w, dd, comm)
+        scal = merged_dots(d, g, h, diag, w, dd, comm, workspace=ws)
         res = scal[S_RES]
         # the one host read per iteration: the stopping test
         will_stop = not control.continue_pred(it, float(res), res0_h)

@@ -43,12 +43,17 @@ class Timer:
         return False
 
 
-def cuda_time_ms(fn, n: int = 20) -> float:
+def cuda_time_ms(fn, n: int = 20, hold_s: float = 0.0) -> float:
     """Mean ms of ``fn`` on the current CUDA stream over ``n`` calls after
-    one warm-up, between two CUDA events."""
+    one warm-up, between two CUDA events. With ``hold_s`` the card first
+    spins for that long (``torch.cuda._sleep``, counted at 2 GHz, the H100's
+    top clock) while the host queues the n calls, so the events time the
+    card alone where the host enqueues slower than the card runs."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hold_s > 0:
+        torch.cuda._sleep(int(hold_s * 2e9))
     start.record()
     for _ in range(n):
         fn()

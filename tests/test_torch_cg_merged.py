@@ -5,6 +5,8 @@ mixed bf16 / f32 case against the torch-expression solver bit for bit, the
 wrappers' refusals, and the CUDA kernels against their plain versions on a
 card (skipped without one)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -278,6 +280,84 @@ def test_wrappers_refuse():
             cm.merged_dots(**dict(dict(d=d, g=g, h=h, diag=m, weight=w, dot_dtype=torch.float64), **change))
 
 
+# --- K8's workspace and grid --------------------------------------------------
+
+
+SHAPES = {"n": (N,), "3n": (3, N)}
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=list(SHAPES))
+@pytest.mark.parametrize("weight", [False, True], ids=["w-none", "w-full"])
+@pytest.mark.parametrize("kind,diag", TYPE_DIAG, ids=[f"{t}-{'diag' if dg else 'ident'}" for t, dg in TYPE_DIAG])
+def test_dots_workspace_equals_none(kind, diag, weight, shape):
+    """merged_dots with a workspace (the solver's route: its d, g, diagonal
+    and weight checked once, h at every call, the summaries in turn) equals
+    merged_dots without one, bit for bit."""
+    x, g, d, h, m, w = _vectors(kind, diag, weight, n=int(np.prod(SHAPES[shape])))
+    g, d, h, m, w = (None if v is None else v.reshape(SHAPES[shape]) for v in (g, d, h, m, w))
+    dd = TYPES[kind][2]
+    ws = cm.DotsWorkspace(dd, "cpu")
+    ws.summaries.fill_(float("nan"))
+    first = cm.merged_dots(d, g, h, m, w, dd, workspace=ws)
+    assert torch.equal(first, cm.merged_dots(d, g, h, m, w, dd))
+    h2 = 2 * h
+    second = cm.merged_dots(d, g, h2, m, w, dd, workspace=ws)
+    assert second.data_ptr() != first.data_ptr()  # the other summary: first stays as it was
+    assert torch.equal(second, cm.merged_dots(d, g, h2, m, w, dd))
+    assert torch.equal(first, cm.merged_dots(d, g, h, m, w, dd))
+    assert torch.equal(cm.merged_dots(d, g, h, m, w, dd, workspace=ws), first)  # the first's row again
+
+
+def test_dots_workspace_refused():
+    """A workspace of another dtype or device, or with too few rows, and an
+    h of another shape, type, device or layout once d and g are checked."""
+    x, g, d, h, m, w = _vectors("f64", True, True)
+    args = dict(d=d, g=g, h=h, diag=m, weight=w, dot_dtype=torch.float64)
+    for ws in (cm.DotsWorkspace(torch.float32, "cpu"), cm.DotsWorkspace(torch.float64, "meta"),
+               cm.DotsWorkspace(torch.float64, "cpu", rows=0), torch.empty(cm.DOTS_WAVE, 7, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            cm.merged_dots(**args, workspace=ws)
+    big = torch.zeros(cm.DOT_POINTS_PER_BLOCK + 1, dtype=torch.float64)
+    with pytest.raises(ValueError):  # two blocks' rows wanted
+        cm.merged_dots(big, big, big, workspace=cm.DotsWorkspace(torch.float64, "cpu", rows=1))
+    ws = cm.DotsWorkspace(torch.float64, "cpu")
+    cm.merged_dots(**args, workspace=ws)
+    for bad in (h[:-1], h.float(), torch.stack([h, h], 1)[:, 0], h.to(device="meta")):
+        with pytest.raises(ValueError):
+            cm.merged_dots(**dict(args, h=bad), workspace=ws)
+    with pytest.raises(ValueError):  # a new d is checked in full
+        cm.merged_dots(**dict(args, d=d[:-1]), workspace=ws)
+
+
+def test_dots_blocks_from_n_alone():
+    """K8's block count (the Python mirror of csrc/cg_merged.cu's): a block
+    per DOT_POINTS_PER_BLOCK points, at most DOTS_WAVE, from n alone; the
+    constants are the source's."""
+    p = cm.DOT_POINTS_PER_BLOCK
+    ns = [1, 2, p - 1, p, p + 1, 100_003, (cm.DOTS_WAVE - 1) * p, cm.DOTS_WAVE * p - 1, cm.DOTS_WAVE * p,
+          cm.DOTS_WAVE * p + 1, 12_468_001, 131_892_801]
+    blocks = [cm.dots_blocks(n) for n in ns]
+    assert blocks == [min(-(-n // p), cm.DOTS_WAVE) for n in ns]
+    assert blocks[-4:] == [cm.DOTS_WAVE] * 4 and all(1 <= b <= cm.DOTS_WAVE for b in blocks)
+    assert blocks == sorted(blocks)
+    src = cm.SOURCE.read_text()
+    assert re.search(r"constexpr int DOTS_MIN_BLOCKS = (\d+);", src).group(1) == str(cm.DOTS_WAVE // 132)
+    assert "constexpr int DOT_WAVE = 132 * DOTS_MIN_BLOCKS;" in src
+    assert re.search(r"constexpr long long DOT_POINTS_PER_BLOCK = (\d+);", src).group(1) == str(p)
+
+
+def test_solver_summaries_stay():
+    """The solve's returned res_norm (a view of its last summary) is not
+    overwritten after it returns, by a later solve or anything else."""
+    n = 20
+    a = torch.as_tensor(_spd(n, seed=7))
+    b = torch.as_tensor(np.random.default_rng(8).standard_normal(n))
+    _, info = pt.solve_cg_merged(lambda v: a @ v, b, pt.IterationNumberControl(4, 0.0))
+    kept = info["res_norm"].clone()
+    pt.solve_cg_merged(lambda v: a @ v, 2 * b, pt.IterationNumberControl(5, 0.0))
+    assert torch.equal(info["res_norm"], kept)
+
+
 # --- on the card -------------------------------------------------------------
 
 
@@ -352,6 +432,53 @@ def test_k7_k8_on_unaligned_views_on_card(cuda_device, kind):
     _dots_check(v3[2], v3[1], v3[3], v3[4], None, dd)
 
 
+# K8's grid edges: a block per DOT_POINTS_PER_BLOCK points up to one wave;
+# one whole trip of U packs of V points per thread at DOTS_WAVE * 256 * U * V
+EDGE_LENGTHS = (100_003, (cm.DOTS_WAVE - 1) * cm.DOT_POINTS_PER_BLOCK, (cm.DOTS_WAVE - 1) * cm.DOT_POINTS_PER_BLOCK + 1,
+                *(cm.DOTS_WAVE * 256 * uv + e for uv in (8, 16, 32) for e in (-1, 1)))
+
+
+def _dots_on_workspace(d, g, h, m, w, dd, ws):
+    """K8 on a workspace from NaN-filled summaries: to K5's tolerances, the
+    ticket back at 0, a second call the same bits."""
+    ws.summaries.fill_(float("nan"))
+    got = cm.merged_dots(d, g, h, m, w, dd, workspace=ws)
+    again = cm.merged_dots(d, g, h, m, w, dd, workspace=ws)
+    torch.cuda.synchronize()
+    assert int(ws.ticket.item()) == 0
+    assert torch.equal(got, again) and got.data_ptr() != again.data_ptr()
+    _dots_check(d, g, h, m, w, dd)
+    assert torch.equal(got, cm.merged_dots(d, g, h, m, w, dd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_LENGTHS)
+@pytest.mark.parametrize("kind,diag", TYPE_DIAG)
+def test_k8_wave_edges_on_card(cuda_device, kind, diag, n):
+    """K8 at the edges of its wave and of its unrolled trips, with and
+    without a weight, on a workspace: to K5's tolerances, the ticket at 0
+    after every call, repeated calls bit for bit."""
+    dd = TYPES[kind][2]
+    ws = cm.DotsWorkspace(dd, cuda_device)
+    for weight in (False, True):
+        _, g, d, h, m, w = _vectors(kind, diag, weight, seed=n, n=n, device=cuda_device)
+        _dots_on_workspace(d, g, h, m, w, dd, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f64", "bf16", "mixed"])
+def test_k8_workspace_on_unaligned_views_on_card(cuda_device, kind):
+    """K8 on a workspace on views one element off a 16-byte boundary, alike
+    and unlike, at a length with whole trips and a ragged tail."""
+    n = cm.DOTS_WAVE * 256 * 16 + 5
+    dd = TYPES[kind][2]
+    _, g, d, h, m, _ = _vectors(kind, True, False, seed=2, n=n + 2, device=cuda_device)
+    ws = cm.DotsWorkspace(dd, cuda_device)
+    for off in ((1, 1, 1, 1), (1, 0, 2, 1), (0, 1, 1, 0)):
+        v = [t[o : o + n] for t, o in zip((g, d, h, m), off)]
+        _dots_on_workspace(v[1], v[0], v[2], v[3], None, dd, ws)
+
+
 @pytest.mark.cuda
 def test_cuda_solve_never_runs_plain(cuda_device, monkeypatch):
     def refuse(*a, **k):
@@ -367,8 +494,8 @@ def test_cuda_solve_never_runs_plain(cuda_device, monkeypatch):
         x, info = pt.solve_cg_merged(op.vmult, b, pt.IterationNumberControl(7, 0.0), diag=op.jacobi_preconditioner(),
                                      deferred_x_update=deferred)
         assert info["n_iterations"] == 7 and bool(torch.isfinite(x).all())
-    # four launches an iteration beside the apply: K7, K8 and its finisher; one K7 and K8 more to start
-    assert (cm.UPDATE_LAUNCHES - before[0], cm.DOTS_LAUNCHES - before[1], cm.FINISH_LAUNCHES - before[2]) == (16, 16, 16)
+    # two launches an iteration beside the apply, K7 and K8 (no finisher on one device); one K7 and K8 more to start
+    assert (cm.UPDATE_LAUNCHES - before[0], cm.DOTS_LAUNCHES - before[1], cm.FINISH_LAUNCHES - before[2]) == (16, 16, 0)
 
 
 @pytest.mark.cuda
