@@ -256,9 +256,14 @@ anything does not build, launch, agree or converge. Phases:
     f64 run at cycle 10 against the cycle-10 goldens;
 52. K7 and K8 (``csrc/cg_merged.cu``): the ptxas registers of their 28 + 14
     instantiations and the finisher's 2 (fails if one is missing, spills or
-    keeps a stack frame); K8's block count from the kernel against
-    ``ops/cg_merged.dots_blocks``; K7 bitwise against ``merged_update_plain``
-    in every mode and K8 against the plain dots and scalars to K5's
+    keeps a stack frame), each K7 instantiation's launch bound, resident
+    blocks and whole-wave grid beside its registers (fails if fewer blocks
+    are resident than its bound asks); K8's block count from
+    the kernel against ``ops/cg_merged.dots_blocks``; K7 bitwise against
+    ``merged_update_plain`` in every mode, twice in a row, with and without
+    a workspace (the second call on it checks h alone), also either side of
+    one pack a thread on each instantiation's whole wave, and K8
+    against the plain dots and scalars to K5's
     tolerances from NaN-filled summaries, with the identity or a diagonal,
     no dot weight, a ``[nz, ny, 1]`` one (broadcast, as the solver does) or a
     full one, f64 / f32 / bf16 and the mixed bf16 / f32 pair, at lengths 1,
@@ -269,7 +274,8 @@ anything does not build, launch, agree or converge. Phases:
     leaves its ticket at 0, and two solves' calls interleaved on two
     workspaces each give their own; then both at cycle 33 against their
     plain versions and timed by ``scripts/exp_solver_budget`` (lines (j) and
-    (k): the card's time and the host's a call) beside the plain versions,
+    (k): the card's time and the host's a call as the solver calls them, on
+    a workspace; K7's host time without one too) beside the plain versions,
     the bound and, for K8, ``torch.mm(V, V.T)``.
 
 The merged CG (``solve_cg_merged``) runs K7 and K8 wherever it runs: phases
@@ -1673,7 +1679,8 @@ def _ptxas(tag, name, source, pattern, want, group):
     its report line and its entry there; one line per group with
     ``entry:registers`` per instantiation, and every instantiation with a
     stack frame or spill stores. Fails unless all ``want`` instantiations are
-    in the report, none with a stack frame or spill stores."""
+    in the report, none with a stack frame or spill stores; returns the
+    report (template arguments -> regs, stack, spill)."""
     import re
 
     from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
@@ -1702,6 +1709,7 @@ def _ptxas(tag, name, source, pattern, want, group):
                              f"the build log no longer matches {pattern}")
     if bad:
         raise AssertionError(f"{name} spills or keeps a stack frame in {len(bad)} instantiations")
+    return report
 
 
 def _ptxas_pq(args):
@@ -4062,19 +4070,65 @@ def _k8_check(d, g, h, m, w, dd, label):
 
 
 def _k7_check(x, g, d, h, m, scal, prev, mode, label):
-    """K7 on x, g and d in place against merged_update_plain on copies of
-    them, bitwise; returns the max abs difference (0)."""
+    """K7 on x, g and d in place, twice in a row, and on copies of them on a
+    workspace (its rows holding scal and prev; the second call checks h
+    alone) against merged_update_plain on copies, bitwise; returns the max
+    abs difference (0)."""
     import torch
 
-    from deal_and_ceed_on_gpu_torch.ops.cg_merged import merged_update, merged_update_plain
+    from deal_and_ceed_on_gpu_torch.ops.cg_merged import DotsWorkspace, merged_update, merged_update_plain
+
+    def twin(t):  # a copy at the same offset from a 16-byte boundary
+        lead = t.data_ptr() % 16 // t.element_size()
+        return torch.empty(lead + t.numel(), dtype=t.dtype, device=t.device)[lead:].view(t.shape).copy_(t)
 
     got, want = (x, g, d), [v.clone() for v in (x, g, d)]
-    merged_update(*got, h, m, scal, prev, mode)
-    merged_update_plain(*want, h, m, scal, prev, mode)
+    on_ws = [None if mode == "init" else twin(x), twin(g), twin(d)]
+    ws, ws_scal, ws_prev = None, scal, prev
+    if mode != "init":
+        ws = DotsWorkspace(scal.dtype, DEVICE)
+        ws_scal, ws_prev = ws.next_summary(), ws.next_summary()
+        ws_scal.copy_(scal)
+        ws_prev.copy_(prev)
+    for _ in range(2):
+        merged_update(*got, h, m, scal, prev, mode)
+        merged_update(*on_ws, h, m, ws_scal, ws_prev, mode, workspace=ws)
+        merged_update_plain(*want, h, m, scal, prev, mode)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError(f"K7 ({mode}) differs from its plain version ({label})")
+    if mode == "init":
+        on_ws[0] = want[0]
+    if not all(torch.equal(a, b) for a, b in zip(got, want)) or not all(torch.equal(a, b) for a, b in zip(on_ws, want)):
+        raise AssertionError(f"K7 ({mode}) differs from its plain version ({label}): without a workspace "
+                             f"{all(torch.equal(a, b) for a, b in zip(got, want))}, on one "
+                             f"{all(torch.equal(a, b) for a, b in zip(on_ws, want))}")
     return max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+
+
+def _k7_grid(report):
+    """Each K7 instantiation's registers (ptxas), launch bound, resident
+    blocks and whole-wave grid (``ops/cg_merged.update_wave``),
+    one line a pair and diagonal; fails if fewer blocks are resident than the
+    bound asks. Returns {(kind, diag, mode): grid}."""
+    import torch
+
+    from deal_and_ceed_on_gpu_torch.ops.cg_merged import update_wave
+
+    codes = {v: k for k, v in K78_PAIRS.items()}
+    grids = {}
+    for kind, types in K78_TYPES.items():
+        for diag in ((True,) if kind == "mixed" else (False, True)):
+            entries = []
+            for digit, mode in enumerate(("init", "plain", "two-step", "no-x")):
+                grid = update_wave(tuple(getattr(torch, t) for t in types), mode, diag, DEVICE)
+                regs = report[(codes[kind], str(int(diag)), str(digit))]["regs"]
+                grids[(kind, diag, mode)] = grid
+                entries.append(f"{mode} {regs} regs, bound {grid['min_blocks']}, resident {grid['resident']}, "
+                               f"grid {grid['wave']}")
+                if grid["resident"] < grid["min_blocks"]:
+                    raise AssertionError(f"phase 52: K7 {kind} diag={diag} {mode}: {grid['resident']} blocks "
+                                         f"resident, its launch bound asks {grid['min_blocks']}")
+            print(f"phase 52: K7 {kind} diag={diag}: " + "; ".join(entries))
+    return grids
 
 
 def _k8_interleaved(kind, diag, dd):
@@ -4097,11 +4151,12 @@ def _k8_interleaved(kind, diag, dd):
         raise AssertionError(f"K8 ({kind} diag={diag}): two solves interleaved on two workspaces interfere")
 
 
-def _k78_sweep():
+def _k78_sweep(grids):
     """K7 in every mode bitwise and K8 to K5's tolerances on every pair, the
     identity or a diagonal, each weight, every shape of K78_SHAPES and views
     off a 16-byte boundary, K8 on workspaces (see _k8_check) and two solves
-    interleaved; returns the case count."""
+    interleaved, K7 at its wave edges (``grids``, from _k7_grid); returns the
+    case count."""
     import torch
 
     from deal_and_ceed_on_gpu_torch.ops.cg_merged import merged_dots
@@ -4140,6 +4195,15 @@ def _k78_sweep():
                 n += 1 + len(K78_MODES)
             _k8_interleaved(kind, diag, dd)
             n += 1
+            # K7 either side of one pack of V points a thread on its whole wave
+            v = 16 // min(torch.empty((), dtype=getattr(torch, t)).element_size() for t in K78_TYPES[kind][:2])
+            for mode in K78_MODES:
+                grid = grids[(kind, diag, "plain" if mode == "odd-stop" else mode)]
+                for length in (grid["wave"] * 256 * v + e for e in (-1, 1)):
+                    x, g, d, h, m = _k78_vectors(kind, (length,), diag, seed=length)
+                    scal, prev = merged_dots(d, g, h, m, None, dd), merged_dots(d, g, 2 * h, m, None, dd)
+                    _k7_check(x, g, d, h, m, scal, prev, mode, f"{kind} K7 wave edge {length} diag={diag}")
+                    n += 1
     return n
 
 
@@ -4152,8 +4216,9 @@ def phase52_k7_k8():
     from deal_and_ceed_on_gpu_torch.ops import cg_merged
     from deal_and_ceed_on_gpu_torch.scripts.exp_solver_budget import merged_kernel_times
 
-    _ptxas("phase 52", "K7", cg_merged.SOURCE, K7_PATTERN, K7_INSTANTIATIONS,
-           lambda a: (f"{K78_PAIRS[a[0]]} diag={a[1]}", ("init", "x", "two-step", "no-x")[int(a[2])]))
+    report = _ptxas("phase 52", "K7", cg_merged.SOURCE, K7_PATTERN, K7_INSTANTIATIONS,
+                    lambda a: (f"{K78_PAIRS[a[0]]} diag={a[1]}", ("init", "x", "two-step", "no-x")[int(a[2])]))
+    grids = _k7_grid(report)
     _ptxas("phase 52", "K8", cg_merged.SOURCE, K8_PATTERN, K8_INSTANTIATIONS,
            lambda a: (K78_PAIRS[a[0]], f"diag{a[1]}w{a[2]}"))
     _ptxas("phase 52", "K7/K8 finisher", cg_merged.SOURCE, K78_FINISH_PATTERN, 2,
@@ -4164,8 +4229,8 @@ def phase52_k7_k8():
     if any(b != p or not 1 <= b <= DOTS_WAVE for b, p in grid):
         raise AssertionError("phase 52: K8's block count differs between the kernel and ops/cg_merged.dots_blocks")
     t0 = time.perf_counter()
-    n = _k78_sweep()
-    print(f"phase 52: K7 bitwise in every mode and K8 to K5's tolerances on {n} cases (f64 / f32 / bf16 / mixed, "
+    n = _k78_sweep(grids)
+    print(f"phase 52: K7 bitwise in every mode (with and without a workspace, at its wave edges) and K8 to K5's tolerances on {n} cases (f64 / f32 / bf16 / mixed, "
           f"identity or diagonal, weights none / [nz, ny, 1] / full, lengths "
           f"{', '.join(str(s) for s in K78_SHAPES)}, views off a 16-byte boundary; K8 on workspaces: repeats bitwise, "
           f"the ticket 0 after every call, two solves interleaved) in {time.perf_counter() - t0:.1f} s")
@@ -4182,13 +4247,16 @@ def phase52_k7_k8():
         size = torch.empty((), dtype=getattr(torch, stream or dtype)).element_size()
         b7, by7 = _bound_ms(7 * n_dofs * size, 6 * n_dofs, label)
         b8, by8 = _bound_ms(3 * n_dofs * size, 8 * n_dofs, label)
-        k7[label] = dict(max_abs_err=err7, ms=1e3 * t["j"], host_ms=1e3 * t["j_host"], plain_ms=1e3 * t["j_plain"],
-                         bound_ms=b7, bound_by=by7, library_ms=None)
+        k7[label] = dict(max_abs_err=err7, ms=1e3 * t["j"], host_ms=1e3 * t["j_host"],
+                         host_ms_alone=1e3 * t["j_host_alone"], plain_ms=1e3 * t["j_plain"], bound_ms=b7,
+                         bound_by=by7, library_ms=None)
         k8[label] = dict(max_abs_err=err8, ms=1e3 * t["k"], host_ms=1e3 * t["k_host"], plain_ms=1e3 * t["k_plain"],
                          bound_ms=b8, bound_by=by8, library_ms=1e3 * t["k_torch"])
-        print(f"phase 52: cycle {MAIN_CYCLE} ({n_dofs} points) {label}: K7 (plain mode, identity) {k7[label]['ms']:.4f} "
+        print(f"phase 52: cycle {MAIN_CYCLE} ({n_dofs} points) {label}: K7 (plain mode, identity, on a workspace) "
+              f"{k7[label]['ms']:.4f} "
               f"ms on the card ({100 * b7 / k7[label]['ms']:.1f} % of the bound {b7:.4f} ms, {by7}), "
-              f"{k7[label]['host_ms']:.4f} ms on the host, plain {k7[label]['plain_ms']:.4f} ms, bitwise; K8 "
+              f"{k7[label]['host_ms']:.4f} ms on the host on a workspace ({k7[label]['host_ms_alone']:.4f} without), "
+              f"plain {k7[label]['plain_ms']:.4f} ms, bitwise; K8 "
               f"{k8[label]['ms']:.4f} ms on the card ({100 * b8 / k8[label]['ms']:.1f} % of the bound {b8:.4f} ms, "
               f"{by8}), {k8[label]['host_ms']:.4f} ms on the host, plain {k8[label]['plain_ms']:.4f} ms, "
               f"torch.mm(V, V.T) {k8[label]['library_ms']:.4f} ms, max abs err of the sums {err8:.3e} "

@@ -44,11 +44,17 @@
 // a grid-stride loop over packs of 16-byte loads (V points a pack, V = 16 /
 // the narrowest element), a scalar head that brings every array onto a
 // 16-byte boundary where one offset does that for all of them, and a scalar
-// path where none does (views off a boundary by different amounts). K8's
-// pass is short (~22 us of traffic in bf16 at 12.5M points), so its fixed
-// costs count: one launch does the sums and the summary; its grid is one
-// whole wave at most (DOT_WAVE blocks, all resident at once); and each
-// thread issues U packs of every array (128-192 bytes) before its first FMA,
+// path where none does (views off a boundary by different amounts). K7's
+// grid is one whole wave of its instantiation's resident blocks, worked out
+// at its first launch on a device and kept; its wrapper checks a solve's
+// x, g, d and diagonal once, and h at each call. More resident blocks,
+// several packs of every array in flight a thread, a block-tiled order and
+// cache hints were each measured no faster on the H100 (PERF.md, K7's row),
+// so a thread keeps one pack of each array in flight. K8's pass is short
+// (~22 us of traffic in bf16 at 12.5M points), so its fixed costs count:
+// one launch does the sums and the summary; its grid is one whole wave at
+// most (DOT_WAVE blocks, all resident at once); and each thread issues U
+// packs of every array (128-192 bytes) before its first FMA, with
 // read-only loads that leave the vectors in L2 for K7, which reads them next.
 //
 // Rounding. K7 makes torch's roundings: each torch op of the plain version
@@ -74,6 +80,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <type_traits>
@@ -83,6 +90,7 @@ namespace {
 // the summary's layout (ops/cg_merged.py restates it)
 constexpr int N_DOTS = 7, S_ALPHA = 7, S_BETA = 8, S_RES = 9, S_RATIO = 10;
 constexpr int UPDATE_THREADS = 256, DOTS_THREADS = 256;
+constexpr int MAX_DEVICES = 64;  // K7's kept grids, a device each
 // K7: two resident blocks an SM at least: ptxas spills in some instantiations
 // at three or four (bf16 two-step) and, with no bound given, at 48 registers
 // in two
@@ -474,59 +482,106 @@ long long common_head(int v, const void* const* ptrs, const int* sizes, int coun
   return -1;
 }
 
-// K7's grid: one wave of resident blocks, or fewer where n needs fewer
-template <typename Kernel>
-cudaError_t wave(Kernel kernel, long long work, int threads, long long* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+// a K7 call's arguments as the C interface takes them
+struct UpdateCall {
+  int mode;
+  void *x, *g, *d;
+  const void *h, *m, *scal, *prev;
+  long long n;
+};
+
+// the SM count of a device, asked once
+cudaError_t sm_count(int device, int* sms) {
+  static std::atomic<int> kept[MAX_DEVICES];
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  *sms = kept[device].load(std::memory_order_relaxed);
+  if (*sms > 0) return cudaSuccess;
+  const cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) kept[device].store(*sms, std::memory_order_relaxed);
+  return err;
+}
+
+// A K7 instantiation's whole wave on `device` (the current one): its
+// resident blocks an SM times the SM count, asked at its first call on the
+// device and kept (two threads asking at once store the same numbers).
+template <typename T, typename X, typename C, bool DIAG, int MODE>
+cudaError_t update_wave(int device, int* resident, long long* wave) {
+  static std::atomic<int> kept[MAX_DEVICES];
+  int sms = 0;
+  cudaError_t err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
-  const long long need = (work + threads - 1) / threads, most = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  *blocks = need < 1 ? 1 : need > most ? most : need;
+  *resident = kept[device].load(std::memory_order_relaxed);
+  if (*resident == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, update_kernel<T, X, C, DIAG, MODE>, UPDATE_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    if (*resident < 1) *resident = 1;
+    kept[device].store(*resident, std::memory_order_relaxed);
+  }
+  *wave = (long long)sms * *resident;
   return cudaSuccess;
 }
 
+// K7 on the current device (`device`): its head over the arrays it reads,
+// its grid (a whole wave or fewer where n needs fewer), then the launch
 template <typename T, typename X, typename C, bool DIAG, int MODE>
-cudaError_t launch_update(void* x, void* g, void* d, const void* h, const void* m, const void* scal,
-                          const void* prev, long long n, cudaStream_t st) {
+cudaError_t launch_update(const UpdateCall& c, int device, cudaStream_t st) {
   constexpr int V = lanes<T, X>();
   constexpr bool XRW = MODE == M_X || MODE == M_TWO_STEP;
-  UpdateArgs<T, X, C> args{static_cast<X*>(x), static_cast<T*>(g), static_cast<X*>(d),
-                           static_cast<const T*>(h), static_cast<const X*>(m), static_cast<const C*>(scal),
-                           static_cast<const C*>(prev), n, 0};
-  const void* ptrs[5] = {XRW ? x : nullptr, g, d, MODE != M_INIT ? h : nullptr, DIAG ? m : nullptr};
+  const void* ptrs[5] = {XRW ? c.x : nullptr, c.g, c.d, MODE != M_INIT ? c.h : nullptr, DIAG ? c.m : nullptr};
   const int sizes[5] = {(int)sizeof(X), (int)sizeof(T), (int)sizeof(X), (int)sizeof(T), (int)sizeof(X)};
-  args.head = common_head(V, ptrs, sizes, 5);
-  long long blocks = 0;
-  const cudaError_t err = wave(update_kernel<T, X, C, DIAG, MODE>, args.head < 0 ? n : (n + V - 1) / V,
-                               UPDATE_THREADS, &blocks);
+  const long long head = common_head(V, ptrs, sizes, 5);
+  int resident = 0;
+  long long wave = 0;
+  const cudaError_t err = update_wave<T, X, C, DIAG, MODE>(device, &resident, &wave);
   if (err != cudaSuccess) return err;
+  const long long work = head < 0 ? c.n : (c.n + V - 1) / V;
+  const long long need = (work + UPDATE_THREADS - 1) / UPDATE_THREADS;
+  const long long blocks = need < 1 ? 1 : need > wave ? wave : need;
+  const UpdateArgs<T, X, C> args{static_cast<X*>(c.x), static_cast<T*>(c.g), static_cast<X*>(c.d),
+                                 static_cast<const T*>(c.h), static_cast<const X*>(c.m),
+                                 static_cast<const C*>(c.scal), static_cast<const C*>(c.prev), c.n, head};
   update_kernel<T, X, C, DIAG, MODE><<<(unsigned)blocks, UPDATE_THREADS, 0, st>>>(args);
   return cudaGetLastError();
 }
 
-template <typename T, typename X, typename C, bool DIAG>
-cudaError_t update_mode(int mode, void* x, void* g, void* d, const void* h, const void* m, const void* scal,
-                        const void* prev, long long n, cudaStream_t st) {
+template <typename T, typename X, typename C, bool DIAG, int MODE>
+struct Inst {  // one K7 instantiation, as a tag
+  using t = T;
+  using x = X;
+  using c = C;
+  static constexpr bool diag = DIAG;
+  static constexpr int mode = MODE;
+};
+
+// f(Inst<...>{}) for K7's instantiation of a pair, mode and diagonal
+template <typename T, typename X, typename C, bool DIAG, typename F>
+cudaError_t with_mode(int mode, F&& f) {
   switch (mode) {
-    case M_INIT: return launch_update<T, X, C, DIAG, M_INIT>(x, g, d, h, m, scal, prev, n, st);
-    case M_X: return launch_update<T, X, C, DIAG, M_X>(x, g, d, h, m, scal, prev, n, st);
-    case M_TWO_STEP: return launch_update<T, X, C, DIAG, M_TWO_STEP>(x, g, d, h, m, scal, prev, n, st);
-    case M_NO_X: return launch_update<T, X, C, DIAG, M_NO_X>(x, g, d, h, m, scal, prev, n, st);
+    case M_INIT: return f(Inst<T, X, C, DIAG, M_INIT>{});
+    case M_X: return f(Inst<T, X, C, DIAG, M_X>{});
+    case M_TWO_STEP: return f(Inst<T, X, C, DIAG, M_TWO_STEP>{});
+    case M_NO_X: return f(Inst<T, X, C, DIAG, M_NO_X>{});
     default: return cudaErrorInvalidValue;
   }
 }
-
-template <typename T, typename X, typename C>
-cudaError_t update_types(int mode, void* x, void* g, void* d, const void* h, const void* m, const void* scal,
-                         const void* prev, long long n, cudaStream_t st) {
+template <typename T, typename X, typename C, typename F>
+cudaError_t with_diag(int mode, bool diag, F&& f) {
   if constexpr (std::is_same<T, X>::value) {
-    if (m == nullptr) return update_mode<T, X, C, false>(mode, x, g, d, h, m, scal, prev, n, st);
+    if (!diag) return with_mode<T, X, C, false>(mode, f);
   } else {
-    if (m == nullptr) return cudaErrorInvalidValue;  // mixed types come from a diagonal of the wider type
+    if (!diag) return cudaErrorInvalidValue;  // mixed types come from a diagonal of the wider type
   }
-  return update_mode<T, X, C, true>(mode, x, g, d, h, m, scal, prev, n, st);
+  return with_mode<T, X, C, true>(mode, f);
+}
+template <typename F>
+cudaError_t with_update(int pair, int mode, bool diag, F&& f) {
+  switch (pair) {
+    case 0: return with_diag<double, double, double>(mode, diag, f);
+    case 1: return with_diag<float, float, float>(mode, diag, f);
+    case 2: return with_diag<__nv_bfloat16, __nv_bfloat16, float>(mode, diag, f);
+    case 3: return with_diag<__nv_bfloat16, float, float>(mode, diag, f);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // K8's grid for n points: one block per DOT_POINTS_PER_BLOCK points, at most
@@ -589,20 +644,41 @@ int on_device(int device, Launch launch) {
 // K7 on n points: mode 0 INIT (reads g and the diagonal, writes d), 1 X,
 // 2 TWO_STEP, 3 NO_X (see above); x, g, d are updated in place; h, m (the
 // diagonal, or null) are read, scal [11] (this iteration's summary) and prev
-// [11] (the previous one's, read in TWO_STEP) at the dot type. Returns the
-// cudaError_t of the launch; never synchronises.
+// [11] (the previous one's, read in TWO_STEP) at the dot type. The launch
+// goes to `stream` of `device`; the grid was worked out at the
+// instantiation's first call on that device, so the only runtime calls are
+// cudaGetDevice (cudaSetDevice where `device` is not current), the launch
+// and its error. Returns the cudaError_t of the launch; never synchronises.
 extern "C" int cg_merged_update_launch(int pair, int mode, void* x, void* g, void* d, const void* h,
                                        const void* m, const void* scal, const void* prev, long long n,
-                                       void* stream) {
+                                       int device, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
+  const UpdateCall c{mode, x, g, d, h, m, scal, prev, n};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (pair) {
-    case 0: return (int)update_types<double, double, double>(mode, x, g, d, h, m, scal, prev, n, st);
-    case 1: return (int)update_types<float, float, float>(mode, x, g, d, h, m, scal, prev, n, st);
-    case 2: return (int)update_types<__nv_bfloat16, __nv_bfloat16, float>(mode, x, g, d, h, m, scal, prev, n, st);
-    case 3: return (int)update_types<__nv_bfloat16, float, float>(mode, x, g, d, h, m, scal, prev, n, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return on_device(device, [&]() {
+    return with_update(pair, mode, m != nullptr, [&](auto inst) {
+      using I = decltype(inst);
+      return launch_update<typename I::t, typename I::x, typename I::c, I::diag, I::mode>(c, device, st);
+    });
+  });
+}
+
+// K7's grid for a pair, mode and diagonal on `device`: out = {resident
+// blocks an SM (the occupancy of its registers), the blocks of a whole wave
+// (what a large n launches), its launch bound's minimum blocks an SM}.
+// Returns a cudaError_t.
+extern "C" int cg_merged_update_wave(int pair, int mode, int diag, int device, int* out) {
+  return on_device(device, [&]() {
+    return with_update(pair, mode, diag != 0, [&](auto inst) {
+      using I = decltype(inst);
+      long long wave = 0;
+      const cudaError_t err =
+          update_wave<typename I::t, typename I::x, typename I::c, I::diag, I::mode>(device, &out[0], &wave);
+      out[1] = (int)wave;
+      out[2] = MIN_BLOCKS;
+      return err;
+    });
+  });
 }
 
 // K8's block count for n points: the rows of its partials (at most

@@ -7,23 +7,26 @@ the updates at lines 239-260 and ``update_a0`` at 209, the seven dots at
 (``bp5/solver.h:48-336``). ``solvers/cg_merged.py`` runs an iteration as
 K7, the operator apply and K8 (and K8's finisher where ranks all-reduce).
 
-``merged_update(x, g, d, h, diag, scal, prev, mode)`` is K7: it updates x,
-g and d in place (``mode`` one of ``MODES``; ``"init"`` only writes d =
--diag g from g), reading h, the Jacobi ``diag`` (or None, the identity),
-this iteration's summary ``scal`` (alpha, beta) and, in ``"two-step"``, the
-previous one's ``prev`` (its alpha / beta). ``merged_dots(d, g, h, diag,
-weight, dot_dtype, comm, out, workspace)`` is K8, one launch: it returns
+``merged_update(x, g, d, h, diag, scal, prev, mode, workspace)`` is K7: it
+updates x, g and d in place (``mode`` one of ``MODES``; ``"init"`` only
+writes d = -diag g from g), reading h, the Jacobi ``diag`` (or None, the
+identity), this iteration's summary ``scal`` (alpha, beta) and, in
+``"two-step"``, the previous one's ``prev`` (its alpha / beta).
+``merged_dots(d, g, h, diag, weight, dot_dtype, comm, out, workspace)`` is
+K8, one launch: it returns
 the summary ``[11]`` at the dot dtype, the seven sums of ``update_b`` (d.h,
 h.h, g.h, g.g, g.(diag h), h.(diag h), g.diag.g, each weighted by
 ``weight`` where given, summed over the ranks of ``comm`` where given)
 followed by alpha, beta, the reduction-free residual and alpha / beta
 (``S_ALPHA``, ...); with ``comm``, K8 writes the local sums and the
 one-thread finisher the scalars after the all-reduce. A ``DotsWorkspace``
-holds K8's scratch for a solve. CUDA tensors launch the kernels
+holds K8's scratch for a solve and both kernels' checked vectors, so a
+call with the solve's own vectors checks h alone. CUDA tensors launch the kernels
 (``csrc/cg_merged.cu``) or raise; CPU tensors run the plain versions, the
 parent solver's torch expressions unchanged: ``merged_update_plain``,
 ``merged_dots_plain`` and ``merged_scalars_plain``. ``UPDATE_LAUNCHES``,
-``DOTS_LAUNCHES`` and ``FINISH_LAUNCHES`` count kernel launches.
+``DOTS_LAUNCHES`` and ``FINISH_LAUNCHES`` count kernel launches;
+``update_wave`` reads K7's grid on the card.
 
 Vectors are contiguous and of one shape (any: the kernels see a flat
 length). Their types: g and h at the right-hand side's storage type T, x,
@@ -64,6 +67,7 @@ __all__ = [
     "merged_update",
     "merged_update_plain",
     "overlaps",
+    "update_wave",
 ]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "cg_merged.cu"
@@ -72,6 +76,8 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "cg_merged.cu"
 N_DOTS, S_ALPHA, S_BETA, S_RES, S_RATIO, SUMMARY = 7, 7, 8, 9, 10, 11
 # K7's modes -> the kernel's: plain and odd-stop are both x += a d
 MODES = {"init": 0, "plain": 1, "two-step": 2, "odd-stop": 1, "no-x": 3}
+# the modes that read and write x
+_USES_X = ("plain", "odd-stop", "two-step")
 # K8's grid (csrc/cg_merged.cu: DOT_WAVE, DOT_POINTS_PER_BLOCK): a block per
 # 2048 points, at most one whole wave of 3 blocks on each of 132 SMs
 DOTS_WAVE, DOT_POINTS_PER_BLOCK = 132 * 3, 2048
@@ -175,8 +181,10 @@ def _library():
 
     lib = load_library(SOURCE)
     lib.cg_merged_update_launch.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.cg_merged_update_launch.restype = ctypes.c_int
+    lib.cg_merged_update_wave.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.cg_merged_update_wave.restype = ctypes.c_int
     lib.cg_merged_dots_blocks.argtypes = [ctypes.c_longlong]
     lib.cg_merged_dots_blocks.restype = ctypes.c_int
     lib.cg_merged_dots_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
@@ -231,56 +239,117 @@ def _check_summary(what, s, like, dd):
         raise ValueError(f"{what}: want a contiguous [{SUMMARY}] summary at {dd} on {like.device}")
 
 
-def merged_update(x, g, d, h, diag, scal, prev, mode: str):
+def merged_update(x, g, d, h, diag, scal, prev, mode: str, workspace=None):
     """K7: one update pass in place (see the module docstring); ``mode`` is
     ``"init"`` (d = -diag g; x, h, scal and prev unused), ``"plain"`` or
     ``"odd-stop"`` (x += a d), ``"two-step"`` (x += (a + r) d + r diag g,
     r from ``prev``) or ``"no-x"``, each then g += a h and d = b d - diag
-    g. CUDA tensors launch the kernel (or raise), CPU tensors run
+    g. With a ``workspace`` (a ``DotsWorkspace`` of the summaries' dtype on
+    g's device: a solve makes one and passes it to every call but
+    ``"init"``), x, g, d and ``diag`` are checked when they change, h at
+    every call. CUDA tensors launch the kernel (or raise), CPU tensors run
     ``merged_update_plain``."""
     global UPDATE_LAUNCHES
-    if mode not in MODES:
-        raise ValueError(f"cg update: mode {mode!r}, want one of {sorted(MODES)}")
-    init, uses_x, two_step = mode == "init", mode in ("plain", "odd-stop", "two-step"), mode == "two-step"
-    if init:  # the dots' type does not enter d = -diag g: the pair's own
-        vecs, written = {"g": g, "d": d, "diag": diag}, ("d",)
-        dd = torch.float64 if g.dtype == torch.float64 else torch.float32
+    ws = workspace
+    kept = ws._update if isinstance(ws, DotsWorkspace) and mode != "init" else None
+    if kept is not None and mode in MODES and kept.matches(x, g, d, diag, mode):
+        # the solve's own x, g, d and diagonal, checked at an earlier call: h alone
+        kept.check_h(h, mode)
+        if not (scal is ws._rows[0] or scal is ws._rows[1]):
+            _check_summary("cg update", scal, g, kept.dd)
+        if mode == "two-step" and not (prev is ws._rows[0] or prev is ws._rows[1]):
+            _check_summary("cg update (prev)", prev, g, kept.dd)
     else:
-        if h is None or scal is None:
-            raise ValueError("cg update: h and scal are required")
-        vecs = {"x": x if uses_x else None, "g": g, "d": d, "h": h, "diag": diag}
-        written = ("x", "g", "d") if uses_x else ("g", "d")
-        dd = scal.dtype
-        _check_summary("cg update", scal, g, dd)
-        if two_step:
-            _check_summary("cg update (prev)", prev, g, dd)
-    pair = _check_vectors("cg update", vecs, written, dd)
-    if g.device.type == "cpu":
+        kept = _check_update(x, g, d, h, diag, scal, prev, mode, ws)
+    if kept.pair is None:
         merged_update_plain(x, g, d, h, diag, scal, prev, mode)
         return
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(g.device):
-        rc = _library().cg_merged_update_launch(
-            pair, MODES[mode], ptr(x) if uses_x else None, g.data_ptr(), d.data_ptr(),
-            None if init else h.data_ptr(), ptr(diag), None if init else scal.data_ptr(),
-            prev.data_ptr() if two_step else None, g.numel(), torch.cuda.current_stream(g.device).cuda_stream,
-        )
+    init, two_step = mode == "init", mode == "two-step"
+    rc = _library().cg_merged_update_launch(
+        kept.pair, MODES[mode], kept.x if mode in _USES_X else None, kept.g, kept.d, None if init else h.data_ptr(),
+        kept.m, None if init else scal.data_ptr(), prev.data_ptr() if two_step else None, kept.n,
+        kept.index, _raw_stream(kept.index))
     if rc != 0:
         raise RuntimeError(f"cg update kernel launch failed: cudaError {rc}")
     UPDATE_LAUNCHES += 1
 
 
+class _UpdateKey:
+    """K7's checked x, g, d and diagonal, for one call or a solve's: their
+    pointers, spans, pair code and device index."""
+
+    def __init__(self, x, g, d, diag, dd, pair):
+        self.tensors, self.dd, self.pair = (x, g, d, diag), dd, pair
+        self.shape, self.dtype, self.device, self.n = g.shape, g.dtype, g.device, g.numel()
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        self.x, self.g, self.d, self.m = ptr(x), ptr(g), ptr(d), ptr(diag)
+        self.index = g.device.index
+        span = lambda t: (t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())  # noqa: E731
+        self.spans = {"x": None if x is None else span(x), "g": span(g), "d": span(d)}
+        self.h_bytes = self.n * g.element_size()
+
+    def matches(self, x, g, d, diag, mode):
+        kx, kg, kd, km = self.tensors
+        return kg is g and kd is d and km is diag and (mode not in _USES_X or x is not None and kx is x)
+
+    def check_h(self, h, mode):
+        """h of g's shape, type and device, contiguous, and apart from the
+        vectors K7 writes in ``mode``."""
+        if h is None or h.dtype != self.dtype or h.shape != self.shape or h.device != self.device or \
+                not h.is_contiguous():
+            got = None if h is None else f"a {tuple(h.shape)} {h.dtype} tensor on {h.device}"
+            raise ValueError(f"cg update: h is {got}, want a contiguous {tuple(self.shape)} {self.dtype} one on "
+                             f"{self.device}")
+        lo = h.data_ptr()
+        hi = lo + self.h_bytes
+        for name in ("x", "g", "d") if mode in _USES_X else ("g", "d"):
+            a, b = self.spans[name]
+            if lo < b and a < hi and self.h_bytes > 0:
+                raise ValueError(f"cg update: h overlaps {name}, which it updates")
+
+
+def _check_update(x, g, d, h, diag, scal, prev, mode, ws):
+    """Every check of a K7 call; returns its key, kept in ``ws`` (whose
+    dtype and device it checks) where one is given."""
+    if mode not in MODES:
+        raise ValueError(f"cg update: mode {mode!r}, want one of {sorted(MODES)}")
+    uses_x = mode in _USES_X
+    if mode == "init":  # the dots' type does not enter d = -diag g: the pair's own
+        vecs, written = {"g": g, "d": d, "diag": diag}, ("d",)
+        dd = torch.float64 if g.dtype == torch.float64 else torch.float32
+    else:
+        if h is None or scal is None or uses_x and x is None:
+            raise ValueError(f"cg update: h, scal{', x' if uses_x else ''} are required in mode {mode!r}")
+        vecs = {"x": x if uses_x else None, "g": g, "d": d, "h": h, "diag": diag}
+        written = ("x", "g", "d") if uses_x else ("g", "d")
+        dd = scal.dtype
+        _check_summary("cg update", scal, g, dd)
+        if mode == "two-step":
+            _check_summary("cg update (prev)", prev, g, dd)
+    pair = _check_vectors("cg update", vecs, written, dd)
+    if ws is None or mode == "init":
+        return _UpdateKey(x if uses_x else None, g, d, diag, dd, pair)
+    if not isinstance(ws, DotsWorkspace):
+        raise ValueError(f"cg update: the workspace is a {type(ws).__name__}, not a DotsWorkspace")
+    if ws.partials.dtype != dd or ws.partials.device != g.device:
+        raise ValueError(f"cg update: the workspace is {ws.partials.dtype} on {ws.partials.device}, want {dd} on "
+                         f"{g.device}")
+    ws._update = _UpdateKey(x if uses_x else None, g, d, diag, dd, pair)
+    return ws._update
+
+
 class DotsWorkspace:
-    """K8's scratch for one solve on one stream, made once and passed to every
-    ``merged_dots`` call: ``partials`` ``[rows, 7]`` at the dot dtype (rows
+    """A solve's scratch for K8 and its checked vectors for K7 and K8, on one
+    stream, made once and passed to every ``merged_dots`` and
+    ``merged_update`` call: ``partials`` ``[rows, 7]`` at the dot dtype (rows
     >= ``dots_blocks(n)``; ``DOTS_WAVE``, enough for any n, by default), the
     ticket counter ``ticket`` (int32, 0 between launches), ``sums`` ``[7]``
     (the local sums before an all-reduce) and ``summaries`` ``[2, 11]``, which
     the calls without an ``out`` fill in turn: a solve reads this iteration's
     summary and the previous one's without allocating, and a returned summary
     stays as it is until the second call after it. It also keeps the d, g,
-    diagonal and weight it was last called with, checked, and their
-    pointers."""
+    diagonal and weight K8 was last called with, and the x, g, d and
+    diagonal K7 was, checked, with their pointers."""
 
     def __init__(self, dtype: torch.dtype, device, rows: int = DOTS_WAVE):
         self.partials = torch.empty((rows, N_DOTS), dtype=dtype, device=device)
@@ -289,12 +358,27 @@ class DotsWorkspace:
         self.summaries = torch.zeros((2, SUMMARY), dtype=dtype, device=device)
         self._rows = self.summaries.unbind()
         self._turn = 0
-        self._key = None  # (d, g, diag, weight, dot dtype) of the last checked call
+        self._key = None  # (d, g, diag, weight, dot dtype) of K8's last checked call
         self._launch = None  # that call's kernel arguments but h's, out's and the stream
+        self._update = None  # K7's last checked call (an _UpdateKey)
 
     def next_summary(self) -> torch.Tensor:
         self._turn ^= 1
         return self._rows[self._turn]
+
+
+def update_wave(types, mode: str, diag: bool, device=0) -> dict:
+    """K7's grid on the card for one type pair (g's, x's and the dots'
+    dtypes, as ``_PAIRS``), mode and diagonal: the blocks an SM that are
+    resident (``resident``), the blocks of a whole wave, which a large n
+    launches (``wave``) and the launch bound's minimum blocks an SM
+    (``min_blocks``)."""
+    out = (ctypes.c_int * 3)()
+    dev = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
+    rc = _library().cg_merged_update_wave(_PAIRS[tuple(types)], MODES[mode], int(diag), dev.index or 0, out)
+    if rc != 0:
+        raise RuntimeError(f"cg update grid: cudaError {rc}")
+    return dict(zip(("resident", "wave", "min_blocks"), out))
 
 
 def _check_workspace(ws, dd, g):

@@ -16,14 +16,18 @@ the BP5 shape (``BrickMesh.bp5_cycle(cycle)``, p = 5, GLL), per precision:
   (g) K1 with the value term (one more stream, a zero table)
   (h) one pcg-merged iteration (``solve_cg_merged`` on K1, K7 and K8)
   (i) one pcg-fused iteration (``solve_cg_fused`` on K5, ``ops/cg.py``)
-  (j) K7, the merged CG's update pass (``ops/cg_merged.merged_update``,
-      identity diagonal): x, g, d updated in place from h (4 reads + 3
-      writes), beside its plain version, the torch update lines
+  (j) K7, the merged CG's update pass (``ops/cg_merged.merged_update`` on
+      a ``DotsWorkspace``, as the solver calls it; identity diagonal): x, g,
+      d updated in place from h (4 reads + 3 writes), beside its host time
+      without a workspace and its plain version, the torch update lines
   (k) K8 (``ops/cg_merged.merged_dots`` on a ``DotsWorkspace``, as the
       solver calls it): the seven sums of d, g and h (3 reads) and the
       scalars, beside its plain version and the library call ``torch.mm(V,
       V.T)`` on a stacked ``[3, n]`` of d, g and h (every identity-diagonal
       dot in one call)
+  (l) the apply's wrapper on the host: ``PoissonOperator.vmult`` on K1 as
+      the solver calls it (``h = A(d)``), ms a call over an unsynchronised
+      chain
 
 K7 and K8 have two times each: the card's (CUDA events around a chain that
 the host queued while the card was held, ``utils/timer.cuda_time_ms``) and
@@ -113,8 +117,10 @@ def _kernel_times(fn, n, device) -> tuple:
 
 def merged_kernel_times(label: str, n: int, chain: int = 100, device="cuda", seed: int = 0) -> dict:
     """Seconds per call at ``n`` points of one precision: K7 in the plain
-    mode with the identity diagonal on the card (``"j"``) and on the host
-    (``"j_host"``), its plain version (``"j_plain"``), K8 on a workspace on
+    mode with the identity diagonal on a workspace (the summaries its rows),
+    as the solver calls it, on the card (``"j"``) and on the host
+    (``"j_host"``), on the host without a workspace (``"j_host_alone"``),
+    its plain version (``"j_plain"``), K8 on a workspace on
     the card (``"k"``) and on the host (``"k_host"``), its plain version
     (``"k_plain"``) and ``torch.mm(V, V.T)`` on a stacked ``[3, n]`` of d,
     g and h at the storage dtype (``"k_torch"``); the plain versions and
@@ -126,11 +132,14 @@ def merged_kernel_times(label: str, n: int, chain: int = 100, device="cuda", see
     dd = cd  # dots at the compute dtype
     rng = np.random.default_rng(seed)
     x, g, d, h = (torch.as_tensor(rng.standard_normal(n), dtype=cd, device=device).to(sd) for _ in range(4))
-    scal = torch.ones(SUMMARY, dtype=dd, device=device)
+    ws7 = DotsWorkspace(dd, device)
+    scal = ws7.next_summary()
+    scal.fill_(1.0)
     scal[7:] = torch.tensor([1e-3, 0.5, 1.0, 2e-3], dtype=dd)
     out = {}
-    out["j"], out["j_host"] = _kernel_times(lambda: merged_update(x, g, d, h, None, scal, scal, "plain"), chain,
-                                            device)
+    out["j"], out["j_host"] = _kernel_times(
+        lambda: merged_update(x, g, d, h, None, scal, scal, "plain", workspace=ws7), chain, device)
+    out["j_host_alone"] = _host_per_call(lambda: merged_update(x, g, d, h, None, scal, scal, "plain"), chain, device)
     out["j_plain"] = _per_call(lambda: merged_update_plain(x, g, d, h, None, scal, scal, "plain"), chain, device)
     ws = DotsWorkspace(dd, device)
 
@@ -241,15 +250,20 @@ def run(label: str, cycle: int = 33, chain: int = 100, iterations: int = 150, de
     line("i", t, f"pcg-fused per iteration (K5): {t * 1e3:.4f} ms -> {n / t / 1e9:.2f} GDoF/s")
 
     k = merged_kernel_times(label, n, chain, device)
-    out.update({key: k[key] for key in ("j_host", "j_plain", "k_host", "k_plain", "k_torch")})
+    out.update({key: k[key] for key in ("j_host", "j_host_alone", "j_plain", "k_host", "k_plain", "k_torch")})
 
     def card(t, n_bytes):
         return "not measured (no card)" if t is None else f"{t * 1e3:.4f} ms -> {n_bytes / t / 1e9:.0f} GB/s"
 
-    line("j", k["j"], f"K7 update (4r+3w): card {card(k['j'], 7 * n * isz)}; host {k['j_host'] * 1e3:.4f} ms a call; "
-         f"plain {k['j_plain'] * 1e3:.4f} ms")
+    line("j", k["j"], f"K7 update (4r+3w) on a workspace: card {card(k['j'], 7 * n * isz)}; host "
+         f"{k['j_host'] * 1e3:.4f} ms a call ({k['j_host_alone'] * 1e3:.4f} without a workspace); plain "
+         f"{k['j_plain'] * 1e3:.4f} ms")
     line("k", k["k"], f"K8 dots (3r): card {card(k['k'], 3 * n * isz)}; host {k['k_host'] * 1e3:.4f} ms a call; plain "
          f"{k['k_plain'] * 1e3:.4f} ms; torch.mm(V, V.T) {k['k_torch'] * 1e3:.4f} ms")
+    flat = u.reshape(-1)
+    t = _host_per_call(lambda: op.vmult(flat), chain, device)
+    line("l", t, f"the apply's wrapper (PoissonOperator.vmult on K1, as the solver calls it): host {t * 1e3:.4f} ms a "
+         f"call")
     return out
 
 

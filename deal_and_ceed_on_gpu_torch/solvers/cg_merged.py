@@ -14,8 +14,9 @@ reference's ``SolverCGFullMerge`` (``bp5/solver.h:15-542``). Per iteration:
 Steps 4 and 2 are K7 and K8 (``ops/cg_merged.py``, ``csrc/cg_merged.cu``),
 and K8's last block does step 3, so an iteration on the card is three
 launches: K7, the apply and K8 (with a ``comm``, K8's one-thread finisher
-follows the all-reduce). K8's scratch and the summaries live in one
-``DotsWorkspace`` a solve. Every scalar stays on the device; the loop
+follows the all-reduce). K8's scratch, the summaries and both kernels'
+checked vectors live in one ``DotsWorkspace`` a solve, so each call in
+the loop checks h alone. Every scalar stays on the device; the loop
 reads the residual norm on the host once per iteration for the stopping
 test, so the iteration count is exactly that of the JAX ``while_loop``. On the CPU the wrappers run their plain versions, this
 solver's torch expressions before the kernels.
@@ -86,7 +87,8 @@ def solve_cg_merged(
         x = x0.clone(memory_format=torch.contiguous_format)
         g = A(x0) - b
     g = g.contiguous()
-    # K8's scratch and the two summaries the loop alternates as scal and prev
+    # K8's scratch, the two summaries the loop alternates as scal and prev,
+    # and the vectors K7 and K8 checked
     ws = DotsWorkspace(dd, b.device)
     gg0 = merged_dots(g, g, g, weight=w, dot_dtype=dd, workspace=ws)[3]  # the rank's g.g
     if comm is not None:
@@ -122,7 +124,7 @@ def solve_cg_merged(
             mode = "odd-stop"  # complete through it on early exit (update_c)
         else:
             mode = "no-x"
-        merged_update(x, g, d, h, diag, scal, prev, mode)
+        merged_update(x, g, d, h, diag, scal, prev, mode, workspace=ws)
         prev = scal
         if will_stop:
             return x, {"n_iterations": it, "res_norm": res, "res0": res0}

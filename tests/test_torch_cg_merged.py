@@ -250,12 +250,9 @@ def test_mixed_bf16_f32_matches_parent(backend):
         assert torch.equal(x, want) and info["n_iterations"] == it
 
 
-def test_wrappers_refuse():
-    x, g, d, h, m, w = _vectors("f64", True, True)
-    scal, prev = _summaries(torch.float64)
-    ok = dict(x=x, g=g, d=d, h=h, diag=m, scal=scal, prev=prev, mode="plain")
-    cm.merged_update(**ok)
-    bad = {
+def _update_refusals(x, g, d, h, scal):
+    """Changes to a good K7 call that it must refuse, by name."""
+    return {
         "shape": dict(h=h[:-1]),
         "type": dict(h=h.float()),
         "x type": dict(x=x.float()),
@@ -263,11 +260,20 @@ def test_wrappers_refuse():
         "h overlaps g": dict(h=g),
         "diag overlaps d": dict(diag=d),
         "x is d": dict(x=d),
+        "x is None": dict(x=None),
         "summary": dict(scal=scal[:7]),
         "summary types": dict(scal=scal.float(), mode="two-step"),
         "mode": dict(mode="twostep"),
         "device": dict(g=torch.empty(N, dtype=torch.float64, device="meta")),
     }
+
+
+def test_wrappers_refuse():
+    x, g, d, h, m, w = _vectors("f64", True, True)
+    scal, prev = _summaries(torch.float64)
+    ok = dict(x=x, g=g, d=d, h=h, diag=m, scal=scal, prev=prev, mode="plain")
+    cm.merged_update(**ok)
+    bad = _update_refusals(x, g, d, h, scal)
     for name, change in bad.items():
         with pytest.raises(ValueError):
             cm.merged_update(**dict(ok, **change))
@@ -327,6 +333,104 @@ def test_dots_workspace_refused():
             cm.merged_dots(**dict(args, h=bad), workspace=ws)
     with pytest.raises(ValueError):  # a new d is checked in full
         cm.merged_dots(**dict(args, d=d[:-1]), workspace=ws)
+
+
+@pytest.fixture
+def full_checks(monkeypatch):
+    """Counts K7's full checks (``_check_update``): a call on a workspace
+    with its checked vectors makes none."""
+    calls = []
+    check = cm._check_update
+
+    def counted(*args):
+        calls.append(args[7])
+        return check(*args)
+
+    monkeypatch.setattr(cm, "_check_update", counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode", ("init",) + UPDATE_MODES)
+@pytest.mark.parametrize("shape", SHAPES, ids=list(SHAPES))
+@pytest.mark.parametrize("kind,diag", TYPE_DIAG, ids=[f"{t}-{'diag' if dg else 'ident'}" for t, dg in TYPE_DIAG])
+def test_update_workspace_equals_none(kind, diag, shape, mode, full_checks):
+    """merged_update on a workspace (the solver's route: x, g, d and the
+    diagonal checked once, h at every call, the summaries the workspace's
+    own rows) equals the call without one, bit for bit, over two calls with
+    a new h; only the first call on the workspace checks in full ("init"
+    never keeps its vectors)."""
+    x, g, d, h, m, _ = _vectors(kind, diag, False, n=int(np.prod(SHAPES[shape])))
+    x, g, d, h, m = (None if v is None else v.reshape(SHAPES[shape]) for v in (x, g, d, h, m))
+    dd = TYPES[kind][2]
+    ws = cm.DotsWorkspace(dd, "cpu")
+    prev, scal = ws.next_summary(), ws.next_summary()
+    for row, values in zip((scal, prev), _summaries(dd)):
+        row.copy_(values)
+    on_ws, alone = [x.clone(), g.clone(), d.clone()], [x.clone(), g.clone(), d.clone()]
+    if mode == "init":
+        on_ws[0] = alone[0] = None
+    for step in (1.0, 2.0):
+        hs = step * h
+        cm.merged_update(*on_ws, hs, m, scal, prev, mode, workspace=ws)
+        cm.merged_update(*alone, hs, m, scal, prev, mode)
+        assert all(a is b or torch.equal(a, b) for a, b in zip(on_ws, alone))
+    assert full_checks == [mode] * (4 if mode == "init" else 3)
+
+
+@pytest.mark.parametrize("on_ws", [False, True], ids=["alone", "workspace"])
+@pytest.mark.parametrize("mode", ("init",) + UPDATE_MODES)
+def test_update_key_holds_the_call(mode, on_ws):
+    """The launch's arguments that K7's key keeps: the pointers of the
+    vectors the mode reads and writes (x only where it is written), the
+    length."""
+    x, g, d, h, m, _ = _vectors("mixed", True, False)
+    scal, prev = _summaries(torch.float32)
+    ws = cm.DotsWorkspace(torch.float32, "cpu") if on_ws else None
+    key = cm._check_update(x, g, d, h, m, scal, prev, mode, ws)
+    uses_x = mode in ("plain", "odd-stop", "two-step")
+    assert (key.x, key.g, key.d, key.m, key.n) == (x.data_ptr() if uses_x else None, g.data_ptr(), d.data_ptr(),
+                                                   m.data_ptr(), N)
+    if ws is not None:
+        assert (ws._update is key) == (mode != "init")
+
+
+def test_update_workspace_refused(full_checks):
+    """On a workspace holding checked vectors, K7 refuses what
+    test_wrappers_refuse refuses, an h overlapping x, g or d in part, and a
+    workspace of another dtype or device or kind; new x, g or d are checked
+    in full (a bad one refused), the solve's own again h alone."""
+    buf = torch.as_tensor(np.random.default_rng(4).standard_normal(4 * N))
+    x, g, d = buf[:N], buf[N : 2 * N], buf[2 * N : 3 * N]
+    _, _, _, h, m, _ = _vectors("f64", True, False)
+    scal, prev = _summaries(torch.float64)
+    ws = cm.DotsWorkspace(torch.float64, "cpu")
+    ok = dict(x=x, g=g, d=d, h=h, diag=m, scal=scal, prev=prev, mode="plain", workspace=ws)
+    cm.merged_update(**ok)
+    bad = _update_refusals(x, g, d, h, scal)
+    bad.update({"h overlaps x": dict(h=x), "h overlaps d": dict(h=d), "h across x and g": dict(h=buf[N // 2 : N // 2 + N]),
+                "h across d": dict(h=buf[3 * N - 1 : 4 * N - 1]), "h is None": dict(h=None),
+                "prev": dict(prev=prev[:7], mode="two-step")})
+    for name, change in bad.items():
+        with pytest.raises(ValueError):
+            cm.merged_update(**dict(ok, **change))
+        assert ws._update.matches(x, g, d, m, "plain"), name  # a refused call leaves the checked vectors
+    cm.merged_update(**dict(ok, mode="no-x", h=buf[: N]))  # no-x does not write x: h may lie on it
+    nox = cm.DotsWorkspace(torch.float64, "cpu")
+    cm.merged_update(**dict(ok, mode="no-x", x=None, workspace=nox))  # a key without x
+    for mode in ("plain", "odd-stop", "two-step"):  # which a mode that writes x does not take
+        with pytest.raises(ValueError):
+            cm.merged_update(**dict(ok, mode=mode, x=None, workspace=nox))
+    for other in (cm.DotsWorkspace(torch.float32, "cpu"), cm.DotsWorkspace(torch.float64, "meta"), torch.empty(1)):
+        with pytest.raises(ValueError):
+            cm.merged_update(**dict(ok, workspace=other))
+    full_checks.clear()
+    d2 = d.clone()
+    cm.merged_update(**dict(ok, d=d2))
+    with pytest.raises(ValueError):
+        cm.merged_update(**dict(ok, d=d2[:-1]))
+    cm.merged_update(**ok)
+    cm.merged_update(**ok)
+    assert full_checks == ["plain"] * 3
 
 
 def test_dots_blocks_from_n_alone():
@@ -479,8 +583,54 @@ def test_k8_workspace_on_unaligned_views_on_card(cuda_device, kind):
         _dots_on_workspace(v[1], v[0], v[2], v[3], None, dd, ws)
 
 
+def _k7_on_workspace(x, g, d, hs, m, dd, mode, ws):
+    """K7 on a workspace (the vectors checked once, h at each call) against
+    merged_update_plain on copies, bitwise, for each h of ``hs`` in turn."""
+    scal, prev = ws.next_summary(), ws.next_summary()
+    for row, values in zip((scal, prev), _summaries(dd, device=x.device)):
+        row.copy_(values)
+    want = [v.clone() for v in (x, g, d)]
+    for h in hs:
+        cm.merged_update(x, g, d, h, m, scal, prev, mode, workspace=ws)
+        cm.merged_update_plain(*want, h, m, scal, prev, mode)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip((x, g, d), want)), mode
+
+
 @pytest.mark.cuda
-def test_cuda_solve_never_runs_plain(cuda_device, monkeypatch):
+@pytest.mark.parametrize("kind,diag", TYPE_DIAG)
+def test_k7_workspace_wave_edges_on_card(cuda_device, kind, diag):
+    """K7 on a workspace in every mode, bitwise, at lengths either side of
+    one and two packs of V points a thread on a whole wave (the
+    instantiation's own, from the kernel)."""
+    dd = TYPES[kind][2]
+    v = 16 // min(torch.empty((), dtype=t).element_size() for t in TYPES[kind][:2])
+    for mode in UPDATE_MODES:
+        grid = cm.update_wave(TYPES[kind], mode, diag, cuda_device)
+        assert grid["resident"] >= grid["min_blocks"] >= 1 and grid["wave"] % grid["resident"] == 0
+        for n in (grid["wave"] * 256 * k * v + e for k in (1, 2) for e in (-1, 1)):
+            x, g, d, h, m, _ = _vectors(kind, diag, False, seed=n, n=n, device=cuda_device)
+            _k7_on_workspace(x, g, d, (h, 0.5 * h), m, dd, mode, cm.DotsWorkspace(dd, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f64", "bf16", "mixed"])
+def test_k7_workspace_on_unaligned_views_on_card(cuda_device, kind):
+    """K7 on a workspace on views off a 16-byte boundary, alike and unlike,
+    with an h that keeps the vectors' head and then one that does not (the
+    scalar path), in every mode, bitwise."""
+    n = 4099
+    dd = TYPES[kind][2]
+    x, g, d, h, m, _ = _vectors(kind, True, False, seed=5, n=n + 2, device=cuda_device)
+    for off in ((1, 1, 1, 1, 1), (1, 0, 1, 0, 2), (0, 0, 0, 0, 0)):
+        for mode in UPDATE_MODES:
+            got = [t.clone()[o : o + n] for t, o in zip((x, g, d), off)]
+            hs = (h[off[3] : off[3] + n], h[1 - off[3] : 1 - off[3] + n])
+            _k7_on_workspace(*got, hs, m[off[4] : off[4] + n], dd, mode, cm.DotsWorkspace(dd, cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_solve_never_runs_plain(cuda_device, monkeypatch, full_checks):
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on the card")
 
@@ -496,6 +646,9 @@ def test_cuda_solve_never_runs_plain(cuda_device, monkeypatch):
         assert info["n_iterations"] == 7 and bool(torch.isfinite(x).all())
     # two launches an iteration beside the apply, K7 and K8 (no finisher on one device); one K7 and K8 more to start
     assert (cm.UPDATE_LAUNCHES - before[0], cm.DOTS_LAUNCHES - before[1], cm.FINISH_LAUNCHES - before[2]) == (16, 16, 0)
+    # K7 on the solve's workspace: full checks at "init" and at the first call of the loop (and, deferred, at
+    # the first call that writes x); every other call checks h alone
+    assert full_checks == ["init", "plain", "init", "no-x", "two-step"]
 
 
 @pytest.mark.cuda
