@@ -247,8 +247,8 @@ anything does not build, launch, agree or converge. Phases:
     ``--vtu`` at its golden, and 3.9M points); the .vts, .vtu and .pvtr
     writers on card tensors, read back;
 49. ``utils/profiling`` in a fresh child process: a Chrome trace of 10 K1
-    applies (the profiler's device time beside CUDA events'), ``op_stats``
-    and ``roofline``;
+    applies (the profiler's device time beside CUDA events') and
+    ``roofline``;
 50. host memory: the sine-mapped 32^3 operator's host set-up in two child
     processes, with the allocator tuning and opted out;
 51. bp5's ``--backend auto``: its resolution at every cycle 7..40 against
@@ -3704,7 +3704,6 @@ print(json.dumps({
     "trace": str(prof.trace_path), "bytes": prof.trace_path.stat().st_size, "events": len(events),
     "device_us": sum(e.self_device_time_total for e in prof.key_averages()),
     "events_ms": cuda_time_ms(lambda: op.vmult(u), 10),
-    "stats": profiling.op_stats(op.vmult, u, n_warmup=2, n_iter=10, work_items=space.n_dofs),
     "roofline": profiling.roofline(space.n_dofs, 5, 8), "rates": profiling.CARD_RATES,
 }))
 """
@@ -3912,7 +3911,7 @@ def phase48_native_vtk():
 def phase49_profiler():
     """``utils/profiling`` on the card, in a fresh child process as a user
     would call it (``PROFILER_CHILD``): ``trace`` writes a Chrome trace of 10
-    K1 applies at cycle 20, ``op_stats`` and ``roofline`` return their keys.
+    K1 applies at cycle 20, ``roofline`` returns its keys.
     The profiler's device time is printed beside CUDA events' time of the
     same apply; where the profiler records none (CUPTI on the card's machine
     is not guaranteed), the CUDA events stand and the phase says so."""
@@ -3924,12 +3923,11 @@ def phase49_profiler():
         raise AssertionError(f"phase 49: the profiler child failed:\n{proc.stdout}{proc.stderr}")
     r = json.loads(proc.stdout.strip().splitlines()[-1])
     print(f"phase 49: trace {Path(r['trace']).name} ({r['bytes']} bytes, {r['events']} events), profiler device time "
-          f"{r['device_us']:.1f} us over 10 K1 applies, CUDA events {r['events_ms']:.4f} ms an apply; op_stats "
-          f"{r['stats']}; roofline f64 ({r['rates']}) {r['roofline']} [{CARD}]")
+          f"{r['device_us']:.1f} us over 10 K1 applies, CUDA events {r['events_ms']:.4f} ms an apply; "
+          f"roofline f64 ({r['rates']}) {r['roofline']} [{CARD}]")
     if r["device_us"] == 0:
         print("phase 49: the profiler recorded no device time in this process: the CUDA events' time stands")
     if not (r["bytes"] > 0 and r["events"] > 0 and r["events_ms"] > 0
-            and set(r["stats"]) == {"best_s", "mean_s", "n_iter", "items_per_s"}
             and set(r["roofline"]) == {"bandwidth_bound_gdofs", "compute_bound_gdofs"}):
         raise AssertionError("phase 49: the profiler helpers did not trace or time the card")
 

@@ -50,6 +50,7 @@ from ..fe_space import FESpace
 from ..geometry import Geometry
 from ..ops import local_global as lg
 from ..ops import sum_factorization as sf
+from ..utils.profiling import span
 
 __all__ = ["MatrixFreeOperator", "assemble_dense", "assemble_rhs", "l2_norm_function", "tensor_product_diagonal"]
 
@@ -194,20 +195,22 @@ class MatrixFreeOperator:
 
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
         """dst = A src with Dirichlet rows acting as identity
-        (``bp5/step-64.cu:263-276``); returns a fresh ``stream_dtype`` dst."""
+        (``bp5/step-64.cu:263-276``); returns a fresh ``stream_dtype`` dst.
+        The call is the span ``op.vmult`` (``utils/profiling``)."""
         s = self.space
-        if self.backend in ("stencil", "banded"):
-            # K1 / K2 mask the constrained rows and write the identity rows
-            return self.kernel_apply(src.to(self.stream_dtype).reshape(s.grid_shape)).reshape(-1)
-        src = src.to(s.dtype)
-        if self.backend == "qgrid":
-            from ..ops.qgrid import qgrid_apply
+        with span("op.vmult"):
+            if self.backend in ("stencil", "banded"):
+                # K1 / K2 mask the constrained rows and write the identity rows
+                return self.kernel_apply(src.to(self.stream_dtype).reshape(s.grid_shape)).reshape(-1)
+            src = src.to(s.dtype)
+            if self.backend == "qgrid":
+                from ..ops.qgrid import qgrid_apply
 
-            # K3's constrained mode: M A M and the identity rows in one launch
-            out = qgrid_apply(src.reshape(s.grid_shape), self._qgrid, constrained=True)
-            return out.reshape(-1).to(self.stream_dtype)
-        dst = self.apply_cell_loop(s.zero_constrained_values(src))
-        return s.copy_constrained_values(src, dst).to(self.stream_dtype)
+                # K3's constrained mode: M A M and the identity rows in one launch
+                out = qgrid_apply(src.reshape(s.grid_shape), self._qgrid, constrained=True)
+                return out.reshape(-1).to(self.stream_dtype)
+            dst = self.apply_cell_loop(s.zero_constrained_values(src))
+            return s.copy_constrained_values(src, dst).to(self.stream_dtype)
 
     def kernel_apply(self, u: torch.Tensor) -> torch.Tensor:
         """One launch of the ``stencil`` (K1) or ``banded`` (K2) kernel on a

@@ -21,6 +21,13 @@ reads the residual norm on the host once per iteration for the stopping
 test, so the iteration count is exactly that of the JAX ``while_loop``. On the CPU the wrappers run their plain versions, this
 solver's torch expressions before the kernels.
 
+The solve is the span ``cg.solve``; inside it ``cg.init`` (everything
+before the loop), and an iteration's ``cg.apply``, ``cg.dots`` (K8's
+wrapper), ``cg.stop_test`` (the residual's host read and the choice of
+mode) and ``cg.update`` (K7's wrapper); each host read of a device value
+counts one ``host_syncs`` (``utils/profiling``: off unless a profiler or
+``record()`` is recording).
+
 ``deferred_x_update=True`` is the Kronbichler data-locality scheme
 (``OPTIMIZED_UPDATE``, ``bp5/solver.h:106-140,509-526``): x is touched only
 every second iteration via the merged two-step formula
@@ -44,6 +51,7 @@ from typing import Callable, Optional
 import torch
 
 from ..ops.cg_merged import S_RES, SUMMARY, DotsWorkspace, merged_dots, merged_update, overlaps
+from ..utils.profiling import count, span
 from .control import SolverControl
 
 __all__ = ["solve_cg_merged"]
@@ -71,60 +79,68 @@ def solve_cg_merged(
     sums the seven dots of an iteration in one all-reduce of the stacked
     seven, at ``dot_dtype`` (JAX's ``dot_weight`` / ``psum_axis``,
     ``cg_merged.py:67-68,112``); the initial residual norm is one more."""
-    dd = dot_dtype or b.dtype
-    # the kernels see flat contiguous vectors of b's shape: broadcast the
-    # weight and the diagonal once a solve
-    w = None if dot_weight is None else torch.broadcast_to(dot_weight.to(dd), b.shape).contiguous()
-    if diag is not None:
-        diag = torch.broadcast_to(diag, b.shape).contiguous()
+    with span("cg.solve"):
+        with span("cg.init"):
+            dd = dot_dtype or b.dtype
+            # the kernels see flat contiguous vectors of b's shape: broadcast the
+            # weight and the diagonal once a solve
+            w = None if dot_weight is None else torch.broadcast_to(dot_weight.to(dd), b.shape).contiguous()
+            if diag is not None:
+                diag = torch.broadcast_to(diag, b.shape).contiguous()
 
-    # init (bp5/solver.h:373-383): g = A x - b, short-circuit for x0 == None;
-    # x, g and d are the solver's own: K7 updates them in place
-    if x0 is None:
-        x = torch.zeros_like(b, memory_format=torch.contiguous_format)
-        g = -b
-    else:
-        x = x0.clone(memory_format=torch.contiguous_format)
-        g = A(x0) - b
-    g = g.contiguous()
-    # K8's scratch, the two summaries the loop alternates as scal and prev,
-    # and the vectors K7 and K8 checked
-    ws = DotsWorkspace(dd, b.device)
-    gg0 = merged_dots(g, g, g, weight=w, dot_dtype=dd, workspace=ws)[3]  # the rank's g.g
-    if comm is not None:
-        (gg0,) = comm.allreduce_sum_(torch.stack([gg0])).unbind()
-    res0 = torch.sqrt(gg0)
-    # update_a0 (bp5/solver.h:48-72): d = -diag g, at torch's promotion of diag * g
-    d = torch.empty(b.shape, dtype=g.dtype if diag is None else torch.promote_types(g.dtype, diag.dtype),
-                    device=b.device)
-    merged_update(None, g, d, None, diag, None, None, "init")
+            # init (bp5/solver.h:373-383): g = A x - b, short-circuit for x0 == None;
+            # x, g and d are the solver's own: K7 updates them in place
+            if x0 is None:
+                x = torch.zeros_like(b, memory_format=torch.contiguous_format)
+                g = -b
+            else:
+                x = x0.clone(memory_format=torch.contiguous_format)
+                g = A(x0) - b
+            g = g.contiguous()
+            # K8's scratch, the two summaries the loop alternates as scal and prev,
+            # and the vectors K7 and K8 checked
+            ws = DotsWorkspace(dd, b.device)
+            gg0 = merged_dots(g, g, g, weight=w, dot_dtype=dd, workspace=ws)[3]  # the rank's g.g
+            if comm is not None:
+                (gg0,) = comm.allreduce_sum_(torch.stack([gg0])).unbind()
+            res0 = torch.sqrt(gg0)
+            # update_a0 (bp5/solver.h:48-72): d = -diag g, at torch's promotion of diag * g
+            d = torch.empty(b.shape, dtype=g.dtype if diag is None else torch.promote_types(g.dtype, diag.dtype),
+                            device=b.device)
+            merged_update(None, g, d, None, diag, None, None, "init")
 
-    res = res0
-    it = 0
-    res0_h = float(res0)
-    if not control.continue_pred(it, res0_h, res0_h):
-        return x, {"n_iterations": it, "res_norm": res, "res0": res0}
-    # x takes d's type: x + a d promotes it so in the first update
-    x = x.to(torch.promote_types(x.dtype, d.dtype))
-    prev = torch.zeros(SUMMARY, dtype=dd, device=b.device)  # alpha = beta = 0 before the first iteration
-    while True:
-        it += 1
-        h = A(d)
-        if not h.is_contiguous() or any(overlaps(h, v) for v in (x, g, d)):
-            h = h.clone(memory_format=torch.contiguous_format)  # K7 writes x, g and d while it reads h
-        scal = merged_dots(d, g, h, diag, w, dd, comm, workspace=ws)
-        res = scal[S_RES]
-        # the one host read per iteration: the stopping test
-        will_stop = not control.continue_pred(it, float(res), res0_h)
-        if not deferred_x_update:
-            mode = "plain"  # update_a<true> (bp5/solver.h:74-104)
-        elif it % 2 == 0:
-            mode = "two-step"
-        elif will_stop:
-            mode = "odd-stop"  # complete through it on early exit (update_c)
-        else:
-            mode = "no-x"
-        merged_update(x, g, d, h, diag, scal, prev, mode, workspace=ws)
-        prev = scal
-        if will_stop:
-            return x, {"n_iterations": it, "res_norm": res, "res0": res0}
+            res = res0
+            it = 0
+            count("host_syncs")
+            res0_h = float(res0)
+            if not control.continue_pred(it, res0_h, res0_h):
+                return x, {"n_iterations": it, "res_norm": res, "res0": res0}
+            # x takes d's type: x + a d promotes it so in the first update
+            x = x.to(torch.promote_types(x.dtype, d.dtype))
+            prev = torch.zeros(SUMMARY, dtype=dd, device=b.device)  # alpha = beta = 0 before the first iteration
+        while True:
+            it += 1
+            with span("cg.apply"):
+                h = A(d)
+                if not h.is_contiguous() or any(overlaps(h, v) for v in (x, g, d)):
+                    h = h.clone(memory_format=torch.contiguous_format)  # K7 writes x, g and d while it reads h
+            with span("cg.dots"):
+                scal = merged_dots(d, g, h, diag, w, dd, comm, workspace=ws)
+            with span("cg.stop_test"):
+                res = scal[S_RES]
+                # the one host read per iteration: the stopping test
+                count("host_syncs")
+                will_stop = not control.continue_pred(it, float(res), res0_h)
+                if not deferred_x_update:
+                    mode = "plain"  # update_a<true> (bp5/solver.h:74-104)
+                elif it % 2 == 0:
+                    mode = "two-step"
+                elif will_stop:
+                    mode = "odd-stop"  # complete through it on early exit (update_c)
+                else:
+                    mode = "no-x"
+            with span("cg.update"):
+                merged_update(x, g, d, h, diag, scal, prev, mode, workspace=ws)
+            prev = scal
+            if will_stop:
+                return x, {"n_iterations": it, "res_norm": res, "res0": res0}

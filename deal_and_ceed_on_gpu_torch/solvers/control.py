@@ -14,6 +14,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from ..utils.profiling import count
+
 __all__ = [
     "SolverControl",
     "IterationNumberControl",
@@ -49,7 +53,9 @@ class SolverControl:
         return it < self.max_steps and res > self.effective_tolerance(res0)
 
     def check(self, info: dict) -> dict:
-        """Host-side convergence verdict; raises NoConvergence on failure."""
+        """Host-side convergence verdict; raises NoConvergence on failure.
+        Each read of a tensor counts one ``host_syncs``."""
+        count("host_syncs", sum(isinstance(info.get(k), torch.Tensor) for k in ("n_iterations", "res_norm", "res0")))
         it = int(info["n_iterations"])
         res = float(info["res_norm"])
         res0 = float(info["res0"]) if "res0" in info else None

@@ -10,10 +10,18 @@ Counterpart of ``deal_and_ceed_on_gpu_tpu/utils/profiling.py``:
   counterpart of the JAX package's xplane trace;
 - :func:`busy_profile`: a solve run under :func:`trace`, printing its wall
   time, the device's busy time and share, and its costliest kernels;
-- :func:`op_stats`: wall-clock numbers of a callable, fenced with
-  ``torch.cuda.synchronize`` on its output's device (nothing to fence on
-  the CPU);
-- :func:`roofline`: the bandwidth and compute bounds of one BP5 apply.
+- :func:`roofline`: the bandwidth and compute bounds of one BP5 apply;
+- the program's own spans and counters: :func:`span`, :func:`count`,
+  :func:`recorded`, :func:`reset`, :func:`record`.
+
+Spans and counters record only while a ``torch.profiler`` records (not in
+its warm-up step) or inside :func:`record`. Off, ``span`` returns one
+shared no-op context and reads no clock; on, a span keeps its calls, total
+and self nanoseconds (total less what its child spans cover) and its parent
+span from ``time.perf_counter_ns``, and under a profiler it is also a
+record function (``HOST_EVENT``), so its name is a host event on the
+profiler's clock beside the device's activity. The recorder is the
+process's, for one thread: the solver's.
 
 The card's rates (``HBM_BYTES_PER_S``, ``PEAK_FLOPS``) are the NVIDIA H100
 80GB HBM3 data sheet's at its 700 W power limit; a card set below it runs
@@ -29,17 +37,19 @@ from pathlib import Path
 from typing import Callable
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["CARD_RATES", "HBM_BYTES_PER_S", "PEAK_FLOPS", "TRACE_DIR", "busy_profile", "op_stats", "roofline",
-           "trace"]
+__all__ = ["CARD_RATES", "HBM_BYTES_PER_S", "PEAK_FLOPS", "TRACE_DIR", "busy_profile", "count", "record",
+           "recorded", "reset", "roofline", "span", "trace"]
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; f64 67
-# TFLOP/s (its tensor cores; 34 outside them), f32 67 TFLOP/s outside the
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM 3.35 TB/s; f64 34 TFLOP/s
+# outside the tensor cores (the port's kernels run on the CUDA cores; the
+# tensor cores' 67 is out of their reach), f32 67 TFLOP/s outside the
 # tensor cores (what an exact f32 computation can use); a bf16-streaming
 # apply computes in f32
 CARD_RATES = "NVIDIA H100 80GB HBM3, 700 W (data sheet)"
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f64": 67e12, "f32": 67e12, "bf16": 67e12}
+PEAK_FLOPS = {"f64": 34e12, "f32": 67e12, "bf16": 67e12}
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_trace"
 
 
@@ -103,37 +113,6 @@ def busy_profile(tag: str, n_it: int, solve: Callable, repeats: int = 1, logdir=
     return readings
 
 
-def _fence(out) -> None:
-    """Wait for the device of the first tensor in ``out`` (nothing to wait
-    for on the CPU)."""
-    items = out if isinstance(out, (tuple, list)) else (out,)
-    for t in items:
-        if isinstance(t, torch.Tensor):
-            if t.device.type == "cuda":
-                torch.cuda.synchronize(t.device)
-            return
-
-
-def op_stats(fn: Callable, *args, n_warmup=2, n_iter=10, work_items=None):
-    """Time ``fn(*args)`` with fencing; returns ``best_s``, ``mean_s``,
-    ``n_iter`` and, with ``work_items``, ``items_per_s`` (at the best)."""
-    out = None
-    for _ in range(n_warmup):
-        out = fn(*args)
-    _fence(out)
-    times = []
-    for _ in range(n_iter):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        _fence(out)
-        times.append(time.perf_counter() - t0)
-    best = min(times)
-    stats = {"best_s": best, "mean_s": sum(times) / len(times), "n_iter": n_iter}
-    if work_items:
-        stats["items_per_s"] = work_items / best
-    return stats
-
-
 def roofline(n_dofs, degree, dtype_bytes=4, hbm_gbps=HBM_BYTES_PER_S / 1e9, flops_tps=PEAK_FLOPS["f32"] / 1e12):
     """Bounds of one BP5 operator apply on the stencil / separable paths, in
     GDoF/s: ideal traffic = one read and one write of the nodal grid; FLOPs
@@ -145,3 +124,105 @@ def roofline(n_dofs, degree, dtype_bytes=4, hbm_gbps=HBM_BYTES_PER_S / 1e9, flop
         "bandwidth_bound_gdofs": n_dofs / (traffic / (hbm_gbps * 1e9)) / 1e9,
         "compute_bound_gdofs": n_dofs / (flops / (flops_tps * 1e12)) / 1e9,
     }
+
+
+# ------------------------------------------------------------ spans, counters
+class _Recorder:
+    """The spans' aggregates by name (``[calls, total ns, self ns,
+    parent]``), the counters, the open spans innermost last, and how many
+    :func:`record` blocks are open."""
+
+    def __init__(self):
+        self.spans: dict[str, list] = {}
+        self.counts: dict[str, int] = {}
+        self.open: list[_Span] = []
+        self.forced = 0
+
+
+_REC = _Recorder()
+_OFF = contextlib.nullcontext()
+# the profiler's host event of a span: PyTorch's C++ record function costs a span 1-2 us under a
+# profiler, ``torch.profiler.record_function`` 12-14 us; that much between two spans of the
+# critical path would take the middle of a short idle gap out of both
+HOST_EVENT = torch._C._profiler._RecordFunctionFast
+
+
+class _Span:
+    __slots__ = ("name", "fn", "parent", "child_ns", "t0")
+
+    def __init__(self, name: str, fn):
+        self.name, self.fn = name, fn
+
+    def __enter__(self):
+        # the host event first and closed last: the bookkeeping stays inside it, out of the
+        # stretch between two spans, where the middle of a short idle gap may fall
+        if self.fn is not None:
+            self.fn.__enter__()
+        self.parent = _REC.open[-1].name if _REC.open else None
+        self.child_ns = 0
+        _REC.open.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        try:
+            # drop self, and any span above it that was left open
+            while _REC.open and _REC.open.pop() is not self:
+                pass
+            if _REC.open:
+                _REC.open[-1].child_ns += dt
+            agg = _REC.spans.get(self.name)
+            if agg is None:
+                agg = _REC.spans[self.name] = [0, 0, 0, self.parent]
+            agg[0] += 1
+            agg[1] += dt
+            agg[2] += dt - self.child_ns
+        finally:
+            if self.fn is not None:
+                self.fn.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """``with span("cg.update"): ...``: a span of the program's host time,
+    under a profiler also its host event (``HOST_EVENT``). Off (no profiler
+    recording, no :func:`record` open) it is one shared no-op context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _Span(name, HOST_EVENT(name))
+    if _REC.forced:
+        return _Span(name, None)
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``, under the spans' gate."""
+    if _autograd_profiler._is_profiler_enabled or _REC.forced:
+        _REC.counts[name] = _REC.counts.get(name, 0) + n
+
+
+def recorded() -> dict:
+    """``{"spans": {name: {"calls", "total_ns", "self_ns", "parent"}},
+    "counts": {name: n}}`` since the last :func:`reset`. A span's parent is
+    the span open around its first call (None at the top)."""
+    return {
+        "spans": {k: {"calls": c, "total_ns": t, "self_ns": s, "parent": p} for k, (c, t, s, p) in _REC.spans.items()},
+        "counts": dict(_REC.counts),
+    }
+
+
+def reset() -> None:
+    """Forget every span's aggregate and every counter (open spans stay open)."""
+    _REC.spans.clear()
+    _REC.counts.clear()
+
+
+@contextlib.contextmanager
+def record(on: bool = True):
+    """Record spans and counters inside the block without a profiler (with
+    ``on`` False the block records as it would without it)."""
+    _REC.forced += bool(on)
+    try:
+        yield
+    finally:
+        _REC.forced -= bool(on)

@@ -1,5 +1,5 @@
 """The port's auxiliary modules and driver outputs on the CPU: utils/profiling
-(op_stats, roofline, a trace file), utils/host_memory (idempotent, its
+(roofline and the card's peaks, a trace file), utils/host_memory (idempotent, its
 opt-out), the utils exports against the JAX package's, bp5's
 ``--backend auto`` resolution (no solve), and step-64's ``--vtu`` at its
 golden fingerprint."""
@@ -18,17 +18,15 @@ from deal_and_ceed_on_gpu_torch.utils import host_memory, profiling
 STEP64_REFINE2 = (60, 0.020526851356887806)  # the JAX golden (chip_smoke.STEP64_GOLDEN[2])
 
 
-def test_op_stats_and_roofline_keys():
-    u = torch.ones(1000, dtype=torch.float64)
-    stats = profiling.op_stats(lambda v: 2.0 * v, u, n_warmup=1, n_iter=3, work_items=1000)
-    assert set(stats) == {"best_s", "mean_s", "n_iter", "items_per_s"} and stats["n_iter"] == 3
-    assert 0 < stats["best_s"] <= stats["mean_s"] and stats["items_per_s"] == 1000 / stats["best_s"]
-    assert set(profiling.op_stats(lambda v: (v, v + 1), u, n_iter=2)) == {"best_s", "mean_s", "n_iter"}
+def test_roofline_keys_and_card_peaks():
     roof = profiling.roofline(1_000_000, 5, dtype_bytes=8)
     assert set(roof) == {"bandwidth_bound_gdofs", "compute_bound_gdofs"}
     # one read and one write of 8 bytes a DoF at the card's 3.35 TB/s
     assert roof["bandwidth_bound_gdofs"] == pytest.approx(profiling.HBM_BYTES_PER_S / 16 / 1e9)
     assert roof["compute_bound_gdofs"] == pytest.approx(profiling.PEAK_FLOPS["f32"] / (6 * 11) / 1e9)
+    # f64 outside the tensor cores, where the port's kernels compute
+    assert profiling.PEAK_FLOPS == {"f64": 34e12, "f32": 67e12, "bf16": 67e12}
+    assert not hasattr(profiling, "op_stats")
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
