@@ -16,7 +16,9 @@ anything does not build, launch, agree or converge. Phases:
 2. K1 (``csrc/stencil.cu`` on ``csrc/stencil_tile.cuh``) against its plain
    torch twin: the ptxas registers of each of its 144 instantiations, the
    shard mode's 48 among them (fails
-   if one is missing, spills or keeps a stack frame); every p = 1..8 on the
+   if one is missing, spills or keeps a stack frame); the instructions a
+   point of its p = 5 plane loop by kind, shared-memory loads and stores
+   first (``scripts/k1_sass.py``, from ``cuobjdump -sass``); every p = 1..8 on the
    small shapes, a brick whose grid is not a multiple of the tile in x, y or
    z, one element and tables after ``scale_``, with and without the value
    term, 1 and 3 components, f64 / f32 / bf16 storage, from NaN-filled
@@ -563,10 +565,25 @@ def _k1_main(tag, name):
     return main
 
 
+def _k1_sass(tag, p=5):
+    """K1's plane loop at degree p in its SASS, per storage type: the tile
+    and the instructions a point by kind (``scripts/k1_sass.py``)."""
+    from deal_and_ceed_on_gpu_torch.ops import stencil
+    from deal_and_ceed_on_gpu_torch.scripts import k1_sass
+    from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
+
+    for label, r in k1_sass.report(build_library(stencil.SOURCE), p).items():
+        pp = r["per_point"]
+        print(f"{tag}: K1 SASS p={p} {label}: tile {r['tile']}; a point: shared {pp['LDS'] + pp.get('STS', 0):.2f} "
+              f"(LDS {pp['LDS']:.2f}, STS {pp.get('STS', 0):.2f}, {r['lds_bytes_per_point']:.1f} LDS bytes), "
+              f"FMA {pp.get('FMA', 0):.2f}, MOV {pp.get('MOV', 0):.2f}, all {pp['total']:.2f}")
+
+
 def phase2_kernel_vs_twin():
     from deal_and_ceed_on_gpu_torch.ops import stencil
 
     _ptxas("phase 2", "K1", stencil.SOURCE, K1_PATTERN, K1_INSTANTIATIONS, _ptxas_k1)
+    _k1_sass("phase 2")
     n, worst = _k1_sweep()
     print(f"phase 2: K1 agrees with its twin on {n} cases, NaN-filled outputs fully written, faces bitwise")
     return _k1_main("phase 2", "bp5")

@@ -12,7 +12,9 @@ iteration with its finishing pass (``CGFusedStep.iterate``) and the plain
   elements, p = 5, GLL, grid 161 x 161 x 481), beside
   ``torch.matmul(U, A_loc)`` (U the gathered element vectors [98304, 216],
   A_loc the 216 x 216 element stiffness matrix);
-- ``bp5-value``: the same with the value term (the step-64 coefficient at
+- ``bp5-c40``: BP5 at cycle 40, the benchmark's size (128 x 128 x 64
+  elements, grid 641 x 641 x 321), beside the same ``torch.matmul``;
+- ``bp5-value``: the cycle-33 shape with the value term (the step-64 coefficient at
   the GLL nodes, collocated Helmholtz); no one library call computes it
   (the element matrix changes from element to element);
 - ``bp6``: BP6's 3-component stack at 32^3 elements, p = 5 (``drivers/bp.py``
@@ -42,15 +44,16 @@ from ..ops.local_global import gather_elements
 from ..ops.stencil import StencilTables, stencil_apply, stencil_apply_reference
 from ..utils.timer import cuda_time_ms
 
-__all__ = ["APPLIES", "DEGREE", "K1_SHAPES", "K5_SHAPES", "PRECISIONS", "helmholtz_nodal", "k1_shapes",
+__all__ = ["APPLIES", "BENCH_CYCLE", "DEGREE", "K1_SHAPES", "K5_SHAPES", "PRECISIONS", "helmholtz_nodal", "k1_shapes",
            "k5_shapes", "time_k1", "time_k5"]
 
 DEGREE = 5
 MAIN_CYCLE = 33
+BENCH_CYCLE = 40
 BP6_TARGET_DOFS = 4_000_000
 # calls a timing averages (at ~0.05-0.4 ms a call)
 APPLIES = 100
-K1_SHAPES = ("bp5", "bp5-value", "bp6")
+K1_SHAPES = ("bp5", "bp5-c40", "bp5-value", "bp6")
 K5_SHAPES = ("bp5", "bp5-value")
 # label: (storage, compute)
 PRECISIONS = {"f64": (torch.float64, torch.float64), "f32": (torch.float32, torch.float32),
@@ -69,7 +72,9 @@ def helmholtz_nodal(mesh: BrickMesh, p: int) -> np.ndarray:
 
 
 def _mesh(name: str) -> BrickMesh:
-    return target_mesh(DEGREE, BP6_TARGET_DOFS) if name == "bp6" else BrickMesh.bp5_cycle(MAIN_CYCLE)
+    if name == "bp6":
+        return target_mesh(DEGREE, BP6_TARGET_DOFS)
+    return BrickMesh.bp5_cycle(BENCH_CYCLE if name == "bp5-c40" else MAIN_CYCLE)
 
 
 def _library(mesh: BrickMesh, basis: Basis1D, dtype: torch.dtype, device):

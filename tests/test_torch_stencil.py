@@ -24,11 +24,37 @@ UPPER = (1.0, 0.8, 1.3)
 CASES = [((2, 3, 4), 2), ((2, 2, 2), 5), ((8, 4, 10), 3), ((2, 2, 2), 8)]
 # with CASES, every degree the kernels take (1..8), on small bricks
 EVERY_DEGREE = CASES + [((3, 2, 2), 1), ((2, 3, 2), 4), ((2, 2, 2), 6), ((2, 2, 2), 7)]
-# the card's checks: a brick whose grid is not a multiple of K1's tile (nx of
-# 41-43 points against 32 columns, ny of 37-41 against 16-32 rows, nz = 3p+1
-# cut into several z ranges), one element, and (4, 3, 6)
+# the card's checks: a brick whose grid spans two or three of K1's tiles in x
+# and y and several z ranges (nx of 41-43 points, ny of 37-41, nz = 3p+1),
+# one element, (4, 3, 6), and a brick three or more tiles wide and high (nx
+# of 73-78 points, ny of 67-73), so that a tile has neighbours on both sides.
+# K1 balances its tiles (an axis of n points in ceil(n / tile) tiles of n /
+# tiles points, rounded down or up), so a thread holds points on both sides
+# of a tile's edge where a width is not a multiple of its columns or a height
+# not a multiple of its rows (test_ragged_bricks_cross_every_tile_edge)
+def _ragged_brick(p):
+    return (-(-72 // p), -(-66 // p), 2)
+
+
 def _tile_edge_bricks(p):
-    return [(-(-40 // p), -(-36 // p), 3), (1, 1, 1), (4, 3, 6)]
+    return [(-(-40 // p), -(-36 // p), 3), (1, 1, 1), (4, 3, 6), _ragged_brick(p)]
+
+
+# K1's tile per storage label and p (Cfg in csrc/stencil.cu; stencil_tile
+# reads it from a built library): (columns a thread, rows a thread, tile
+# rows); a tile is 32 columns wide
+def _k1_tile(label, p):
+    if label == "f64":
+        x, r, nw = (2 if p <= 5 else 1), (2 if p == 6 else 1), (6 if p <= 5 else 4)
+    else:
+        x, r, nw = (2 if p <= 6 else 1), 2, (4 if p <= 6 else 8)
+    return x, r, nw * x * r
+
+
+def _balanced(n, tile):
+    """The number of tiles K1 cuts an axis of n points into, and their widths."""
+    g = -(-n // tile)
+    return g, {(b + 1) * n // g - b * n // g for b in range(g)}
 
 
 def _spaces(shape, p, jdtype=None, tdtype=torch.float64):
@@ -304,18 +330,19 @@ def test_kernel_matches_twin_on_card(cuda_device, p, storage, compute, tol):
     (torch.bfloat16, torch.float32, 3e-2),
 ])
 def test_kernel_with_value_matches_twin_on_card(cuda_device, p, storage, compute, tol):
-    mesh = pt.BrickMesh((4, 3, 6), upper=UPPER)
-    grid = tuple(m * p + 1 for m in reversed(mesh.n_elements))
-    value = 0.5 + np.random.default_rng(p).random(grid)
-    tables = st.StencilTables.create(mesh, pt.Basis1D.make(p), compute, cuda_device, value=value)
-    u = torch.as_tensor(_random(tables.shape, seed=p), device=cuda_device).to(storage)
-    before = st.VALUE_LAUNCHES
-    got = st.stencil_apply(u, tables)
-    torch.cuda.synchronize()
-    assert st.VALUE_LAUNCHES == before + 1
-    want = st.stencil_apply_reference(u, tables)
-    err = (got.double() - want.double()).abs().max() / want.double().abs().max()
-    assert float(err) <= tol
+    for n_el in [(4, 3, 6), _ragged_brick(p)]:
+        mesh = pt.BrickMesh(n_el, upper=UPPER)
+        grid = tuple(m * p + 1 for m in reversed(mesh.n_elements))
+        value = 0.5 + np.random.default_rng(p).random(grid)
+        tables = st.StencilTables.create(mesh, pt.Basis1D.make(p), compute, cuda_device, value=value)
+        u = torch.as_tensor(_random(tables.shape, seed=p), device=cuda_device).to(storage)
+        before = st.VALUE_LAUNCHES
+        got = st.stencil_apply(u, tables)
+        torch.cuda.synchronize()
+        assert st.VALUE_LAUNCHES == before + 1
+        want = st.stencil_apply_reference(u, tables)
+        err = (got.double() - want.double()).abs().max() / want.double().abs().max()
+        assert float(err) <= tol, n_el
 
 
 @pytest.mark.parametrize("value", [False, True])
@@ -346,14 +373,100 @@ def test_components_match_single_calls(value):
 def test_kernel_with_components_on_card(cuda_device, p, storage, compute, tol):
     """nc = 3 in one launch: equal to three 1-component launches, and to the
     twin within the kernel's tolerance."""
-    mesh = pt.BrickMesh((4, 3, 6), upper=UPPER)
-    tables = st.StencilTables.create(mesh, pt.Basis1D.make(p), compute, cuda_device)
-    u = torch.as_tensor(_random((3, *tables.shape), seed=p), device=cuda_device).to(storage)
-    before = st.NC_LAUNCHES
-    got = st.stencil_apply(u, tables)
+    for n_el in [(4, 3, 6), _ragged_brick(p)]:
+        mesh = pt.BrickMesh(n_el, upper=UPPER)
+        tables = st.StencilTables.create(mesh, pt.Basis1D.make(p), compute, cuda_device)
+        u = torch.as_tensor(_random((3, *tables.shape), seed=p), device=cuda_device).to(storage)
+        before = st.NC_LAUNCHES
+        got = st.stencil_apply(u, tables)
+        torch.cuda.synchronize()
+        assert st.NC_LAUNCHES == before + 1
+        assert torch.equal(got, torch.stack([st.stencil_apply(u[c], tables) for c in range(3)]))
+        want = st.stencil_apply_reference(u, tables)
+        err = (got.double() - want.double()).abs().max() / want.double().abs().max()
+        assert float(err) <= tol, n_el
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,compute", [
+    (torch.float64, torch.float64),
+    (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32),
+])
+def test_kernel_is_bitwise_repeatable_on_card(cuda_device, storage, compute):
+    """Two applies of K1 on the same input at the cycle-33 grid (161 x 161 x
+    481, p = 5) are bitwise equal: no atomics, each point's sum in a fixed
+    order."""
+    tables = st.StencilTables.create(pt.BrickMesh.bp5_cycle(33), pt.Basis1D.make(5), compute, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    u = torch.randn(tables.shape, generator=g, device=cuda_device, dtype=compute).to(storage)
+    first = st.stencil_apply(u, tables)
+    second = st.stencil_apply(u, tables, out=torch.full_like(u, float("nan")))
     torch.cuda.synchronize()
-    assert st.NC_LAUNCHES == before + 1
-    assert torch.equal(got, torch.stack([st.stencil_apply(u[c], tables) for c in range(3)]))
-    want = st.stencil_apply_reference(u, tables)
-    err = (got.double() - want.double()).abs().max() / want.double().abs().max()
-    assert float(err) <= tol
+    assert torch.equal(first, second)
+
+
+def test_ragged_bricks_cross_every_tile_edge():
+    """For every storage type and degree, the card's bricks hold a tile with
+    neighbours on both sides in x and in y, a tile whose width is not a
+    multiple of a thread's columns, and one whose height is not a multiple of
+    a thread's rows nor of a warp's (where those are more than one)."""
+    for label in ("f64", "f32", "bf16"):
+        for p in range(1, 9):
+            x, r, th = _k1_tile(label, p)
+            tiles = [(_balanced(mx * p + 1, 32), _balanced(my * p + 1, th)) for mx, my, _ in _tile_edge_bricks(p)]
+            assert any(gx >= 3 and gy >= 3 for (gx, _), (gy, _) in tiles), (label, p)
+            widths = {w for (_, ws), _ in tiles for w in ws}
+            heights = {h for _, (_, hs) in tiles for h in hs}
+            assert x == 1 or any(w % x for w in widths), (label, p)
+            assert r == 1 or any(h % r for h in heights), (label, p)
+            assert x * r == 1 or any(h % (x * r) for h in heights), (label, p)
+
+
+@pytest.mark.cuda
+def test_k1_tile_table_matches_the_kernel(cuda_device):
+    """_k1_tile, which the check of the bricks reads, is the tile K1 is
+    built with (its library's stencil_tile)."""
+    from deal_and_ceed_on_gpu_torch.scripts import k1_sass
+    from deal_and_ceed_on_gpu_torch.utils.cuda_build import build_library
+
+    library = build_library(st.SOURCE)
+    for label, code in (("f64", 0), ("f32", 1), ("bf16", 2)):
+        for p in range(1, 9):
+            t = k1_sass.tile(library, code, p)
+            assert (t["x"], t["r"], t["th"], t["tw"]) == (*_k1_tile(label, p), 32), (label, p)
+
+
+def test_k1_sass_counts_the_plane_loop():
+    """scripts/k1_sass on a made-up listing: the loop that holds the barrier,
+    its instructions by kind and the bytes its LDS read."""
+    from deal_and_ceed_on_gpu_torch.scripts import k1_sass
+
+    listing = """
+        Function : _ZN12_GLOBAL__N_114stencil_kernelIffLi5ELb0ELb0ELb0EEEvNS_6ParamsIT_T0_EE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   LDS.64 R4, [R2+0x10] ;
+        /*0030*/                   LDS R5, [R2] ;
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0050*/                   FFMA R6, R4, R5, R6 ;
+        /*0060*/                   IMAD.MOV.U32 R7, RZ, RZ, R6 ;
+        /*0070*/                   STS [R3], R6 ;
+        /*0080*/                   LDS.128 R8, [R3+0x20] ;
+        /*0090*/               @P0 BRA 0x20 ;
+        /*00a0*/                   STG.E [R10.64], R6 ;
+        /*00b0*/                   EXIT ;
+        Function : _Z5otherv
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+"""
+    fns = k1_sass.sass_functions(listing)
+    name = next(n for n in fns if "stencil" in n)
+    assert k1_sass.kernel_key(name) == ("f32", "f", 5, False, False, False)
+    assert k1_sass.kernel_key("_Z5otherv") is None
+    loop = k1_sass.plane_loop(fns[name])
+    assert loop[0].startswith("LDS.64") and loop[-1] == "@P0 BRA 0x20"
+    kinds = k1_sass.classify(loop)
+    assert (kinds["LDS"], kinds["STS"], kinds["BAR"], kinds["FMA"], kinds["MOV"], kinds["total"]) == (3, 1, 1, 1, 1, 8)
+    assert k1_sass.shared_bytes(loop) == 8 + 4 + 16
+    with pytest.raises(ValueError, match="no loop"):
+        k1_sass.plane_loop(fns["_Z5otherv"])
