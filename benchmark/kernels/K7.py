@@ -1,10 +1,13 @@
-"""K7, the merged CG's update pass (``ops/cg_merged.py``, ``csrc/cg_merged.cu``),
-with the identity preconditioner.
+"""K7, the merged CG's update pass (``ops/cg_merged.py``, ``csrc/cg_merged.cu``).
 
-An iteration's call (x += a d, g += a h, d = -g + b d) reads x, g, d, h and
-writes x, g, d: 7 vectors, 6 operations a point. A solve's first call
-(``init``: d = -g) reads g and writes d: 2 vectors. ``units`` solves make
-``units`` first calls.
+An iteration's call (x += a d, g += a h, d = b d - diag g) reads x, g, d, h
+and writes x, g, d: 7 vectors, 6 operations a point; with a diagonal it
+also reads diag and multiplies by it: 8 vectors, 7 operations. A solve's
+first call (``init``: d = -diag g) reads g and writes d: 2 vectors, 1
+operation; with a diagonal 3 vectors, 2 operations. g and h are at the
+vectors' type; x, d and the diagonal (``diag_bytes``, 0 for none) at
+torch's promotion of the vectors' type and the diagonal's, the wider of
+the two. ``units`` solves make ``units`` first calls.
 """
 
 from benchmark.roofline import bound_s as _bound
@@ -13,5 +16,8 @@ MATCH = "update_kernel"
 
 
 def bound_s(ctx, calls, units):
-    n, s, c = ctx["n"], ctx["vector_bytes"], ctx["compute"]
-    return (calls - units) * _bound(7 * n * s, 6 * n, c) + units * _bound(2 * n * s, n, c)
+    n, s, m, c = ctx["n"], ctx["vector_bytes"], ctx["diag_bytes"], ctx["compute"]
+    xd = max(s, m)  # x and d
+    step = _bound(n * (3 * s + 4 * xd + m), n * (6 + (m > 0)), c)
+    init = _bound(n * (s + xd + m), n * (1 + (m > 0)), c)
+    return (calls - units) * step + units * init

@@ -1,6 +1,8 @@
 """Traffic kind "cg": whole solves of the configuration's control with the
 merged CG (``solve_cg_merged``: K7, the apply, K8 an iteration) on the
-operator's ``vmult``, back to back, each fenced.
+operator's ``vmult``, preconditioned by the diagonal that the
+configuration's preconditioner (``preconditioners/<name>.py``) gives the
+program, back to back, each fenced.
 
 Inputs: ``POOL`` right-hand sides, the load vectors of a fixed set of smooth
 fields (``LOAD_SEED``: ``f = 1 + sum_k c_k cos(2 pi n_k . xhat + phi_k)``),
@@ -13,7 +15,8 @@ seed (a field of new modes drawn from the seed moved step-64's count at
 refine 7 by up to 4 %).
 
 The check's numbers: ``out_gap``, ``|x - x_ref|_inf / |x_ref|_inf`` against
-the reference's own CG to the same control from the same right-hand side;
+the reference's own CG to the same control from the same right-hand side,
+with the diagonal the preconditioner gives the reference;
 ``res``, the true residual ``|b - A_ref x|_2 / |b|_2`` with the reference's
 operator. A cell compares what its limits name.
 """
@@ -25,24 +28,22 @@ import math
 import numpy as np
 import torch
 
-from benchmark.reference.brick import field_params, load_vector, operator
+from benchmark.reference.brick import field_params, load_vector
 from benchmark.reference.cg import cg
 from benchmark.reference.precision import precision
-from benchmark.system import DTYPES, POOL, inf_gap, sync
+from benchmark.system import DTYPES, POOL, inf_gap, preconditioner, reference_operator, sync
 
 SOLVER_KERNELS = ("K7", "K8")
 LOAD_SEED = 20
 PERTURBATION = 0.02
 WARMUP_STEPS = 3  # iterations of the warm-up solve: every kernel and shape of a solve
-# the program's preconditioners by the configuration's name: the diagonal it is handed
-PRECONDITIONERS = {"identity": None}
 
 
 def make_inputs(cell, seed: int, device) -> dict:
     """The pool of right-hand sides at the vectors' precision and each one's
     2-norm (float64, for the solver's control)."""
     vec = DTYPES[cell.traffic["vectors"]]
-    ref = operator(cell.config, torch.float64, device)
+    ref = reference_operator(cell.config, torch.float64, device)
     pool, norms = [], []
     for j in range(POOL):
         rng = np.random.default_rng(np.random.SeedSequence([seed % 2**64, j]))
@@ -71,9 +72,11 @@ def make_unit(cell, op, inputs: dict, device):
     from deal_and_ceed_on_gpu_torch.solvers import cg_merged
 
     cfg, t = cell.config, cell.traffic
-    if cfg["preconditioner"] not in PRECONDITIONERS:
-        raise ValueError(f"the benchmark gives the program no preconditioner {cfg['preconditioner']!r}")
-    diag = PRECONDITIONERS[cfg["preconditioner"]]
+    diag = preconditioner(cfg["preconditioner"]).program(op)
+    # kernel_ctx counts K7's and K8's reads of a diagonal at the compute type
+    if diag is not None and diag.dtype != DTYPES[t["compute"]]:
+        raise ValueError(f"preconditioner {cfg['preconditioner']!r} gives a {diag.dtype} diagonal, "
+                         f"not the compute type {t['compute']}")
     dot = DTYPES[t["dot_dtype"]] if t.get("dot_dtype") else None
     pool, norms = inputs["pool"], inputs["norms"]
     controls = [program_control(cfg, nb) for nb in norms]
@@ -101,12 +104,13 @@ def reference_units(cell, inputs: dict, indices, device, prec: str = "float64") 
     (float64: the reference; lower: a control in the program's place)."""
     cfg = cell.config
     c = cfg["control"]
-    ref = operator(cfg, precision(prec)[0], device)
+    dt = precision(prec)[0]
+    ref = reference_operator(cfg, dt, device)
+    diag = preconditioner(cfg["preconditioner"]).reference(ref, dt)
     out = {}
     for j in sorted(set(indices)):
         x, its, _ = cg(ref.apply, inputs["pool"][j].to(torch.float64), c["max_steps"],
-                       c.get("tolerance_of_b", 0.0) * inputs["norms"][j], c.get("reduction", 0.0), prec,
-                       cfg["preconditioner"])
+                       c.get("tolerance_of_b", 0.0) * inputs["norms"][j], c.get("reduction", 0.0), prec, diag)
         out[j] = (x, its)
     return out
 
@@ -120,7 +124,7 @@ def numbers(cell, samples, inputs: dict, device) -> dict:
         ref = reference_units(cell, inputs, [j for j, _, _ in samples], device)
         out["out_gap"] = max(inf_gap(x, ref[j][0]) for j, x, _ in samples)
     if "res" in names:
-        A = operator(cell.config, torch.float64, device)
+        A = reference_operator(cell.config, torch.float64, device)
         res = []
         for j, x, _ in samples:
             b = inputs["pool"][j].to(torch.float64)

@@ -13,10 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference.brick import operator
 from benchmark.reference.cg import chain
 from benchmark.reference.precision import precision
-from benchmark.system import DTYPES, POOL, inf_gap, seeded_normal, sync
+from benchmark.system import DTYPES, POOL, geometry, inf_gap, reference_operator, seeded_normal, sync
 
 SOLVER_KERNELS = ()
 CHAIN = 200
@@ -25,15 +24,12 @@ WARMUP_APPLIES = 3
 
 def chain_scale(cfg: dict, iterations: int = 60) -> float:
     """The chained vmult's factor 1 / lambda_max, with lambda_max from a
-    power iteration of the reference on a small brick of the same element
-    size (the largest eigenvalue is that of the finest local mode, so it
-    barely depends on the brick's extent); on the CPU, in float64, from
-    fixed interior values: the same for every seed."""
-    m = cfg["mesh"]["n_elements"]
-    small = [min(v, k) for v, k in zip(m, (6, 4, 4))]
-    h = [(hi - lo) / v for lo, hi, v in zip(cfg["mesh"]["lower"], cfg["mesh"]["upper"], m)]
-    mesh = {"n_elements": small, "lower": [0.0] * 3, "upper": [hh * v for hh, v in zip(h, small)]}
-    op = operator({**cfg, "mesh": mesh}, torch.float64, "cpu")
+    power iteration of the reference on the geometry's cut of the
+    configuration to a few elements of the same size (the largest
+    eigenvalue is that of the finest local mode, so it barely depends on the
+    mesh's extent); on the CPU, in float64, from fixed interior values: the
+    same for every seed."""
+    op = reference_operator(geometry(cfg["geometry"]).small(cfg, (6, 4, 4)), torch.float64, "cpu")
     u = op.mask.to(torch.float64)
     lam = 1.0
     for _ in range(iterations):
@@ -45,7 +41,7 @@ def chain_scale(cfg: dict, iterations: int = 60) -> float:
 
 def make_inputs(cell, seed: int, device) -> dict:
     vec = DTYPES[cell.traffic["vectors"]]
-    mask = operator(cell.config, torch.float64, device).mask
+    mask = reference_operator(cell.config, torch.float64, device).mask
     pool = []
     for j in range(POOL):
         r = seeded_normal(mask.shape, seed, j, device) * mask
@@ -78,7 +74,7 @@ def make_unit(cell, op, inputs: dict, device):
 def reference_units(cell, inputs: dict, indices, device, prec: str = "float64") -> dict:
     """``{j: (last vector, applies)}``: the reference's chain from start
     vector j at the precision ``prec`` names."""
-    ref = operator(cell.config, precision(prec)[0], device, inputs["scale"])
+    ref = reference_operator(cell.config, precision(prec)[0], device, inputs["scale"])
     return {j: (chain(ref.apply, inputs["pool"][j].to(torch.float64), CHAIN, prec), CHAIN)
             for j in sorted(set(indices))}
 

@@ -26,10 +26,7 @@ import torch
 
 from .basis import tables
 
-__all__ = ["BrickOperator", "COEFFICIENTS", "GEOMETRIES", "field_params", "load_vector", "operator", "seed_int"]
-
-# the geometries the reference works out: a uniform brick from its bounds
-GEOMETRIES = ("brick",)
+__all__ = ["BrickOperator", "COEFFICIENTS", "field_params", "load_vector", "seed_int"]
 
 
 def _step64(x, y, z):
@@ -196,15 +193,6 @@ class _no_tf32:
         return False
 
 
-def operator(cfg: dict, dtype=torch.float64, device="cpu", scale: float = 1.0) -> BrickOperator:
-    """The operator of a configuration (``configs/<name>.json``); refuses a
-    ``geometry`` it does not work out."""
-    if cfg["geometry"] not in GEOMETRIES:
-        raise ValueError(f"the reference has no geometry {cfg['geometry']!r} (it has {', '.join(GEOMETRIES)})")
-    return BrickOperator(cfg["mesh"], cfg["degree"], cfg["n_q"], cfg["rule"], cfg.get("coefficient"), dtype, device,
-                         scale)
-
-
 def field_params(seed: int, index: int, modes: int = 3) -> list[tuple]:
     """The smooth load ``f = 1 + sum_k c_k cos(2 pi n_k . xhat + phi_k)`` of
     right-hand side ``index``: integer wave vectors n_k in [0, 3]^3,
@@ -215,9 +203,10 @@ def field_params(seed: int, index: int, modes: int = 3) -> list[tuple]:
              float(rng.uniform(0.0, 2 * math.pi))) for _ in range(modes)]
 
 
-def load_vector(op: BrickOperator, params: list[tuple]) -> torch.Tensor:
+def load_vector(op, params: list[tuple]) -> torch.Tensor:
     """The right-hand side of ``field_params`` on ``op``'s mesh, flat, at
-    ``op.dtype``."""
+    ``op.dtype``: ``op`` gives the bounds ``lower`` and ``upper`` that
+    normalise the coordinates and ``integrate_field`` (``BrickOperator``'s)."""
     lo, hi = op.lower, op.upper
 
     def f(X, Y, Z):

@@ -1,4 +1,5 @@
-"""Textbook conjugate gradients (Hestenes-Stiefel, x0 = 0, identity preconditioner) and the plain chained apply."""
+"""Textbook (preconditioned) conjugate gradients (Hestenes-Stiefel, x0 = 0, a diagonal preconditioner or none)
+and the plain chained apply."""
 
 from __future__ import annotations
 
@@ -8,27 +9,27 @@ import torch
 
 from .precision import precision
 
-__all__ = ["PRECONDITIONERS", "cg", "chain"]
-
-PRECONDITIONERS = ("identity",)
+__all__ = ["cg", "chain"]
 
 
 def cg(apply, b: torch.Tensor, max_steps: int, tolerance: float = 0.0, reduction: float = 0.0,
-       prec: str = "float64", preconditioner: str = "identity"):
+       prec: str = "float64", diag: torch.Tensor | None = None):
     """Solve ``A x = b`` from x = 0 while ``|r| > max(tolerance, reduction
     |b|)`` and fewer than ``max_steps`` iterations have run (deal.II's
-    ``SolverControl`` / ``ReductionControl``). Vectors are kept at the
-    precision ``prec`` names. Returns ``(x, iterations, |r|)``; ``|r|`` is
-    the recurrence's residual norm. Refuses a ``preconditioner`` other
-    than the identity."""
-    if preconditioner not in PRECONDITIONERS:
-        raise ValueError(f"the reference CG has no preconditioner {preconditioner!r}")
+    ``SolverControl`` / ``ReductionControl``), preconditioned by ``z = diag
+    r`` (``diag`` a flat vector, or None: plain CG). Vectors, ``diag`` too,
+    are kept at the precision ``prec`` names. Returns ``(x, iterations,
+    |r|)``; ``|r|`` is the recurrence's residual 2-norm, which the stopping
+    test reads with a diagonal too (as the program's merged CG does)."""
     dt, store, dot = precision(prec)
+    m = None if diag is None else store(diag.reshape(-1).to(dt))
     b = store(b.to(dt))
     x = torch.zeros_like(b)
     r = b.clone()
-    p = r.clone()
-    rr = dot(r, r)
+    z = r if m is None else store(m * r)
+    p = z.clone()
+    rz = dot(r, z)
+    rr = rz if m is None else dot(r, r)
     res0 = math.sqrt(float(rr))
     tol = max(tolerance, reduction * res0)
     it = 0
@@ -36,12 +37,14 @@ def cg(apply, b: torch.Tensor, max_steps: int, tolerance: float = 0.0, reduction
     while it < max_steps and res > tol:
         it += 1
         q = store(apply(p).reshape(-1).to(dt))
-        alpha = rr / dot(p, q)
+        alpha = rz / dot(p, q)
         x = store(x + alpha * p)
         r = store(r - alpha * q)
-        rr_new = dot(r, r)
-        p = store(r + (rr_new / rr) * p)
-        rr = rr_new
+        z = r if m is None else store(m * r)
+        rz_new = dot(r, z)
+        rr = rz_new if m is None else dot(r, r)
+        p = store(z + (rz_new / rz) * p)
+        rz = rz_new
         res = math.sqrt(float(rr))
     return x, it, res
 

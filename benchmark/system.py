@@ -6,10 +6,14 @@ A cell is an entry of ``BENCHMARK.json``'s ``workloads``: a configuration
 operator, its coefficient and the program's backend for it, the solver's
 control and preconditioner), a traffic mix (``workloads/<traffic>.json``:
 its ``kind``, the vectors' precision, the check's sample, the controls) and
-its limits (``limits/<cell>.json``). The traffic's kind is a module of its
-own, ``kinds/<kind>.py``, found by name: it makes the inputs, drives one
-unit of work through the program (a whole solve, a whole chain of applies),
-and works out the numbers the check compares with the plain reference.
+its limits (``limits/<cell>.json``). The traffic's kind, the configuration's
+geometry and its preconditioner are modules of their own, found by name
+(``kinds/<kind>.py``, ``geometries/<geometry>.py``,
+``preconditioners/<preconditioner>.py``). A kind makes the inputs, drives
+one unit of work through the program (a whole solve, a whole chain of
+applies), and works out the numbers the check compares with the plain
+reference. A geometry gives the program its mesh and the reference its
+operator; a preconditioner gives each side its diagonal.
 
 Every cell is a closed loop with one caller: whole units back to back,
 each fenced by a synchronisation, as an HPC user runs them. Unit i takes
@@ -28,6 +32,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import random
 import time
 from dataclasses import dataclass, field
@@ -39,9 +44,9 @@ from . import roofline
 from .reference.brick import COEFFICIENTS, seed_int
 from .trace import Stretch
 
-__all__ = ["DTYPES", "GEOMETRIES", "POOL", "TRACE_AT", "TRACE_UNITS", "Cell", "RunData", "Unit", "build_program",
-           "inf_gap", "judge", "kernel_ctx", "kind", "load_cell", "metric_reader", "run", "seeded_normal",
-           "sync"]
+__all__ = ["DTYPES", "PARTS", "POOL", "TRACE_AT", "TRACE_UNITS", "Cell", "RunData", "Unit", "build_program",
+           "geometry", "inf_gap", "judge", "kernel_ctx", "kind", "load_cell", "metric_reader", "preconditioner",
+           "reference_operator", "run", "seeded_normal", "sync"]
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -51,20 +56,43 @@ POOL = 4  # distinct inputs a run cycles through
 TRACE_AT = 0.4  # the traced stretch starts with the first unit past this share of the window
 TRACE_UNITS = 2  # whole units the stretch records, after the profiler's warm-up on one apply
 
-# the geometries the program is built on here: a uniform brick from its bounds
-GEOMETRIES = ("brick",)
+# the folders that hold a cell's parts, a module a name: what a part is -> its folder
+PARTS = {"traffic kind": HERE / "kinds", "geometry": HERE / "geometries", "preconditioner": HERE / "preconditioners"}
 
 
 @functools.cache
-def kind(name: str):
-    """The module ``kinds/<name>.py`` of a traffic kind."""
-    path = HERE / "kinds" / f"{name}.py"
+def _part(folder: Path, name: str, what: str):
+    path = folder / f"{name}.py"
     if not path.is_file():
-        raise ValueError(f"no traffic kind {name!r} (no {path.relative_to(ROOT)})")
-    spec = importlib.util.spec_from_file_location(f"benchmark_kind_{name}", path)
+        raise ValueError(f"no {what} {name!r} (no {os.path.relpath(path, ROOT)})")
+    spec = importlib.util.spec_from_file_location(f"benchmark_{what.replace(' ', '_')}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def kind(name: str):
+    """The module ``kinds/<name>.py`` of a traffic kind."""
+    return _part(PARTS["traffic kind"], name, "traffic kind")
+
+
+def geometry(name: str):
+    """The module ``geometries/<name>.py`` of a configuration's geometry:
+    ``program_mesh(cfg)``, ``reference_operator(cfg, dtype, device, scale)``,
+    ``n_dofs(cfg)``, ``small(cfg, n_elements)``."""
+    return _part(PARTS["geometry"], name, "geometry")
+
+
+def preconditioner(name: str):
+    """The module ``preconditioners/<name>.py`` of a configuration's
+    preconditioner: ``DIAGONAL`` (whether it gives a vector),
+    ``program(op)``, ``reference(ref_op, dtype)``."""
+    return _part(PARTS["preconditioner"], name, "preconditioner")
+
+
+def reference_operator(cfg: dict, dtype=torch.float64, device="cpu", scale: float = 1.0):
+    """The plain reference's operator of a configuration, from its geometry."""
+    return geometry(cfg["geometry"]).reference_operator(cfg, dtype, device, scale)
 
 
 @dataclass
@@ -136,19 +164,15 @@ def metric_reader(name: str):
 
 # ------------------------------------------------------------------ program
 def build_program(cell: Cell, scale: float, device):
-    """The system under test through its public API: the brick, the space,
-    the operator with the configuration's coefficient on its backend
-    (``op.vmult``), scaled by ``scale``. Refuses a geometry or coefficient
-    it is not given here."""
+    """The system under test through its public API: the geometry's mesh,
+    the space, the operator with the configuration's coefficient on its
+    backend (``op.vmult``), scaled by ``scale``. Refuses a geometry or
+    coefficient it is not given here."""
     from deal_and_ceed_on_gpu_torch import models
     from deal_and_ceed_on_gpu_torch.fe_space import FESpace
-    from deal_and_ceed_on_gpu_torch.mesh import BrickMesh
 
     cfg, t = cell.config, cell.traffic
-    if cfg["geometry"] not in GEOMETRIES:
-        raise ValueError(f"the benchmark builds no geometry {cfg['geometry']!r} (it builds {', '.join(GEOMETRIES)})")
-    m = cfg["mesh"]
-    mesh = BrickMesh(tuple(m["n_elements"]), tuple(float(v) for v in m["lower"]), tuple(float(v) for v in m["upper"]))
+    mesh = geometry(cfg["geometry"]).program_mesh(cfg)
     space = FESpace.create(mesh, cfg["degree"], n_q=cfg["n_q"], rule=cfg["rule"], dtype=DTYPES[t["compute"]],
                            device=device)
     kw = {"backend": cfg["backend"]}
@@ -251,12 +275,18 @@ def sync(device):
 
 
 def kernel_ctx(cell: Cell) -> dict:
+    """What ``kernels/<label>.py`` counts a cell's work from: the DoFs ``n``
+    (the geometry's), the element, the geometry's and the preconditioner's
+    names, the bytes of a vector, of a coefficient and of the diagonal (0
+    where the preconditioner gives none; the program's diagonal is at the
+    compute type, ``kinds/cg.make_unit``)."""
     cfg, t = cell.config, cell.traffic
-    mx, my, mz = cfg["mesh"]["n_elements"]
-    p = cfg["degree"]
-    return {"n": (mx * p + 1) * (my * p + 1) * (mz * p + 1), "degree": p, "n_q": cfg["n_q"],
-            "n_elements": (mx, my, mz), "value_table": cfg.get("coefficient") is not None,
-            "vector_bytes": DTYPES[t["vectors"]].itemsize, "coef_bytes": DTYPES[t["compute"]].itemsize,
+    coef_bytes = DTYPES[t["compute"]].itemsize
+    return {"n": geometry(cfg["geometry"]).n_dofs(cfg), "degree": cfg["degree"], "n_q": cfg["n_q"],
+            "n_elements": tuple(cfg["mesh"]["n_elements"]), "value_table": cfg.get("coefficient") is not None,
+            "geometry": cfg["geometry"], "preconditioner": cfg["preconditioner"],
+            "vector_bytes": DTYPES[t["vectors"]].itemsize, "coef_bytes": coef_bytes,
+            "diag_bytes": coef_bytes if preconditioner(cfg["preconditioner"]).DIAGONAL else 0,
             "compute": t["compute"]}
 
 

@@ -69,6 +69,45 @@ def test_cg_against_the_programs_solver():
     assert res <= 1e-12 * float(torch.linalg.vector_norm(b))
 
 
+def _textbook_cg(apply, b, max_steps, tolerance=0.0, reduction=0.0, prec="float64"):
+    """Plain CG, operation for operation as ``cg`` runs it without a diagonal."""
+    from benchmark.reference.precision import precision
+
+    dt, store, dot = precision(prec)
+    b = store(b.to(dt))
+    x = torch.zeros_like(b)
+    r = b.clone()
+    p = r.clone()
+    rr = dot(r, r)
+    res0 = math.sqrt(float(rr))
+    tol = max(tolerance, reduction * res0)
+    it = 0
+    res = res0
+    while it < max_steps and res > tol:
+        it += 1
+        q = store(apply(p).reshape(-1).to(dt))
+        alpha = rr / dot(p, q)
+        x = store(x + alpha * p)
+        r = store(r - alpha * q)
+        rr_new = dot(r, r)
+        p = store(r + (rr_new / rr) * p)
+        rr = rr_new
+        res = math.sqrt(float(rr))
+    return x, it, res
+
+
+@pytest.mark.parametrize("prec, iterations", [("float64", 67), ("float32", 72), ("bfloat16", 76)])
+def test_cg_without_a_diagonal_is_plain_cg(prec, iterations):
+    # every cell without a preconditioner keeps its reference answers bit for bit
+    m, up, p, nq, rule, _, coef, _ = CASES[1]
+    ref = _ref(m, up, p, nq, rule, coef)
+    b = load_vector(ref, field_params(11, 0))
+    x, its, res = cg(ref.apply, b, 2000, 0.0, 1e-12, prec)
+    x0, its0, res0 = _textbook_cg(ref.apply, b, 2000, 0.0, 1e-12, prec)
+    assert its == its0 == iterations and res == res0 and torch.equal(x, x0)
+    assert cg(ref.apply, b, 2000, 0.0, 1e-12, prec, None)[1] == iterations
+
+
 def test_chain_scale_keeps_the_chain_in_range():
     from benchmark.system import kind, load_cell
 

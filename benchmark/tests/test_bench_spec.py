@@ -94,22 +94,21 @@ def test_bounds():
 
 @pytest.mark.parametrize("name", [c["name"] for c in SPEC["configs"]])
 def test_a_configurations_stated_sizes_are_its_mesh(name):
-    # dofs is documentation, held to what the mesh and degree give
+    # dofs is documentation, held to what the geometry gives
+    from benchmark.system import geometry
+
     cfg = json.loads((ROOT / next(c["file"] for c in SPEC["configs"] if c["name"] == name)).read_text())
     assert cfg["name"] == name
-    m, p = cfg["mesh"]["n_elements"], cfg["degree"]
-    assert cfg["dofs"] == (m[0] * p + 1) * (m[1] * p + 1) * (m[2] * p + 1)
+    assert cfg["dofs"] == geometry(cfg["geometry"]).n_dofs(cfg)
 
 
-@pytest.mark.parametrize("key, value", [("geometry", "mapped"), ("preconditioner", "jacobi")])
+@pytest.mark.parametrize("key, value", [("geometry", "no_such_geometry"), ("preconditioner", "no_such_preconditioner")])
 def test_what_neither_side_supports_is_refused(key, value, tiny_cell):
     # a configuration's geometry and preconditioner reach the program and the
-    # reference; a value one of them does not work out stops the run
+    # reference through one loader each; a name with no file stops the run
     import copy
 
-    from benchmark.reference.brick import operator
-    from benchmark.reference.cg import cg
-    from benchmark.system import build_program, run
+    from benchmark.system import build_program, preconditioner, reference_operator, run
 
     cell = tiny_cell("bp5_c40_f64_cg")
     cell.config = {**copy.deepcopy(cell.config), key: value}
@@ -117,11 +116,9 @@ def test_what_neither_side_supports_is_refused(key, value, tiny_cell):
         run(cell, 1, 0.0, False, "cpu", 0.0)
     if key == "geometry":
         with pytest.raises(ValueError, match=value):
-            operator(cell.config)
+            reference_operator(cell.config)
         with pytest.raises(ValueError, match=value):
             build_program(cell, 1.0, "cpu")
     else:
-        import torch
-
         with pytest.raises(ValueError, match=value):
-            cg(lambda v: v, torch.ones(3, dtype=torch.float64), 3, preconditioner=value)
+            preconditioner(value)
